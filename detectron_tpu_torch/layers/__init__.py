@@ -1,1 +1,1 @@
-"""Proposal generation."""
+"""Proposal generation and the training targets."""

@@ -1,10 +1,12 @@
-"""Faster / Mask R-CNN inference: the two-stage skeleton.
+"""Faster / Mask R-CNN: the two-stage skeleton, its eval and train passes.
 
-The port of the eval path of ``detectron_tpu/models/faster_rcnn.py``:
-backbone + FPN -> RPN per level -> proposals -> 7x7 RoIAlign -> 2xFC box
-head -> softmax + per-class decode -> class-aware NMS -> (14x14 RoIAlign ->
-mask head -> own-class sigmoid). Every output has a fixed number of slots
-and a validity mask, as in the JAX package.
+The port of ``detectron_tpu/models/faster_rcnn.py``. Eval: backbone + FPN
+-> RPN per level -> proposals -> 7x7 RoIAlign -> 2xFC box head -> softmax
++ per-class decode -> class-aware NMS -> (14x14 RoIAlign -> mask head ->
+own-class sigmoid). Train: the RPN losses on sampled anchors, proposals
+from the detached RPN outputs, sampled RoIs, the box losses and the mask
+loss on the foreground slots. Every output has a fixed number of slots and
+a validity mask, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from detectron_tpu_torch.layers.anchor_target import anchor_target
+from detectron_tpu_torch.layers.mask_target import crop_gt_masks_batched
 from detectron_tpu_torch.layers.proposal import Proposals, generate_proposals, topk_desc
+from detectron_tpu_torch.layers.proposal_target import RoiTargets, sample_rois
+from detectron_tpu_torch.models import losses
 from detectron_tpu_torch.models.fpn import FPN
 from detectron_tpu_torch.models.heads import BoxHead, MaskHead, RPNHead
 from detectron_tpu_torch.models.resnet import ResNet
@@ -51,7 +57,8 @@ def rpn_anchor_generator(cfg) -> AnchorGenerator:
 class TwoStageDetector(nn.Module):
     """Backbone + FPN + RPN + box head (+ mask head), with the JAX module's
     methods: ``features``, ``rpn``, ``box``, ``mask``. ``forward`` is the
-    whole eval pass (:func:`faster_rcnn_eval_forward`)."""
+    whole eval pass (:func:`faster_rcnn_eval_forward`) or, given targets,
+    the training pass (:func:`faster_rcnn_train_forward`)."""
 
     def __init__(self, cfg, include_mask: bool = False):
         super().__init__()
@@ -112,7 +119,15 @@ class TwoStageDetector(nn.Module):
     def mask(self, levels, rois):
         return self.mask_head(self._pool(levels, rois, self.cfg.roi.mask_pool_size))
 
-    def forward(self, images, image_hw, with_masks: bool = False):
+    def forward(self, images, image_hw, with_masks: bool = False, targets=None, draws=None,
+                mark=None):
+        """The eval pass, or with ``targets`` (``gt_boxes``, ``gt_classes``
+        and optionally ``gt_masks``) and ``draws`` the training pass's
+        loss dict (``mark``: see :func:`faster_rcnn_train_forward`)."""
+        if targets is not None:
+            return faster_rcnn_train_forward(
+                self, images, image_hw, targets["gt_boxes"], targets["gt_classes"],
+                draws, self.cfg, gt_masks=targets.get("gt_masks"), mark=mark)
         return faster_rcnn_eval_forward(self, images, image_hw, self.cfg,
                                         with_masks=with_masks)
 
@@ -123,13 +138,10 @@ def build_two_stage(cfg, include_mask: bool) -> TwoStageDetector:
 
 def proposals_from_rpn(scores_pl, deltas_pl, anchors_pl, image_hw, cfg,
                        train: bool = False) -> Proposals:
-    if train:
-        raise NotImplementedError("training is not ported yet: ROADMAP.md, "
-                                  "Queue 1, slice B")
     return generate_proposals(
         scores_pl, deltas_pl, anchors_pl, image_hw,
-        pre_nms_topk=cfg.rpn.pre_nms_topk_test,
-        post_nms_topk=cfg.rpn.post_nms_topk_test,
+        pre_nms_topk=cfg.rpn.pre_nms_topk_train if train else cfg.rpn.pre_nms_topk_test,
+        post_nms_topk=cfg.rpn.post_nms_topk_train if train else cfg.rpn.post_nms_topk_test,
         nms_thresh=cfg.rpn.nms_thresh,
         min_size=cfg.rpn.min_size,
     )
@@ -181,6 +193,128 @@ def fastrcnn_inference(cls_logits, reg, rois, roi_valid, image_hw, cfg) -> Detec
                             torch.zeros_like(keep, dtype=cand_cls.dtype)),
         valid=keep,
     )
+
+
+class TrainDraws(NamedTuple):
+    """The uniform draws in ``[0, 1)`` that one training forward samples
+    with: the RPN's positive and negative anchor samples ``[B, N]`` (N
+    anchors) and the RoI head's foreground and background samples
+    ``[B, P + G]`` (P proposals, G gt slots)."""
+
+    rpn_pos: torch.Tensor
+    rpn_neg: torch.Tensor
+    roi_fg: torch.Tensor
+    roi_bg: torch.Tensor
+
+
+def make_train_draws(generator: torch.Generator, batch: int, num_anchors: int,
+                     num_candidates: int) -> TrainDraws:
+    """Draws for one step from ``generator``, on its device."""
+    def draw(n):
+        return torch.rand((batch, n), generator=generator, device=generator.device)
+
+    return TrainDraws(draw(num_anchors), draw(num_anchors), draw(num_candidates),
+                      draw(num_candidates))
+
+
+def rpn_losses(scores_pl, deltas_pl, anchors, gt_boxes, gt_classes, draws: TrainDraws, cfg):
+    """RPN objectness and box losses on a ``rpn.batch_per_image`` anchor
+    sample per image."""
+    scores = torch.cat(scores_pl, dim=1)  # [B, N]
+    deltas = torch.cat(deltas_pl, dim=1)  # [B, N, 4]
+    tgt = anchor_target(
+        anchors, gt_boxes, gt_classes, draws.rpn_pos, draws.rpn_neg,
+        pos_iou=cfg.rpn.positive_iou, neg_iou=cfg.rpn.negative_iou,
+        force_match=True, sample_size=cfg.rpn.batch_per_image,
+        pos_fraction=cfg.rpn.positive_fraction)
+    labels = (tgt.labels > 0).to(scores.dtype)
+    ce = losses.optax_sigmoid_ce(scores, labels)
+    norm = tgt.cls_weights.sum().clamp_min(1.0)
+    cls_loss = (ce * tgt.cls_weights).sum() / norm
+    box_l = losses.smooth_l1(deltas, tgt.box_targets, sigma=cfg.rpn.smooth_l1_sigma)
+    box_loss = (box_l.sum(-1) * tgt.box_weights).sum() / norm
+    return {"loss_rpn_cls": cls_loss, "loss_rpn_box": box_loss}
+
+
+def frcnn_box_losses(cls_logits, reg, roi_targets: RoiTargets, cfg):
+    """Softmax cross-entropy and class-aware smooth-L1 over the sampled RoIs."""
+    b, s = cls_logits.shape[:2]
+    norm = roi_targets.weights.sum().clamp_min(1.0)
+    cls_loss = losses.softmax_cross_entropy(
+        cls_logits.reshape(b * s, -1), roi_targets.labels.reshape(-1),
+        weights=roi_targets.weights.reshape(-1), normalizer=norm)
+    if reg.shape[2] == 1:
+        sel = reg[:, :, 0]
+    else:
+        k = torch.clamp(roi_targets.labels.long(), 0, reg.shape[2] - 1)
+        sel = torch.take_along_dim(reg, k[..., None, None], dim=2)[:, :, 0]
+    box_l = losses.smooth_l1(sel, roi_targets.box_targets, sigma=cfg.roi.smooth_l1_sigma)
+    box_loss = (box_l.sum(-1) * roi_targets.box_weights).sum() / norm
+    return {"loss_cls": cls_loss, "loss_box": box_loss}
+
+
+def _no_mark(stage: str) -> None:
+    pass
+
+
+def faster_rcnn_train_forward(model: TwoStageDetector, images, image_hw, gt_boxes,
+                              gt_classes, draws, cfg, anchors_pl=None, gt_masks=None,
+                              mark=None):
+    """One training forward: the loss dict of the RPN, the box head and,
+    with ``gt_masks``, the mask head. ``draws`` is a :class:`TrainDraws`
+    or a ``torch.Generator`` to make one from. ``mark``, if given, is
+    called with each stage's name once the stage's work has been issued,
+    so that a caller can time the stages (with CUDA events, say)."""
+    mark = mark or _no_mark
+    if anchors_pl is None:
+        anchors_pl = model.anchors(images.shape[1:3], images.device)
+    anchors_all = torch.cat(anchors_pl, dim=0)
+    if isinstance(draws, torch.Generator):
+        draws = make_train_draws(
+            draws, images.shape[0], anchors_all.shape[0],
+            cfg.rpn.post_nms_topk_train + gt_boxes.shape[1])
+    mark("anchors+draws")
+
+    levels = model.features(images)
+    mark("backbone+fpn")
+    scores_pl, deltas_pl = model.rpn(levels)
+    mark("rpn head")
+    loss_dict = rpn_losses(scores_pl, deltas_pl, anchors_all, gt_boxes, gt_classes,
+                           draws, cfg)
+    mark("rpn targets+loss")
+    props = proposals_from_rpn([s.detach() for s in scores_pl],
+                               [d.detach() for d in deltas_pl],
+                               anchors_pl, image_hw, cfg, train=True)
+    mark("proposals (K1)")
+    tgt = sample_rois(
+        props.boxes, props.valid, gt_boxes, gt_classes, draws.roi_fg, draws.roi_bg,
+        sample_size=cfg.roi.batch_per_image,
+        positive_fraction=cfg.roi.positive_fraction,
+        positive_iou=cfg.roi.positive_iou,
+        negative_iou_hi=cfg.roi.negative_iou_hi,
+        negative_iou_lo=cfg.roi.negative_iou_lo,
+        box_weights=cfg.roi.bbox_reg_weights)
+    mark("roi sampling")
+    cls_logits, reg = model.box(levels, tgt.rois)
+    loss_dict.update(frcnn_box_losses(cls_logits, reg, tgt, cfg))
+    mark("box: align (K2) + head + loss")
+
+    if model.include_mask and gt_masks is not None:
+        # the mask loss sees only fg RoIs, and the sampler puts the selected
+        # fg in the front slots: the mask head runs on the fg capacity
+        cap = max(int(cfg.roi.batch_per_image * cfg.roi.positive_fraction), 1)
+        rois_m = tgt.rois[:, :cap]
+        mask_logits = model.mask(levels, rois_m)
+        mask_targets = crop_gt_masks_batched(gt_masks, gt_boxes, rois_m,
+                                             tgt.matched_idx[:, :cap],
+                                             resolution=cfg.mask.resolution)
+        b, s = tgt.labels[:, :cap].shape
+        loss_dict["loss_mask"] = losses.mask_bce_loss(
+            mask_logits.reshape(b * s, *mask_logits.shape[2:]),
+            mask_targets.reshape(b * s, *mask_targets.shape[2:]),
+            tgt.labels[:, :cap].reshape(-1), tgt.box_weights[:, :cap].reshape(-1))
+        mark("mask: targets + align (K2) + head + loss")
+    return loss_dict
 
 
 def faster_rcnn_eval_forward(model: TwoStageDetector, images, image_hw, cfg,

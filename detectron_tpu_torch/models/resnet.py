@@ -70,12 +70,25 @@ class Bottleneck(nn.Module):
         return F.relu(out + residual)
 
 
+def resnet_param_is_frozen(name: str, frozen_stages: int = 1) -> bool:
+    """True for a backbone parameter that training keeps fixed: the stem
+    ``conv1`` and every parameter of the stages ``<= frozen_stages``
+    (``detectron_tpu/models/resnet.py::resnet_param_is_frozen``; the frozen
+    BatchNorm statistics are buffers here, never parameters)."""
+    if name.startswith("conv1."):
+        return True
+    return any(name.startswith(f"layer{s}.") for s in range(1, frozen_stages + 1))
+
+
 class ResNet(nn.Module):
     """NCHW images -> ``{"c2", "c3", "c4", "c5"}`` (strides 4/8/16/32).
 
-    ``frozen_stages`` and ``remat`` only concern training and are accepted
-    as they are; ``stem="s2d"`` is an exact re-layout of the same 7x7/2
-    conv, so it runs as the plain stem.
+    The parameters that :func:`resnet_param_is_frozen` names are made with
+    ``requires_grad=False``: no gradient reaches them, as the JAX
+    package's ``stop_gradient`` after the frozen stages and its optimizer
+    mask give. ``remat`` is accepted and changes nothing; ``stem="s2d"``
+    is an exact re-layout of the same 7x7/2 conv, so it runs as the plain
+    stem.
     """
 
     def __init__(self, depth: str = "resnet50", frozen_stages: int = 1,
@@ -104,6 +117,9 @@ class ResNet(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             features *= 2
         self.out_channels = [256, 512, 1024, 2048]
+        for name, param in self.named_parameters():
+            if resnet_param_is_frozen(name, frozen_stages):
+                param.requires_grad_(False)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

@@ -1,6 +1,6 @@
 """Model zoo / detector factory: the config-driven public API.
 
-The port of ``detectron_tpu/models/zoo.py`` for inference:
+The port of ``detectron_tpu/models/zoo.py`` for the two-stage detectors:
 ``build_detector(cfg, device=None)`` returns a :class:`Detector` whose
 ``predict_fn(params, batch)`` takes
 
@@ -9,10 +9,13 @@ The port of ``detectron_tpu/models/zoo.py`` for inference:
       "image_hw": [B, 2] float32 true (unpadded) sizes,
     }
 
-and returns ``(Detections, mask_probs [B, D, 28, 28] | None)``. ``params``
-is a state dict (``Detector.init`` or ``utils.weights.from_jax_params``),
-or None for the module's own weights. The default device is the card;
-without CUDA that default raises, it does not fall back to the CPU.
+and returns ``(Detections, mask_probs [B, D, 28, 28] | None)``, and whose
+``loss_fn(params, batch, draws)`` takes the batch with ``gt_boxes``,
+``gt_classes`` and ``gt_masks`` added and returns ``(total, loss_dict)``.
+``params`` is a state dict (``Detector.init`` or
+``utils.weights.from_jax_params``), or None for the module's own weights.
+The default device is the card; without CUDA that default raises, it does
+not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -88,6 +91,38 @@ class Detector:
                 arr = (rng.standard_normal(value.shape) * std).astype(np.float32)
             params[key] = torch.as_tensor(arr, device=self.device)
         return params
+
+    def batch_to_device(self, batch) -> dict:
+        """The batch's arrays as tensors on the detector's device (class
+        ids int64, everything else float32)."""
+        return {k: torch.as_tensor(v, device=self.device,
+                                   dtype=torch.int64 if k == "gt_classes" else torch.float32)
+                for k, v in batch.items()}
+
+    def loss_fn(self, params, batch, draws, mark=None):
+        """Returns ``(total, loss_dict)`` of one training forward.
+
+        ``batch`` adds ``gt_boxes [B, G, 4]``, ``gt_classes [B, G]`` (0 =
+        padding) and, for Mask R-CNN, ``gt_masks [B, G, M0, M0]`` to the
+        predict batch. ``params``: a state dict, or None for the module's
+        own weights (gradients then reach its trainable parameters).
+        ``draws``: a ``torch.Generator`` on the device, or the
+        ``faster_rcnn.TrainDraws`` to sample with. ``mark``: None, or a
+        callable given each stage's name once it is issued
+        (``faster_rcnn.faster_rcnn_train_forward``).
+        """
+        batch = self.batch_to_device(batch)
+        targets = {k: batch[k] for k in ("gt_boxes", "gt_classes")}
+        if self.with_masks:
+            targets["gt_masks"] = batch["gt_masks"]
+        args = (batch["image"], batch["image_hw"])
+        kwargs = {"targets": targets, "draws": draws, "mark": mark}
+        if params is None:
+            loss_dict = self.module(*args, **kwargs)
+        else:
+            params = {k: v.to(self.device) for k, v in params.items()}
+            loss_dict = functional_call(self.module, params, args, kwargs, strict=True)
+        return sum(loss_dict.values()), loss_dict
 
     def predict_fn(self, params, batch):
         """Returns ``(Detections, mask_probs | None)``."""

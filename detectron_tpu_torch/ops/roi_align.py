@@ -1,19 +1,23 @@
-"""Multilevel RoIAlign (forward) over an FPN, with FPN level routing.
+"""Multilevel RoIAlign over an FPN, forward and gradient, with FPN level
+routing.
 
-The port of the inference path of ``detectron_tpu/ops/roi_align.py``:
-per-level NHWC features ``[B, Hl, Wl, C]`` and image-coordinate RoIs
-``[B, R, 4]`` give pooled features ``[B, R, P, P, C]``. Semantics are the
-JAX package's: ``aligned=False``, RoI extent at least one cell,
-``sampling_ratio**2`` samples per bin averaged, and the Caffe2 border rule
-(a sample outside ``[-1, size]`` contributes 0, otherwise it is clamped to
-``[0, size - 1]``).
+The port of ``detectron_tpu/ops/roi_align.py`` and of the RoIAlign custom
+VJPs of ``detectron_tpu/ops/roi_align_pallas.py``: per-level NHWC features
+``[B, Hl, Wl, C]`` and image-coordinate RoIs ``[B, R, 4]`` give pooled
+features ``[B, R, P, P, C]``. Semantics are the JAX package's:
+``aligned=False``, RoI extent at least one cell, ``sampling_ratio**2``
+samples per bin averaged, and the Caffe2 border rule (a sample outside
+``[-1, size]`` contributes 0, otherwise it is clamped to ``[0, size - 1]``).
+The RoIs get no gradient.
 
 :func:`multilevel_roi_align` routes every RoI with :func:`assign_fpn_levels`
-and then launches the hand-written kernel of ``csrc/roi_align.cu`` (the
-port of ``detectron_tpu/ops/roi_align_pallas.py``) on a CUDA tensor, or
-runs :func:`multilevel_roi_align_plain`, the same function in plain
-PyTorch, on a CPU tensor. Both take the same level index, so they route
-identically by construction.
+and then applies :class:`RoIAlignFunction`: on CUDA tensors the
+hand-written kernels of ``csrc/roi_align.cu``, K2 forward and K3 backward
+(the ports of ``multilevel_roi_align_pallas`` and
+``multilevel_roi_align_pallas_bwd``); on CPU tensors their plain PyTorch
+versions, :func:`multilevel_roi_align_plain` and
+:func:`multilevel_roi_align_bwd_plain`. All four take the same level
+index, so forward and backward route identically by construction.
 """
 
 from __future__ import annotations
@@ -110,6 +114,42 @@ def _bilinear_1d(coord, limit):
     return i0, i1, 1.0 - frac, frac, inb
 
 
+def _sample_geometry(level_hw, rois, levels, strides, p: int, s: int):
+    """Where the samples of every RoI fall in the concatenated levels.
+
+    ``level_hw``: the ``(H, W)`` of each level; ``levels [B, R]``: the
+    routing. Returns ``(base, wrow, ys, xs)``: ``base [B, R, 1, 1]`` the
+    offset of each RoI's level in one image's flattened levels, ``wrow``
+    its level's width, and per axis the ``(i0, i1, w0, w1, inb)`` of
+    :func:`_bilinear_1d` over ``P * S`` samples.
+    """
+    dev = rois.device
+    hs = torch.tensor([h for h, _ in level_hw], device=dev)
+    ws = torch.tensor([w for _, w in level_hw], device=dev)
+    offsets = torch.cumsum(hs * ws, 0) - hs * ws
+    strides_t = torch.tensor(list(strides), dtype=torch.float32, device=dev)
+    lvl = levels.long()
+    scale = 1.0 / strides_t[lvl]  # [B, R]
+    x1 = rois[..., 0] * scale
+    y1 = rois[..., 1] * scale
+    rw = (rois[..., 2] * scale - x1).clamp_min(1.0)
+    rh = (rois[..., 3] * scale - y1).clamp_min(1.0)
+    xs = _bilinear_1d(_sample_coords(x1, rw, p, s), ws[lvl].float()[..., None])
+    ys = _bilinear_1d(_sample_coords(y1, rh, p, s), hs[lvl].float()[..., None])
+    return offsets[lvl][..., None, None], ws[lvl][..., None, None], ys, xs
+
+
+def _corners(base, wrow, ys, xs):
+    """The four bilinear corners of every sample: ``(flat index
+    [B, R, PS, PS], weight [B, R, PS, PS])`` each."""
+    y0, y1, wy0, wy1, _ = ys
+    x0, x1, wx0, wx1, _ = xs
+    for yi, wy in ((y0, wy0), (y1, wy1)):
+        for xi, wx in ((x0, wx0), (x1, wx1)):
+            yield (base + yi[..., :, None] * wrow + xi[..., None, :],
+                   wy[..., :, None] * wx[..., None, :])
+
+
 def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Tensor,
                                levels: torch.Tensor, strides: Sequence[int],
                                output_size: int = 7,
@@ -120,38 +160,47 @@ def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Ten
     p, s = output_size, sampling_ratio
     b, r = rois.shape[:2]
     c = features[0].shape[-1]
-    dev = rois.device
-    hs = torch.tensor([f.shape[1] for f in features], device=dev)
-    ws = torch.tensor([f.shape[2] for f in features], device=dev)
-    offsets = torch.cumsum(hs * ws, 0) - hs * ws
     flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)  # [B, L, C]
-    strides_t = torch.tensor(list(strides), dtype=torch.float32, device=dev)
-
-    lvl = levels.long()
-    scale = 1.0 / strides_t[lvl]  # [B, R]
-    hl, wl = hs[lvl].float(), ws[lvl].float()
-    x1 = rois[..., 0] * scale
-    y1 = rois[..., 1] * scale
-    rw = (rois[..., 2] * scale - x1).clamp_min(1.0)
-    rh = (rois[..., 3] * scale - y1).clamp_min(1.0)
-    xs = _sample_coords(x1, rw, p, s)  # [B, R, PS]
-    ys = _sample_coords(y1, rh, p, s)
-    x0, x1i, wx0, wx1, xin = _bilinear_1d(xs, wl[..., None])
-    y0, y1i, wy0, wy1, yin = _bilinear_1d(ys, hl[..., None])
-    base = offsets[lvl][..., None, None]  # [B, R, 1, 1]
-    wrow = ws[lvl][..., None, None]
-    bidx = torch.arange(b, device=dev)[:, None, None, None]
-
-    def corner(yi, xi, wy, wx):
-        idx = base + yi[..., :, None] * wrow + xi[..., None, :]  # [B, R, PS, PS]
-        vals = flat[bidx, idx]  # [B, R, PS, PS, C]
-        return vals * (wy[..., :, None] * wx[..., None, :])[..., None]
-
-    pts = (corner(y0, x0, wy0, wx0) + corner(y0, x1i, wy0, wx1)
-           + corner(y1i, x0, wy1, wx0) + corner(y1i, x1i, wy1, wx1))
-    inb = (yin[..., :, None] & xin[..., None, :])[..., None]
+    base, wrow, ys, xs = _sample_geometry([f.shape[1:3] for f in features], rois,
+                                          levels, strides, p, s)
+    bidx = torch.arange(b, device=rois.device)[:, None, None, None]
+    pts = sum(flat[bidx, idx] * w[..., None]  # [B, R, PS, PS, C]
+              for idx, w in _corners(base, wrow, ys, xs))
+    inb = (ys[4][..., :, None] & xs[4][..., None, :])[..., None]
     pts = torch.where(inb, pts, torch.zeros_like(pts))
     return pts.reshape(b, r, p, s, p, s, c).mean(dim=(3, 5))
+
+
+def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Tensor,
+                                   levels: torch.Tensor, strides: Sequence[int],
+                                   sampling_ratio: int = 2) -> list[torch.Tensor]:
+    """Plain PyTorch version of kernel K3, the gradient of
+    :func:`multilevel_roi_align_plain` with respect to each level:
+    ``index_add_`` of every sample's weighted corner contributions,
+    ``grad * wy * wx / S^2``, into the flattened levels.
+
+    grad: ``[B, R, P, P, C]``; level_hw: the ``(H, W)`` of each level;
+    levels: the routing the forward used. Returns per-level
+    ``[B, Hl, Wl, C]`` gradients in ``grad``'s dtype.
+    """
+    b, r, p, _, c = grad.shape
+    s = sampling_ratio
+    sizes = [int(h) * int(w) for h, w in level_hw]
+    total = sum(sizes)
+    base, wrow, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s)
+    # d(mean over the S x S samples of a bin) = grad / S^2 at every sample
+    gs = true_div(grad, s * s)[:, :, :, None, :, None, :]
+    gs = gs.expand(b, r, p, s, p, s, c).reshape(b, r, p * s, p * s, c)
+    inb = (ys[4][..., :, None] & xs[4][..., None, :])[..., None]
+    gs = torch.where(inb, gs, torch.zeros_like(gs))
+    out = grad.new_zeros(b * total, c)
+    bbase = torch.arange(b, device=rois.device)[:, None, None, None] * total
+    for idx, w in _corners(base, wrow, ys, xs):
+        out.index_add_(0, (bbase + idx).reshape(-1), (gs * w[..., None]).reshape(-1, c))
+    out = out.view(b, total, c)
+    offsets = np.cumsum([0] + sizes)
+    return [out[:, o:o + n].reshape(b, int(h), int(w), c)
+            for o, n, (h, w) in zip(offsets, sizes, level_hw)]
 
 
 _MAX_LEVELS = 8
@@ -159,31 +208,57 @@ _MAX_LEVELS = 8
 
 def _roi_align_lib() -> ctypes.CDLL:
     lib = _build.load("roi_align")
-    lib.roi_align_forward.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.roi_align_forward.restype = ctypes.c_int
+    for fn in (lib.roi_align_forward, lib.roi_align_backward):
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_launch_args(rois, levels, num_levels, strides, p, s):
+    """Checks what K2 and K3 share: RoIs, routing, level count, sizes."""
+    if not 1 <= num_levels <= _MAX_LEVELS or len(strides) != num_levels:
+        raise ValueError(f"{num_levels} levels and {len(strides)} strides: "
+                         f"want 1..{_MAX_LEVELS} of each")
+    if not (rois.is_cuda and rois.dtype == torch.float32 and rois.dim() == 3
+            and rois.shape[2] == 4 and rois.is_contiguous()
+            and rois.data_ptr() % 16 == 0):
+        raise ValueError("rois: a contiguous, 16-byte aligned float32 [B, R, 4] "
+                         "CUDA tensor")
+    if not (levels.device == rois.device and levels.dtype == torch.int32
+            and levels.shape == rois.shape[:2] and levels.is_contiguous()):
+        raise ValueError("levels: a contiguous int32 [B, R] tensor on the RoIs' "
+                         "device")
+    if p * s > 64 or p < 1 or s < 1:
+        raise ValueError(f"output_size * sampling_ratio = {p * s}: the kernel "
+                         "takes 1..64 samples per axis")
+
+
+def _level_args(tensors, strides):
+    n = len(tensors)
+    return ((ctypes.c_void_p * n)(*[t.data_ptr() for t in tensors]),
+            (ctypes.c_int * n)(*[t.shape[1] for t in tensors]),
+            (ctypes.c_int * n)(*[t.shape[2] for t in tensors]),
+            (ctypes.c_float * n)(*[float(x) for x in strides]), n)
 
 
 def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tensor,
                               levels: torch.Tensor, strides: Sequence[int],
                               output_size: int = 7,
                               sampling_ratio: int = 2) -> torch.Tensor:
-    """:func:`multilevel_roi_align_plain` as the CUDA kernel of
+    """:func:`multilevel_roi_align_plain` as kernel K2 of
     ``csrc/roi_align.cu``: one launch for all RoIs of all levels."""
     f0 = features[0]
     if f0.dtype == torch.bfloat16:
         raise NotImplementedError(
             "bfloat16 RoIAlign kernel is not ported yet: ROADMAP.md, Queue 2, "
             "bf16 kernels")
-    num_levels = len(features)
-    if not 1 <= num_levels <= _MAX_LEVELS or len(strides) != num_levels:
-        raise ValueError(f"{num_levels} levels and {len(strides)} strides: "
-                         f"want 1..{_MAX_LEVELS} of each")
+    p, s = output_size, sampling_ratio
+    _check_launch_args(rois, levels, len(features), strides, p, s)
     b, r = rois.shape[:2]
     c = f0.shape[-1]
     for f in features:
@@ -192,32 +267,14 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
                 and f.is_contiguous()):
             raise ValueError("features: contiguous float32 NHWC CUDA tensors on "
                              "the RoIs' device, one batch and channel count")
-    if not (rois.is_cuda and rois.dtype == torch.float32 and rois.dim() == 3
-            and rois.shape[2] == 4 and rois.is_contiguous()
-            and rois.data_ptr() % 16 == 0):
-        raise ValueError("rois: a contiguous, 16-byte aligned float32 [B, R, 4] "
-                         "CUDA tensor")
-    if not (levels.device == rois.device and levels.dtype == torch.int32
-            and levels.shape == (b, r) and levels.is_contiguous()):
-        raise ValueError("levels: a contiguous int32 [B, R] tensor on the RoIs' "
-                         "device")
-    p, s = output_size, sampling_ratio
-    if p * s > 64 or p < 1 or s < 1:
-        raise ValueError(f"output_size * sampling_ratio = {p * s}: the kernel "
-                         "takes 1..64 samples per axis")
     out = torch.empty((b, r, p, p, c), dtype=torch.float32, device=rois.device)
     if b * r == 0 or c == 0:
         return out
     lib = _roi_align_lib()
-    feats = (ctypes.c_void_p * num_levels)(*[f.data_ptr() for f in features])
-    heights = (ctypes.c_int * num_levels)(*[f.shape[1] for f in features])
-    widths = (ctypes.c_int * num_levels)(*[f.shape[2] for f in features])
-    strides_c = (ctypes.c_float * num_levels)(*[float(x) for x in strides])
     with torch.cuda.device(rois.device):
         err = lib.roi_align_forward(
-            feats, heights, widths, strides_c, num_levels, rois.data_ptr(),
-            levels.data_ptr(), out.data_ptr(), b * r, r, c, p, s,
-            _build.stream_handle(rois.device))
+            *_level_args(features, strides), rois.data_ptr(), levels.data_ptr(),
+            out.data_ptr(), b * r, r, c, p, s, _build.stream_handle(rois.device))
     _build.check(err, "roi_align_forward")
     multilevel_roi_align_cuda.launches += 1
     return out
@@ -226,13 +283,83 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
 multilevel_roi_align_cuda.launches = 0
 
 
+def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tensor,
+                                  levels: torch.Tensor, strides: Sequence[int],
+                                  sampling_ratio: int = 2) -> list[torch.Tensor]:
+    """:func:`multilevel_roi_align_bwd_plain` as kernel K3 of
+    ``csrc/roi_align.cu``: one zero fill of all levels' gradients, then one
+    launch that adds every RoI's samples into them with fp32 atomics (the
+    order of the adds, and so the last bits, varies from run to run)."""
+    if grad.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "bfloat16 RoIAlign kernel is not ported yet: ROADMAP.md, Queue 2, "
+            "bf16 kernels")
+    s = sampling_ratio
+    p = grad.shape[2] if grad.dim() == 5 else 0
+    _check_launch_args(rois, levels, len(level_hw), strides, p, s)
+    b, r = rois.shape[:2]
+    if not (grad.is_cuda and grad.device == rois.device and grad.dtype == torch.float32
+            and grad.shape[:4] == (b, r, p, p) and grad.is_contiguous()):
+        raise ValueError("grad: a contiguous float32 [B, R, P, P, C] CUDA tensor on "
+                         "the RoIs' device")
+    c = grad.shape[4]
+    sizes = [b * int(h) * int(w) * c for h, w in level_hw]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=rois.device)
+    grads = [part.view(b, int(h), int(w), c)
+             for part, (h, w) in zip(flat.split(sizes), level_hw)]
+    if b * r == 0 or c == 0:
+        return grads
+    lib = _roi_align_lib()
+    with torch.cuda.device(rois.device):
+        err = lib.roi_align_backward(
+            *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
+            grad.data_ptr(), b * r, r, c, p, s, _build.stream_handle(rois.device))
+    _build.check(err, "roi_align_backward")
+    multilevel_roi_align_bwd_cuda.launches += 1
+    return grads
+
+
+multilevel_roi_align_bwd_cuda.launches = 0
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """Multilevel RoIAlign with its gradient: K2 forward and K3 backward on
+    CUDA tensors, their plain versions on CPU tensors.
+
+    ``apply(rois, levels, strides, output_size, sampling_ratio, *features)``.
+    The backward takes the routing ``levels`` that the forward used, so the
+    two route identically by construction, and it needs only the levels'
+    shapes, not their values. The RoIs get no gradient (``None``), as the
+    JAX package's custom VJPs give them zeros.
+    """
+
+    @staticmethod
+    def forward(ctx, rois, levels, strides, output_size, sampling_ratio, *features):
+        ctx.save_for_backward(rois, levels)
+        ctx.strides, ctx.sampling_ratio = tuple(strides), sampling_ratio
+        ctx.level_hw = [tuple(f.shape[1:3]) for f in features]
+        fwd = multilevel_roi_align_cuda if rois.is_cuda else multilevel_roi_align_plain
+        return fwd(features, rois, levels, strides, output_size, sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, levels = ctx.saved_tensors
+        bwd = (multilevel_roi_align_bwd_cuda if rois.is_cuda
+               else multilevel_roi_align_bwd_plain)
+        grads = bwd(grad.contiguous(), ctx.level_hw, rois, levels, ctx.strides,
+                    ctx.sampling_ratio)
+        grads = [g if need else None for g, need in zip(grads, ctx.needs_input_grad[5:])]
+        return (None, None, None, None, None, *grads)
+
+
 def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
                          strides: Sequence[int], output_size: int = 7,
                          sampling_ratio: int = 2, min_level: int | None = None,
                          max_span: tuple[float, float] | None = DEFAULT_MAX_SPAN,
                          ) -> torch.Tensor:
-    """RoIAlign over an FPN: routes each RoI to a level, then runs kernel
-    K2 on CUDA tensors or its plain version on CPU tensors.
+    """RoIAlign over an FPN: routes each RoI to a level, then runs
+    :class:`RoIAlignFunction` (kernels K2 and K3 on CUDA tensors, their
+    plain versions on CPU tensors), differentiable in the features.
 
     features: per-level ``[B, Hl, Wl, C]`` (NHWC), finest first; rois:
     ``[B, R, 4]`` image coordinates (padding rows give finite garbage).
@@ -242,8 +369,5 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
     if min_level is None:
         min_level = int(np.log2(strides[0]))
     levels = assign_fpn_levels(rois, num_levels, min_level, max_span=max_span)
-    if rois.is_cuda:
-        return multilevel_roi_align_cuda(features, rois, levels, strides,
-                                         output_size, sampling_ratio)
-    return multilevel_roi_align_plain(features, rois, levels, strides,
-                                      output_size, sampling_ratio)
+    return RoIAlignFunction.apply(rois, levels, tuple(strides), output_size,
+                                  sampling_ratio, *features)
