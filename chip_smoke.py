@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc;
 3. K1 (greedy NMS) against its plain PyTorch version on the card, at the
    inference (G=10, N=1000; G=2, N=1200) and training (G=10, N=2000)
-   shapes: keep masks and (idx, valid) must be equal;
+   shapes, with and without the main path's max_keep = min(max_out, N),
+   and at edge cases (N=65, N=4096, odd W, max_keep=1, max_keep above the
+   kept count, an all-invalid problem): keep masks and (idx, valid) must
+   be equal; the mask and scan launches are timed apart;
 4. K2 (multilevel RoIAlign) against its plain version on the card, at the
    1024x1344 P2-P5 shapes, C=256, inference (R=300, P=7; R=100, P=14) and
    training (R=512, P=7; R=128, P=14) RoI counts: max |diff| <= 1e-5 *
@@ -21,8 +24,11 @@ Phases, in order; any failure exits non-zero before the result line:
    slots, boxes within 1e-3;
 7. K3 (multilevel RoIAlign backward) against its plain version on the
    card at the training shapes (B=2, 1024x1344, P2-P5, C=256; R=512, P=7
-   and R=128, P=14): max |diff| <= 1e-5 * max |plain gradient|; two K3
-   runs are compared too (fp32 atomics add in a varying order);
+   and R=128, P=14) and at stress cases (RoIs wider than P*S cells, all
+   sub-cell, all identical, P5 RoIs covering the whole level, past the
+   border): max |diff| <= 1e-5 * max |plain gradient|; two K3 runs are
+   compared too (overlapping RoIs add in a varying order); the zero fill
+   and the kernel are timed apart;
 8. the autograd Function (K2 forward, K3 backward) on the card: the
    gradient of a weighted sum of its output equals autograd through the
    plain forward within the same bound;
@@ -48,6 +54,7 @@ power limit, and as the last line
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -75,18 +82,39 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+SPIN_CYCLES_PER_S = 2e9  # torch.cuda._sleep counts SM clock cycles (H100: <= 1.98 GHz)
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls.
+
+    A short kernel runs faster than Python and ctypes can enqueue it, so
+    timing calls as they are enqueued measures the host. Here a spin kernel
+    first holds the stream for longer than the host takes to enqueue all
+    the calls; the events then time the device alone. If the stream was
+    free again before the last call was enqueued (the start event had
+    already passed), the spin is doubled and the timing repeated."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    spin_s = 2.0 * host_s * iters + 1e-3
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()  # the device was still spinning when the host was done
+        torch.cuda.synchronize()
+        if held:
+            break
+        spin_s *= 2.0
     return start.elapsed_time(end) / iters
 
 
@@ -154,23 +182,60 @@ def nms_problems(rng, g, n, canvas, n_invalid, classes=0):
     return boxes, scores, valid, cls
 
 
+# the main path's NMS calls: RPN per (image, level) at inference and in
+# training (pre_nms_topk 1000 / 2000, post 300 / 1000), and the class-shifted
+# detection candidates per image (1200 candidates, 100 detections)
+NMS_CASES = (
+    dict(name="rpn", g=10, n=1000, thresh=0.7, max_out=300, n_invalid=120, classes=0,
+         path="predict"),
+    dict(name="det", g=2, n=1200, thresh=0.5, max_out=100, n_invalid=200, classes=81,
+         path="predict"),
+    dict(name="rpn_train", g=10, n=2000, thresh=0.7, max_out=1000, n_invalid=200,
+         classes=0, path="train"),
+)
+# edge cases, each held exactly against the plain version; max_keep "above"
+# is one more than the largest kept count of the problems
+NMS_EDGE_CASES = (
+    dict(name="N=65", g=3, n=65, thresh=0.5, n_invalid=5, max_keep=None),
+    dict(name="N=4096 (the limit)", g=2, n=4096, thresh=0.7, n_invalid=96, max_keep=None),
+    dict(name="N=1200 (odd W)", g=3, n=1200, thresh=0.6, n_invalid=0, max_keep=None),
+    dict(name="max_keep=1", g=4, n=700, thresh=0.5, n_invalid=50, max_keep=1),
+    dict(name="max_keep above the kept count", g=4, n=700, thresh=0.5, n_invalid=50,
+         max_keep="above"),
+    dict(name="all invalid", g=2, n=300, thresh=0.5, n_invalid=300, max_keep=None),
+)
+
+
+def sorted_problems(boxes, scores, valid):
+    """Score-sorted boxes and valid flags, as nms_padded_batched hands them
+    to the kernel."""
+    from detectron_tpu_torch.ops import nms
+
+    masked = torch.where(valid, scores, torch.full_like(scores, nms.NEG_INF))
+    order_scores, order = nms.sort_desc(masked)
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    return sboxes, (order_scores > nms.NEG_INF / 2).contiguous()
+
+
+def check_keep(name, sboxes, svalid, thresh, max_keep):
+    """K1 against its plain version, exactly; returns the kernel's mask."""
+    from detectron_tpu_torch.ops import nms
+
+    keep_k = nms.greedy_keep_cuda(sboxes, svalid, thresh, max_keep=max_keep)
+    keep_p = nms.greedy_keep_plain(sboxes, svalid, thresh, max_keep=max_keep)
+    torch.cuda.synchronize()
+    if not torch.equal(keep_k, keep_p):
+        raise AssertionError(f"K1 {name} max_keep={max_keep}: keep masks differ in "
+                             f"{int((keep_k != keep_p).sum())} slots")
+    return keep_k
+
+
 def phase_nms(rng):
     from detectron_tpu_torch.ops import nms
 
     dev = torch.device(DEVICE)
-    cases = [
-        # RPN: one problem per (image, level), B=2 x 5 levels
-        dict(name="rpn", g=10, n=1000, thresh=0.7, max_out=300, n_invalid=120, classes=0,
-             path="predict"),
-        # detections: class-shifted candidates, one problem per image
-        dict(name="det", g=2, n=1200, thresh=0.5, max_out=100, n_invalid=200, classes=81,
-             path="predict"),
-        # training RPN: pre_nms_topk_train=2000 per level, post 1000
-        dict(name="rpn_train", g=10, n=2000, thresh=0.7, max_out=1000, n_invalid=200,
-             classes=0, path="train"),
-    ]
     results = []
-    for case in cases:
+    for case in NMS_CASES:
         boxes, scores, valid, cls = nms_problems(
             rng, case["g"], case["n"], (1024, 1344), case["n_invalid"], case["classes"])
         tb, ts, tv = (torch.tensor(x, device=dev) for x in (boxes, scores, valid))
@@ -178,37 +243,54 @@ def phase_nms(rng):
             tc = torch.tensor(cls, device=dev)
             span = tb.amax(dim=(1, 2)) - tb.amin(dim=(1, 2)) + 1.0
             tb = tb + (tc.to(tb.dtype) * span[:, None])[..., None]
-        # sorted problems, as the kernel receives them
-        masked = torch.where(tv, ts, torch.full_like(ts, nms.NEG_INF))
-        order_scores, order = nms.sort_desc(masked)
-        sboxes = torch.gather(tb, 1, order[..., None].expand(-1, -1, 4)).contiguous()
-        svalid = (order_scores > nms.NEG_INF / 2).contiguous()
-        keep_k = nms.greedy_keep_cuda(sboxes, svalid, case["thresh"])
-        keep_p = nms.greedy_keep_plain(sboxes, svalid, case["thresh"])
-        torch.cuda.synchronize()
-        if not torch.equal(keep_k, keep_p):
-            raise AssertionError(f"K1 {case['name']}: keep masks differ in "
-                                 f"{int((keep_k != keep_p).sum())} slots")
-        idx_g, ok_g = nms.nms_padded_batched(tb, ts, tv, case["thresh"], case["max_out"])
-        idx_c, ok_c = nms.nms_padded_batched(tb.cpu(), ts.cpu(), tv.cpu(),
-                                             case["thresh"], case["max_out"])
+        sboxes, svalid = sorted_problems(tb, ts, tv)
+        g, n, thresh = case["g"], case["n"], case["thresh"]
+        m = min(case["max_out"], n)  # what nms_padded_batched passes
+        full = check_keep(case["name"], sboxes, svalid, thresh, None)
+        keep_k = check_keep(case["name"], sboxes, svalid, thresh, m)
+        idx_g, ok_g = nms.nms_padded_batched(tb, ts, tv, thresh, case["max_out"])
+        idx_c, ok_c = nms.nms_padded_batched(tb.cpu(), ts.cpu(), tv.cpu(), thresh,
+                                             case["max_out"])
         if not (torch.equal(idx_g.cpu(), idx_c) and torch.equal(ok_g.cpu(), ok_c)):
             raise AssertionError(f"K1 {case['name']}: (idx, valid) differ from the "
                                  "CPU plain path")
-        ms = cuda_ms(lambda: nms.greedy_keep_cuda(sboxes, svalid, case["thresh"]))
-        plain_ms = cuda_ms(lambda: nms.greedy_keep_plain(sboxes, svalid, case["thresh"]),
+        ms = cuda_ms(lambda: nms.greedy_keep_cuda(sboxes, svalid, thresh, max_keep=m))
+        mask = nms.nms_mask_cuda(sboxes, thresh)
+        mask_ms = cuda_ms(lambda: nms.nms_mask_cuda(sboxes, thresh))
+        scan_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid, m))
+        scan_full_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid))
+        plain_ms = cuda_ms(lambda: nms.greedy_keep_plain(sboxes, svalid, thresh, max_keep=m),
                            iters=3, warmup=1)
-        # work this run's data needs: each kept box against every later valid box
+        # work this run's data needs: each kept box against every later valid
+        # box, up to the m-th kept box where the walk stops
+        pos = torch.arange(n, device=dev)[None, :]
         n_valid = svalid.sum(1, keepdim=True)
-        pos = torch.arange(case["n"], device=dev)[None, :]
-        pairs = int(torch.where(keep_k, n_valid - 1 - pos, torch.zeros_like(pos)).sum())
-        g, n = case["g"], case["n"]
+        last = torch.where(keep_k, pos, torch.full_like(pos, -1)).amax(1, keepdim=True)
+        stop = torch.where(keep_k.sum(1, keepdim=True) >= m, last, torch.full_like(last, n - 1))
+        upto = torch.minimum(n_valid, stop + 1)
+        pairs = int(torch.where(keep_k, upto - 1 - pos, torch.zeros_like(pos)).sum())
         b_ms, b_by = bound_ms(nbytes=g * n * (16 + 1 + 1), ops=pairs * 16)
-        log(f"[K1 {case['name']}] G={g} N={n} t={case['thresh']}: keep masks equal "
-            f"({int(keep_k.sum())} kept), (idx, valid) equal to the CPU path; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
-        results.append(dict(case=case["name"], path=case["path"], ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by))
+        log(f"[K1 {case['name']}] G={g} N={n} t={thresh} max_keep={m}: keep masks equal "
+            f"with and without max_keep ({int(keep_k.sum())} of {int(full.sum())} kept), "
+            f"(idx, valid) equal to the CPU path; kernel {ms:.4f} ms (mask {mask_ms:.4f} + "
+            f"scan {scan_ms:.4f}; scan without max_keep {scan_full_ms:.4f}), plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+        results.append(dict(case=case["name"], path=case["path"], max_keep=m, ms=ms,
+                            mask_ms=mask_ms, scan_ms=scan_ms, scan_full_ms=scan_full_ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    for case in NMS_EDGE_CASES:
+        boxes, scores, valid, _ = nms_problems(rng, case["g"], case["n"], (1024, 1344),
+                                               case["n_invalid"])
+        sboxes, svalid = sorted_problems(*(torch.tensor(x, device=dev)
+                                           for x in (boxes, scores, valid)))
+        full = check_keep(case["name"], sboxes, svalid, case["thresh"], None)
+        max_keep = case["max_keep"]
+        if max_keep == "above":
+            max_keep = int(full.sum(1).max()) + 1
+        if max_keep is not None:
+            check_keep(case["name"], sboxes, svalid, case["thresh"], max_keep)
+        log(f"[K1 edge] {case['name']}: G={case['g']} N={case['n']} max_keep={max_keep}, "
+            f"{int(full.sum())} kept: keep masks equal")
     return results
 
 
@@ -521,9 +603,94 @@ def phase_cross_device(seed=1):
 # ----------------------------------------------------------------- phase 7
 
 
+K3_STRESS = ("wider than P*S cells", "all sub-cell", "all identical", "P5 whole level",
+             "past the border")
+
+
+def k3_stress_rois(rng, kind, b, r):
+    """Seeded RoIs [B, R, 4] of a K3 stress case, and their levels [B, R]
+    where the case sets them (K3 takes any routing), else None (routed)."""
+    h, w = CANVAS
+    strides = np.array(STRIDES, np.float64)
+    lv = rng.randint(0, len(STRIDES), size=(b, r))
+    st = strides[lv]
+    if kind == "wider than P*S cells":  # 30-90 cells wide (P5: 30-41), 1-6 tall
+        cw = np.minimum(rng.uniform(30, 90, size=(b, r)), w / st - 1)
+        ch = rng.uniform(1, 6, size=(b, r))
+    elif kind == "all sub-cell":
+        cw, ch = rng.uniform(0.05, 0.95, size=(2, b, r))
+    elif kind == "P5 whole level":  # the whole canvas, up to half a cell beyond
+        lv = np.full((b, r), len(STRIDES) - 1)
+        out = rng.uniform(0, 16, size=(b, r, 4))
+        rois = np.stack([-out[..., 0], -out[..., 1], w + out[..., 2], h + out[..., 3]], -1)
+        return rois.astype(np.float32), lv.astype(np.int32)
+    elif kind == "all identical":
+        x0, y0 = rng.uniform(0, w - 200), rng.uniform(0, h - 160)
+        rois = np.tile(np.array([x0, y0, x0 + 180.0, y0 + 140.0]), (b, r, 1))
+        return rois.astype(np.float32), None
+    elif kind == "past the border":  # half straddle the border, a quarter lie outside
+        rois = roi_cases(rng, b, r, CANVAS).astype(np.float64)
+        k = r // 2
+        rois[:, :k, :2] = -rng.uniform(10, 300, size=(b, k, 2))
+        rois[:, :k, 2:] = rng.uniform(20, 400, size=(b, k, 2))
+        q = r // 4
+        wh = rois[:, k:k + q, 2:] - rois[:, k:k + q, :2]
+        corner = (np.where(rng.rand(b, q, 1) < 0.5, [w + 60.0, 0.0], [0.0, h + 60.0])
+                  + rng.uniform(0, 200, size=(b, q, 2)))
+        rois[:, k:k + q] = np.concatenate([corner, corner + wh], -1)
+        return rois.astype(np.float32), None
+    else:
+        raise ValueError(kind)
+    x0 = rng.uniform(0, 1, size=(b, r)) * (w - cw * st)
+    y0 = rng.uniform(0, 1, size=(b, r)) * (h - ch * st)
+    rois = np.stack([x0, y0, x0 + cw * st, y0 + ch * st], -1)
+    return rois.astype(np.float32), lv.astype(np.int32)
+
+
+def k3_adds(feats, rois, levels, p, s):
+    """Bytes K3's atomics add (each RoI: its distinct touched columns x
+    rows, C channels, fp32) and the bytes of the distinct cells they land
+    on, over all RoIs."""
+    from detectron_tpu_torch.ops.roi_align import _sample_geometry
+
+    level_hw = [tuple(f.shape[1:3]) for f in feats]
+    _, _, ys, xs = _sample_geometry(level_hw, rois, levels, STRIDES, p, s)
+    counts = []
+    for i0, i1, w0, w1, inb in (xs, ys):
+        size = max(max(hw) for hw in level_hw) + 1
+        hit = torch.zeros(*i0.shape[:2], size, dtype=torch.bool, device=i0.device)
+        for idx, w in ((i0, w0), (i1, w1)):
+            hit.scatter_(2, torch.where(inb & (w > 0), idx, size - 1), True)
+        counts.append(hit[..., :-1].sum(-1))
+    c = feats[0].shape[-1]
+    return int((counts[0] * counts[1]).sum()) * c * 4, touched_bytes(feats, rois, levels,
+                                                                       STRIDES, p, s)
+
+
+def check_k3(name, g, level_hw, rois, levels):
+    """K3 twice and its plain version on the same inputs: max |diff| against
+    the plain version must be within 1e-5 x max |plain gradient|. Returns
+    (max |diff|, max |diff| between the two K3 runs)."""
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    got = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
+    again = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
+    want = ra.multilevel_roi_align_bwd_plain(g, level_hw, rois, levels, STRIDES, 2)
+    torch.cuda.synchronize()
+    gmax = max(float(w.abs().max()) for w in want)
+    diff = max(float((x - w).abs().max()) for x, w in zip(got, want))
+    rerun = max(float((x - y).abs().max()) for x, y in zip(got, again))
+    hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    log(f"[K3 {name}] levels {hist}, max |diff| {diff:.3e} (limit {1e-5 * gmax:.3e} = 1e-5 x "
+        f"max |plain gradient|), between two K3 runs {rerun:.3e}")
+    if not (gmax > 0.0 and diff <= 1e-5 * gmax):
+        raise AssertionError(f"K3 {name}: max |diff| {diff} > {1e-5 * gmax}")
+    return diff, rerun
+
+
 def phase_roi_align_bwd(rng, feats):
     """K3 against its plain version at the training shapes, with the
-    main path's routing span."""
+    main path's routing span, then at the stress cases."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.ops import roi_align as ra
 
@@ -538,21 +705,13 @@ def phase_roi_align_bwd(rng, feats):
         rois = torch.tensor(roi_cases(rng, b, r, CANVAS), device=dev)
         levels = ra.assign_fpn_levels(rois, len(feats), 2, max_span=span)
         g = torch.tensor(rng.randn(b, r, p, p, c).astype(np.float32), device=dev)
-        got = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
-        again = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
-        want = ra.multilevel_roi_align_bwd_plain(g, level_hw, rois, levels, STRIDES, 2)
-        torch.cuda.synchronize()
-        gmax = max(float(w.abs().max()) for w in want)
-        diff = max(float((x - w).abs().max()) for x, w in zip(got, want))
-        rerun = max(float((x - y).abs().max()) for x, y in zip(got, again))
-        hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
-        log(f"[K3 P={p} R={r} span={span}] levels {hist}, max |diff| {diff:.3e} (limit "
-            f"{1e-5 * gmax:.3e} = 1e-5 x max |plain gradient|), between two K3 runs "
-            f"{rerun:.3e}")
-        if not diff <= 1e-5 * gmax:
-            raise AssertionError(f"K3 P={p}: max |diff| {diff} > {1e-5 * gmax}")
+        diff, rerun = check_k3(f"P={p} R={r} span={span}", g, level_hw, rois, levels)
         ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels,
                                                               STRIDES, 2))
+        fill_ms = cuda_ms(lambda: ra.level_grad_buffers(b, c, level_hw, dev))
+        bufs = ra.level_grad_buffers(b, c, level_hw, dev)
+        kernel_ms = cuda_ms(lambda: ra.roi_align_bwd_accumulate_cuda(bufs, g, rois, levels,
+                                                                     STRIDES, 2))
         plain_ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_plain(
             g, level_hw, rois, levels, STRIDES, 2), iters=5, warmup=1)
         # what the function must move: g read once, every level's gradient
@@ -561,12 +720,22 @@ def phase_roi_align_bwd(rng, feats):
         nbytes = g.numel() * 4 + out_bytes + b * r * (16 + 4)
         # per sample and corner: one weight product, one scaled add
         b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (4 * 4 * 3 + 1))
-        log(f"[K3 P={p} R={r}] kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB: level gradients "
-            f"{out_bytes / 1e6:.1f}, g {g.numel() * 4 / 1e6:.1f})")
-        results.append(dict(case=f"P{p} R{r}", path="train", ms=ms, plain_ms=plain_ms,
-                            bound_ms=b_ms, bound_by=b_by, max_abs_err=diff,
-                            rerun_max_abs_diff=rerun))
+        added, distinct = k3_adds(feats, rois, levels, p, 2)
+        log(f"[K3 P={p} R={r}] {ms:.4f} ms (fill {fill_ms:.4f} + kernel {kernel_ms:.4f}), "
+            f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB: "
+            f"level gradients {out_bytes / 1e6:.1f}, g {g.numel() * 4 / 1e6:.1f}); the kernel "
+            f"adds {added / 1e6:.1f} MB onto {distinct / 1e6:.1f} MB of distinct cells")
+        results.append(dict(case=f"P{p} R{r}", path="train", ms=ms, fill_ms=fill_ms,
+                            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, max_abs_err=diff, rerun_max_abs_diff=rerun))
+    for kind in K3_STRESS:
+        for p in (7, 14):
+            rois, levels = k3_stress_rois(rng, kind, b, 128)
+            rois = torch.tensor(rois, device=dev)
+            levels = (ra.assign_fpn_levels(rois, len(feats), 2, max_span=span)
+                      if levels is None else torch.tensor(levels, device=dev))
+            g = torch.tensor(rng.randn(b, 128, p, p, c).astype(np.float32), device=dev)
+            check_k3(f"stress: {kind}, P={p} R=128", g, level_hw, rois, levels)
     return results
 
 
@@ -887,13 +1056,25 @@ def kernel_entry(name, cases, launches, max_abs_err):
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels", action="store_true",
+                        help="run phases 1-4 and 7 only (the kernels against their plain "
+                             "versions, and their times), print their cases and stop; no "
+                             "result line")
+    args = parser.parse_args(argv)
     card = phase_device()
     phase_build()
     rng = np.random.RandomState(0)
     k1 = phase_nms(rng)
     feats = level_features(rng)
     k2 = phase_roi_align(rng, feats)
+    if args.kernels:
+        k3 = phase_roi_align_bwd(rng, feats)
+        print(json.dumps({"kernel_cases": {"greedy_nms": k1, "multilevel_roi_align": k2,
+                                           "multilevel_roi_align_bwd": k3}}), flush=True)
+        print(card, flush=True)
+        return 0
     predict_launches, _ = phase_slice()
     phase_cross_device()
     k3 = phase_roi_align_bwd(rng, feats)

@@ -4,24 +4,49 @@
 // (_nms_kernel, _iou_block): greedy suppression over score-sorted boxes,
 // suppress j by i when i < j, i is kept and valid, and IoU(i, j) > thresh
 // (strict), IoU = inter / max(union, 1e-8) with the `offset` width
-// convention.
+// convention. With max_keep, a problem's walk stops once max_keep boxes are
+// kept, and every later box's keep flag is 0 (the caller keeps only the
+// first max_keep kept boxes in any case).
 //
 // What bounds it on the H100: not bytes (16 bytes a box) and not IoU
 // arithmetic (~16 fp32 operations a pair, N^2/2 pairs), but the greedy
 // chain itself: box i's fate depends on every kept box before it, so a
-// problem is a sequential walk of N steps. The TPU kernel walked 128-box
-// tiles in order on one core. Here the work is split in two launches:
+// problem is a sequential walk, and the walk's time is the latency of each
+// step. The TPU kernel walked 128-box tiles in order on one core. Here the
+// work is split in two launches:
 //
-//   1. nms_mask_kernel, grid (col_blocks, row_blocks, G), 64 threads: every
-//      IoU of the upper triangle at once, in parallel over the whole card.
-//      Thread t of block (cb, rb) takes sorted box i = 64*rb + t against the
-//      64 boxes of column block cb (staged in shared memory) and writes one
-//      64-bit word whose bit j says "i suppresses 64*cb + j".
-//   2. nms_scan_kernel, one warp per problem: the sequential walk, reduced
-//      to one bit test and one OR of a row of words per kept box. Lane l
-//      holds the removed-bits words l and l+32 in registers, and the rows
-//      come from shared memory, staged 64 at a time; there is no
-//      __syncthreads in the chain.
+//   1. nms_mask_kernel, one block of 64 threads per upper-triangle tile
+//      (row block rb <= column block cb) of every problem, indexed linearly
+//      so that no block is launched only to exit: every IoU the walk can
+//      read, in parallel over the whole card. Thread t of tile (rb, cb)
+//      takes sorted box i = 64*rb + t against the 64 boxes of column block
+//      cb (staged in shared memory) and writes one 64-bit word whose bit j
+//      says "i suppresses 64*cb + j"; a full tile's 64 IoUs are unrolled,
+//      without bounds tests, so that their latencies overlap (a predicated
+//      loop shared with the edge tiles was 10% slower on an H100). Rows are
+//      laid out [G, 64*W, W]
+//      (W = ceil(N/64) words a row, the row count padded to whole chunks),
+//      so a chunk of 64 rows is one contiguous, 16-byte aligned span.
+//   2. nms_scan_kernel, one block (one warp) per problem: the greedy walk
+//      over 64-box chunks in order. Its time is latency on the chain: rows
+//      loaded only after the previous chunk is done pay the device-memory
+//      latency once a chunk, and a walk box by box pays a shared-memory
+//      load, a bit test and a branch per kept box (~150 ns a kept box on an
+//      H100). So each chunk's rows (64*W*8 bytes, at most 32 KB) arrive by
+//      one bulk asynchronous copy (cp.async.bulk, completed on an mbarrier)
+//      into one of two shared-memory buffers, the copy of chunk rb+1 issued
+//      before chunk rb is resolved; the valid flags are packed into one
+//      word a chunk once, up front. And a chunk is resolved in rounds, not
+//      box by box: its keep set K is the one fixpoint of
+//      K = alive & ~(OR of the diagonal words of the rows in K), and each
+//      round (one warp-wide OR of the rows still kept, lane l holding rows
+//      l and l+32) settles at least the first box still wrong, so a chunk
+//      takes as many rounds as its longest suppression chain, plus one.
+//      Lane l keeps the removed-bits words l and l+32 in registers and
+//      folds the kept rows into them with independent loads. No
+//      __syncthreads: one warp, warp-uniform branches. With max_keep, the
+//      chunk where the count is reached keeps only its first boxes up to
+//      it, and the walk ends.
 //
 // The IoU must be bit-identical to the JAX package's bbox_overlaps and
 // _iou_block so that keep sets are equal: the same operation order, IEEE
@@ -31,9 +56,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
+typedef unsigned long long u64;
+
 constexpr int kBlock = 64;
+constexpr int kMaxWords = 64;  // 2 words a lane: at most 4096 boxes
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float box_area(const float4 b, float offset) {
   float w = fmaxf(__fadd_rn(__fsub_rn(b.z, b.x), offset), 0.0f);
@@ -52,27 +83,35 @@ __device__ __forceinline__ float iou(const float4 a, float area_a,
   float iw = fmaxf(__fadd_rn(__fsub_rn(ix2, ix1), offset), 0.0f);
   float ih = fmaxf(__fadd_rn(__fsub_rn(iy2, iy1), offset), 0.0f);
   float inter = __fmul_rn(iw, ih);
+  // 0 / max(union, 1e-8) is +0 exactly; most pairs do not overlap, and the
+  // IEEE division would send a zero numerator down its range-checked path
+  if (inter == 0.0f) return 0.0f;
   float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
   return __fdiv_rn(inter, fmaxf(uni, 1e-8f));
 }
 
-__global__ void nms_mask_kernel(const float4* __restrict__ boxes,  // [G, N]
-                                unsigned long long* __restrict__ mask,  // [G, N, W]
-                                int n, int words, float thresh,
-                                float offset) {
-  const int cb = blockIdx.x;
-  const int rb = blockIdx.y;
-  const int g = blockIdx.z;
+__global__ void __launch_bounds__(kBlock)
+    nms_mask_kernel(const float4* __restrict__ boxes,  // [G, N]
+                    u64* __restrict__ mask,             // [G, 64 * W, W]
+                    int n, int words, float thresh, float offset) {
+  // tile index -> (rb, cb), row by row over the upper triangle
+  int rb = 0, rest = blockIdx.x;
+  while (rest >= words - rb) {
+    rest -= words - rb;
+    ++rb;
+  }
+  const int cb = rb + rest;
+  const int g = blockIdx.y;
   const int t = threadIdx.x;
   const int i = rb * kBlock + t;
   const float4* gboxes = boxes + (size_t)g * n;
-
-  if (cb < rb) return;  // columns before the row: never read by the scan
 
   __shared__ float4 col[kBlock];
   __shared__ float col_area[kBlock];
   const int j0 = cb * kBlock;
   const int ncol = min(kBlock, n - j0);
+  // the row box's load is in flight with the column boxes'
+  const float4 a = i < n ? gboxes[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (t < ncol) {
     float4 b = gboxes[j0 + t];
     col[t] = b;
@@ -81,99 +120,231 @@ __global__ void nms_mask_kernel(const float4* __restrict__ boxes,  // [G, N]
   __syncthreads();
   if (i >= n) return;
 
-  const float4 a = gboxes[i];
   const float area_a = box_area(a, offset);
-  unsigned long long bits = 0ull;
-  const int start = (cb == rb) ? t + 1 : 0;  // only j > i
-  for (int k = start; k < ncol; ++k) {
-    if (iou(a, area_a, col[k], col_area[k], offset) > thresh) {
-      bits |= 1ull << k;
+  u64 bits = 0ull;
+  if (cb > rb && ncol == kBlock) {  // a full tile right of the diagonal: no bounds
+#pragma unroll 16
+    for (int k = 0; k < kBlock; ++k) {
+      bits |= static_cast<u64>(iou(a, area_a, col[k], col_area[k], offset) > thresh) << k;
+    }
+  } else {
+    const int start = (cb == rb) ? t + 1 : 0;  // only j > i
+    for (int k = start; k < ncol; ++k) {
+      if (iou(a, area_a, col[k], col_area[k], offset) > thresh) bits |= 1ull << k;
     }
   }
-  mask[((size_t)g * n + i) * words + cb] = bits;
+  mask[((size_t)g * kBlock * words + i) * words + cb] = bits;
 }
 
-constexpr int kMaxWords = 64;  // 2 words a lane: at most 4096 boxes
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// One warp walks one problem in chunks of 64 sorted boxes. The chunk's
-// mask rows (only the words at or after the chunk's own, the rest cannot
-// matter) are first staged in shared memory by coalesced loads that are
-// all in flight together, so the sequential walk pays one device-memory
-// latency a chunk instead of one a kept box.
-__global__ void nms_scan_kernel(const unsigned long long* __restrict__ mask,
-                                const uint8_t* __restrict__ valid,  // [G, N]
-                                uint8_t* __restrict__ keep,  // [G, N]
-                                int n, int words) {
-  extern __shared__ unsigned long long rows[];  // [64, words]
+// Starts copying `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory; the copy completes phase of `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          u64* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits until the phase of `bar` with the given parity has completed.
+__device__ __forceinline__ void bar_wait(u64* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Dynamic shared memory of one scan block: two chunk buffers of 64 rows of
+// `words` words, and one valid word a chunk.
+int scan_smem_bytes(int words) {
+  return static_cast<int>((2 * kBlock * words + words) * sizeof(u64));
+}
+
+__global__ void __launch_bounds__(32)
+    nms_scan_kernel(const u64* __restrict__ mask,         // [G, 64 * W, W]
+                    const uint8_t* __restrict__ valid,    // [G, N]
+                    uint8_t* __restrict__ keep,           // [G, N]
+                    int n, int words, int max_keep) {
+  extern __shared__ __align__(128) u64 smem[];
+  __shared__ __align__(8) u64 bars[2];
+  __shared__ int order[kBlock];  // the kept rows of a chunk, in order
+  u64* rows = smem;                          // [2][64 * words]
+  u64* vwords = smem + 2 * kBlock * words;   // [words]
   const unsigned full = 0xffffffffu;
   const int g = blockIdx.x;
   const int lane = threadIdx.x;
-  const unsigned long long* gmask = mask + (size_t)g * n * words;
+  const size_t chunk = static_cast<size_t>(kBlock) * words;  // words a chunk
+  const u64* gmask = mask + (size_t)g * chunk * words;
   const uint8_t* gvalid = valid + (size_t)g * n;
   uint8_t* gkeep = keep + (size_t)g * n;
+  const uint32_t chunk_bytes = static_cast<uint32_t>(chunk * sizeof(u64));
+
+  if (lane == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bars[0]))
+                 : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bars[1]))
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bulk_load(rows, gmask, chunk_bytes, &bars[0]);
+  }
+  // the valid flags, one word of bits a chunk, while chunk 0 is in flight:
+  // lane l packs chunks l and l + 32 with loads that are all issued together
+  for (int c = lane; c < words; c += 32) {
+    const uint8_t* v = gvalid + c * kBlock;
+    const int m = min(kBlock, n - c * kBlock);
+    u64 bits = 0ull;
+#pragma unroll
+    for (int j = 0; j < kBlock; ++j) {
+      if (j < m && v[j] != 0) bits |= 1ull << j;
+    }
+    vwords[c] = bits;
+  }
+  __syncwarp();
 
   // removed-bits words `lane` and `lane + 32`, in registers
-  unsigned long long removed0 = 0ull, removed1 = 0ull;
-
-  for (int rb = 0; rb < words; ++rb) {
+  u64 removed0 = 0ull, removed1 = 0ull;
+  int kept = 0;
+  bool done = kept >= max_keep;  // warp-uniform
+  int rb = 0;
+  for (; rb < words && !done; ++rb) {
+    if (lane == 0 && rb + 1 < words) {
+      // the buffer was last read by chunk rb - 1, before the __syncwarp
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_load(rows + ((rb + 1) & 1) * chunk, gmask + (rb + 1) * chunk, chunk_bytes,
+                &bars[(rb + 1) & 1]);
+    }
+    bar_wait(&bars[rb & 1], (rb >> 1) & 1);
+    const u64* buf = rows + (rb & 1) * chunk;
     const int i0 = rb * kBlock;
     const int nrow = min(kBlock, n - i0);
-    const int span = words - rb;
-    for (int e = lane; e < nrow * span; e += 32) {
-      const int r = e / span;
-      const int c = rb + e % span;
-      rows[r * words + c] = gmask[(size_t)(i0 + r) * words + c];
-    }
-    const unsigned v_lo =
-        __ballot_sync(full, lane < nrow && gvalid[i0 + lane] != 0);
-    const unsigned v_hi =
-        __ballot_sync(full, lane + 32 < nrow && gvalid[i0 + 32 + lane] != 0);
-    const unsigned long long vbits =
-        (static_cast<unsigned long long>(v_hi) << 32) | v_lo;
-    __syncwarp();
 
-    // word rb of the removed bits, the same value in every lane
-    unsigned long long cur =
-        __shfl_sync(full, (rb >> 5) ? removed1 : removed0, rb & 31);
-    unsigned long long kept_bits = 0ull;
-    for (int r = 0; r < nrow; ++r) {
-      if (((vbits & ~cur) >> r) & 1ull) {  // warp-uniform
-        kept_bits |= 1ull << r;
-        const unsigned long long* row = rows + r * words;
-        cur |= row[rb];
-        if (lane > rb && lane < words) removed0 |= row[lane];
-        if (lane + 32 > rb && lane + 32 < words) removed1 |= row[lane + 32];
+    // the chunk's boxes that are valid and not removed by an earlier chunk
+    // (word rb of the removed bits, the same value in every lane)
+    const u64 alive = vwords[rb] & ~__shfl_sync(full, (rb >> 5) ? removed1 : removed0, rb & 31);
+    // lane l holds the diagonal words of rows l and l + 32: the later boxes
+    // of the chunk that each row suppresses
+    const u64 d0 = lane < nrow ? buf[lane * words + rb] : 0ull;
+    const u64 d1 = lane + 32 < nrow ? buf[(lane + 32) * words + rb] : 0ull;
+    // The chunk's greedy keep set is the one fixpoint of K = alive & ~(OR of
+    // the rows of K): row r's bit depends only on the rows before it, so each
+    // round settles at least the first box that was still wrong. Rounds: the
+    // chunk's longest suppression chain, plus one; each is two warp ORs.
+    u64 kept_bits = alive;
+    while (true) {  // warp-uniform
+      const u64 mine = (((kept_bits >> lane) & 1ull) ? d0 : 0ull) |
+                       (((kept_bits >> (lane + 32)) & 1ull) ? d1 : 0ull);
+      const u64 sup = (static_cast<u64>(__reduce_or_sync(full, static_cast<unsigned>(mine >> 32)))
+                       << 32) |
+                      __reduce_or_sync(full, static_cast<unsigned>(mine));
+      const u64 next = alive & ~sup;
+      if (next == kept_bits) break;
+      kept_bits = next;
+    }
+    if (kept + __popcll(kept_bits) >= max_keep) {  // keep only the first max_keep
+      while (kept + __popcll(kept_bits) > max_keep) {
+        kept_bits &= ~(1ull << (63 - __clzll(static_cast<long long>(kept_bits))));
       }
+      done = true;
+    }
+    kept += __popcll(kept_bits);
+    if (!done) {
+      // fold the kept rows into the removed words; their indices go through
+      // shared memory so that the rows' loads are independent of each other
+      if ((kept_bits >> lane) & 1ull) order[__popcll(kept_bits & ((1ull << lane) - 1))] = lane;
+      if ((kept_bits >> (lane + 32)) & 1ull) {
+        order[__popcll(kept_bits & ((1ull << (lane + 32)) - 1))] = lane + 32;
+      }
+      __syncwarp();
+      const bool own0 = lane > rb && lane < words;
+      const bool own1 = lane + 32 > rb && lane + 32 < words;
+      const int count = __popcll(kept_bits);
+      u64 a0 = 0ull, a1 = 0ull;
+#pragma unroll 4
+      for (int j = 0; j < count; ++j) {
+        const u64* row = buf + order[j] * words;
+        if (own0) a0 |= row[lane];
+        if (own1) a1 |= row[lane + 32];
+      }
+      removed0 |= a0;
+      removed1 |= a1;
     }
     if (lane < nrow) gkeep[i0 + lane] = (kept_bits >> lane) & 1ull;
     if (lane + 32 < nrow) gkeep[i0 + 32 + lane] = (kept_bits >> (lane + 32)) & 1ull;
-    __syncwarp();  // the next chunk overwrites `rows`
+    __syncwarp();  // every lane is done with `buf` before it is refilled
   }
+  // after an early stop: the later boxes keep nothing, and the copy still in
+  // flight lands before the block's shared memory is given up
+  for (int i = rb * kBlock + lane; i < n; i += 32) gkeep[i] = 0;
+  if (rb < words) bar_wait(&bars[rb & 1], (rb >> 1) & 1);
+}
+
+// The scan needs more than the default 48 KB of dynamic shared memory at
+// large N; the attribute belongs to the kernel's instance on one device, so
+// it is set once per device.
+cudaError_t allow_scan_smem() {
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               scan_smem_bytes(kMaxWords));
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int nms_max_boxes() { return kMaxWords * kBlock; }
 
-// boxes: [G, N, 4] float32, score-sorted per problem; valid: [G, N] uint8;
-// mask: [G, N, ceil(N/64)] uint64 workspace; keep: [G, N] uint8 output.
-// Returns the cudaError_t of the launches (0 = success).
-extern "C" int nms_keep(const void* boxes, const void* valid, void* mask,
-                        void* keep, int g, int n, float thresh, float offset,
-                        void* stream) {
+// boxes: [G, N, 4] float32, score-sorted per problem, 16-byte aligned; mask:
+// [G, 64 * ceil(N/64), ceil(N/64)] uint64 output (rows past N are not
+// written). Returns the cudaError_t of the launch.
+extern "C" int nms_mask(const void* boxes, void* mask, int g, int n, float thresh,
+                        float offset, void* stream) {
   if (g <= 0 || n <= 0) return 0;
   const int words = (n + kBlock - 1) / kBlock;
-  if (words > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(words, words, g);
-  nms_mask_kernel<<<grid, kBlock, 0, s>>>(
-      static_cast<const float4*>(boxes),
-      static_cast<unsigned long long*>(mask), n, words, thresh, offset);
-  cudaError_t err = cudaGetLastError();
+  if (words > kMaxWords || g > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(words * (words + 1) / 2, g);
+  nms_mask_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(boxes), static_cast<u64*>(mask), n, words, thresh, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mask: nms_mask's output, 16-byte aligned; valid: [G, N] uint8; keep: [G, N]
+// uint8 output; max_keep: the walk of a problem stops once that many boxes
+// are kept (N or more: no limit). Returns the cudaError_t of the launch.
+extern "C" int nms_scan(const void* mask, const void* valid, void* keep, int g, int n,
+                        int max_keep, void* stream) {
+  if (g <= 0 || n <= 0) return 0;
+  const int words = (n + kBlock - 1) / kBlock;
+  if (words > kMaxWords || max_keep < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(mask) % 16) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  cudaError_t err = allow_scan_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<g, 32, kBlock * words * sizeof(unsigned long long), s>>>(
-      static_cast<const unsigned long long*>(mask),
-      static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), n,
-      words);
+  nms_scan_kernel<<<g, 32, scan_smem_bytes(words), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
+      static_cast<uint8_t*>(keep), n, words, max_keep);
   return static_cast<int>(cudaGetLastError());
 }

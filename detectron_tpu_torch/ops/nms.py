@@ -18,6 +18,7 @@ PyTorch.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -35,10 +36,12 @@ def sort_desc(x: torch.Tensor):
 
 
 def greedy_keep_plain(sboxes: torch.Tensor, svalid: torch.Tensor,
-                      thresh: float, offset: float = 0.0) -> torch.Tensor:
+                      thresh: float, offset: float = 0.0,
+                      max_keep: int | None = None) -> torch.Tensor:
     """Greedy keep mask ``[G, N]`` of score-sorted ``sboxes [G, N, 4]``:
     box j is suppressed by an earlier kept valid box i with IoU > thresh;
-    invalid boxes neither keep nor suppress."""
+    invalid boxes neither keep nor suppress. With ``max_keep``, only the
+    first ``max_keep`` kept boxes of each problem keep their flag."""
     g, n = svalid.shape
     later = torch.ones(n, n, dtype=torch.bool, device=sboxes.device).triu(1)
     sup = (bbox_overlaps(sboxes, sboxes, offset) > thresh) & later
@@ -46,24 +49,62 @@ def greedy_keep_plain(sboxes: torch.Tensor, svalid: torch.Tensor,
     for i in range(n):
         alive = keep[:, i] & svalid[:, i]
         keep &= ~(alive[:, None] & sup[:, i])
-    return keep & svalid
+    keep &= svalid
+    if max_keep is not None:
+        keep &= keep.cumsum(1) <= max_keep
+    return keep
 
 
+@functools.cache
 def _nms_lib() -> ctypes.CDLL:
     lib = _build.load("nms")
-    lib.nms_keep.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p]
-    lib.nms_keep.restype = ctypes.c_int
-    lib.nms_max_boxes.restype = ctypes.c_int
+    lib.nms_mask.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.nms_scan.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.nms_mask, lib.nms_scan, lib.nms_max_boxes):
+        fn.restype = ctypes.c_int
     return lib
 
 
+def nms_mask_cuda(sboxes: torch.Tensor, thresh: float, offset: float = 0.0) -> torch.Tensor:
+    """The first launch of K1: every IoU bit of the upper triangle, as
+    ``int64 [G, 64 * W, W]`` words (``W = ceil(N / 64)``; the rows past N
+    are padding that the scan never reads). Takes what
+    :func:`greedy_keep_cuda` has checked; counts nothing (the pair counts
+    as one launch of K1)."""
+    g, n = sboxes.shape[:2]
+    words = -(-n // 64)
+    mask = torch.empty((g, 64 * words, words), dtype=torch.int64, device=sboxes.device)
+    with torch.cuda.device(sboxes.device):
+        err = _nms_lib().nms_mask(sboxes.data_ptr(), mask.data_ptr(), g, n, thresh,
+                                  offset, _build.stream_handle(sboxes.device))
+    _build.check(err, "nms_mask")
+    return mask
+
+
+def nms_scan_cuda(mask: torch.Tensor, svalid: torch.Tensor,
+                  max_keep: int | None = None) -> torch.Tensor:
+    """The second launch of K1: the greedy walk over :func:`nms_mask_cuda`'s
+    words, one keep flag per sorted box, stopping a problem's walk at
+    ``max_keep`` kept boxes. Counts nothing."""
+    g, n = svalid.shape
+    keep = torch.empty((g, n), dtype=torch.bool, device=svalid.device)
+    with torch.cuda.device(svalid.device):
+        err = _nms_lib().nms_scan(mask.data_ptr(), svalid.data_ptr(), keep.data_ptr(), g, n,
+                                  n if max_keep is None else min(max_keep, n),
+                                  _build.stream_handle(svalid.device))
+    _build.check(err, "nms_scan")
+    return keep
+
+
 def greedy_keep_cuda(sboxes: torch.Tensor, svalid: torch.Tensor,
-                     thresh: float, offset: float = 0.0) -> torch.Tensor:
+                     thresh: float, offset: float = 0.0,
+                     max_keep: int | None = None) -> torch.Tensor:
     """:func:`greedy_keep_plain` as the CUDA kernel pair of ``csrc/nms.cu``:
-    one launch of all IoU bit masks, one launch of the sequential scans,
-    for all G problems at once. Never synchronises with the host."""
+    one launch of all IoU bit masks, one launch of the sequential scans
+    (each problem's stops at ``max_keep`` kept boxes), for all G problems
+    at once. Never synchronises with the host."""
     if not (sboxes.is_cuda and svalid.device == sboxes.device):
         raise ValueError("greedy_keep_cuda takes CUDA tensors on one device")
     if sboxes.dtype != torch.float32 or svalid.dtype != torch.bool:
@@ -75,19 +116,13 @@ def greedy_keep_cuda(sboxes: torch.Tensor, svalid: torch.Tensor,
         raise ValueError("greedy_keep_cuda takes contiguous tensors")
     if sboxes.data_ptr() % 16:
         raise ValueError("greedy_keep_cuda reads boxes as float4: 16-byte alignment")
+    if max_keep is not None and max_keep < 0:
+        raise ValueError(f"max_keep={max_keep}: want None or >= 0")
     g, n = svalid.shape
-    lib = _nms_lib()
-    if n > lib.nms_max_boxes():
-        raise ValueError(f"NMS over {n} boxes: the kernel takes at most "
-                         f"{lib.nms_max_boxes()}")
-    words = -(-n // 64)
-    mask = torch.empty((g, n, words), dtype=torch.int64, device=sboxes.device)
-    keep = torch.empty((g, n), dtype=torch.bool, device=sboxes.device)
-    with torch.cuda.device(sboxes.device):
-        err = lib.nms_keep(sboxes.data_ptr(), svalid.data_ptr(), mask.data_ptr(),
-                           keep.data_ptr(), g, n, thresh, offset,
-                           _build.stream_handle(sboxes.device))
-    _build.check(err, "nms_keep")
+    limit = _nms_lib().nms_max_boxes()
+    if n > limit:
+        raise ValueError(f"NMS over {n} boxes: the kernel takes at most {limit}")
+    keep = nms_scan_cuda(nms_mask_cuda(sboxes, thresh, offset), svalid, max_keep)
     greedy_keep_cuda.launches += 1
     return keep
 
@@ -96,11 +131,11 @@ greedy_keep_cuda.launches = 0
 
 
 def greedy_keep(sboxes: torch.Tensor, svalid: torch.Tensor, thresh: float,
-                offset: float = 0.0) -> torch.Tensor:
+                offset: float = 0.0, max_keep: int | None = None) -> torch.Tensor:
     """Kernel K1 on a CUDA tensor, its plain version on a CPU tensor."""
     if sboxes.is_cuda:
-        return greedy_keep_cuda(sboxes, svalid, thresh, offset)
-    return greedy_keep_plain(sboxes, svalid, thresh, offset)
+        return greedy_keep_cuda(sboxes, svalid, thresh, offset, max_keep)
+    return greedy_keep_plain(sboxes, svalid, thresh, offset, max_keep)
 
 
 def nms_padded_batched(boxes: torch.Tensor, scores: torch.Tensor,
@@ -118,10 +153,11 @@ def nms_padded_batched(boxes: torch.Tensor, scores: torch.Tensor,
     order_scores, order = sort_desc(masked)
     sboxes = torch.gather(boxes, 1, order[..., None].expand(g, n, 4)).contiguous()
     svalid = (order_scores > NEG_INF / 2).contiguous()
-    keep = greedy_keep(sboxes, svalid, thresh, offset)
-    # kept boxes in sorted order fill the first slots (what top_k of the
-    # kept scores gives, ties in index order); the rest are invalid
+    # kept boxes in sorted order fill the first m slots (what top_k of the
+    # kept scores gives, ties in index order); the rest are invalid, so the
+    # walk may stop at m kept boxes
     m = min(max_out, n)
+    keep = greedy_keep(sboxes, svalid, thresh, offset, max_keep=m)
     rank = keep.cumsum(1) - 1
     slot = torch.where(keep & (rank < m), rank, torch.full_like(rank, m))
     out = torch.zeros((g, m + 1), dtype=order.dtype, device=order.device)

@@ -23,6 +23,7 @@ index, so forward and backward route identically by construction.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -206,6 +207,7 @@ def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Ten
 _MAX_LEVELS = 8
 
 
+@functools.cache
 def _roi_align_lib() -> ctypes.CDLL:
     lib = _build.load("roi_align")
     for fn in (lib.roi_align_forward, lib.roi_align_backward):
@@ -288,8 +290,10 @@ def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tens
                                   sampling_ratio: int = 2) -> list[torch.Tensor]:
     """:func:`multilevel_roi_align_bwd_plain` as kernel K3 of
     ``csrc/roi_align.cu``: one zero fill of all levels' gradients, then one
-    launch that adds every RoI's samples into them with fp32 atomics (the
-    order of the adds, and so the last bits, varies from run to run)."""
+    launch that builds each RoI's gradient window on chip and adds it into
+    them, one 16-byte atomic add per touched cell and 4 channels (the order
+    in which overlapping RoIs add, and so the last bits, varies from run to
+    run). Takes C a multiple of 4 and a 16-byte aligned ``grad``."""
     if grad.dtype == torch.bfloat16:
         raise NotImplementedError(
             "bfloat16 RoIAlign kernel is not ported yet: ROADMAP.md, Queue 2, "
@@ -302,24 +306,44 @@ def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tens
             and grad.shape[:4] == (b, r, p, p) and grad.is_contiguous()):
         raise ValueError("grad: a contiguous float32 [B, R, P, P, C] CUDA tensor on "
                          "the RoIs' device")
-    c = grad.shape[4]
-    sizes = [b * int(h) * int(w) * c for h, w in level_hw]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=rois.device)
-    grads = [part.view(b, int(h), int(w), c)
-             for part, (h, w) in zip(flat.split(sizes), level_hw)]
-    if b * r == 0 or c == 0:
+    if grad.shape[4] % 4 or grad.data_ptr() % 16:
+        # so that every cell of grad and of the level gradients is float4-aligned
+        raise ValueError(f"grad: K3 adds 4 channels at a time and takes C a multiple of "
+                         f"4 (C={grad.shape[4]}) and a 16-byte aligned tensor")
+    grads = level_grad_buffers(b, grad.shape[4], level_hw, rois.device)
+    if b * r == 0 or grad.shape[4] == 0:
         return grads
-    lib = _roi_align_lib()
-    with torch.cuda.device(rois.device):
-        err = lib.roi_align_backward(
-            *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
-            grad.data_ptr(), b * r, r, c, p, s, _build.stream_handle(rois.device))
-    _build.check(err, "roi_align_backward")
+    roi_align_bwd_accumulate_cuda(grads, grad, rois, levels, strides, s)
     multilevel_roi_align_bwd_cuda.launches += 1
     return grads
 
 
 multilevel_roi_align_bwd_cuda.launches = 0
+
+
+def level_grad_buffers(b: int, c: int, level_hw, device) -> list[torch.Tensor]:
+    """K3's zero fill: one zero fp32 buffer for all levels' gradients,
+    viewed as per-level ``[B, Hl, Wl, C]`` tensors."""
+    sizes = [b * int(h) * int(w) * c for h, w in level_hw]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
+    return [part.view(b, int(h), int(w), c)
+            for part, (h, w) in zip(flat.split(sizes), level_hw)]
+
+
+def roi_align_bwd_accumulate_cuda(grads: Sequence[torch.Tensor], grad: torch.Tensor,
+                                  rois: torch.Tensor, levels: torch.Tensor,
+                                  strides: Sequence[int], sampling_ratio: int = 2) -> None:
+    """K3's launch alone: adds the gradient of every RoI into ``grads``
+    (:func:`level_grad_buffers`). Takes what
+    :func:`multilevel_roi_align_bwd_cuda` has checked; counts nothing."""
+    b, r = rois.shape[:2]
+    p, c = grad.shape[2], grad.shape[4]
+    with torch.cuda.device(rois.device):
+        err = _roi_align_lib().roi_align_backward(
+            *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
+            grad.data_ptr(), b * r, r, c, p, sampling_ratio,
+            _build.stream_handle(rois.device))
+    _build.check(err, "roi_align_backward")
 
 
 class RoIAlignFunction(torch.autograd.Function):

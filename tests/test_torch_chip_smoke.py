@@ -1,13 +1,15 @@
-"""A rehearsal of chip_smoke.py's training phases on the CPU, so that the
-script's own code (phase logic, checks, breakdown, driver resume) is
-exercised before a card runs it.
+"""A rehearsal of chip_smoke.py's kernel and training phases on the CPU, so
+that the script's own code (phase logic, cases, checks, breakdown, driver
+resume) is exercised before a card runs it.
 
 The card-only pieces are replaced: the kernels' plain versions stand in
 for the CUDA wrappers (and count launches as the wrappers do), the kernel
 dispatch takes them for CPU tensors, ``torch.cuda`` timing and memory
 calls are stubbed, and the configs are cut to 64x128 with FPN 32, an
-R-50 backbone and 256 / 64 / 64 RPN candidates, proposals and RoIs. What the card alone can show (that a kernel builds, agrees
-with its plain version, and how long it takes) stays with chip_smoke.py.
+R-50 backbone and 256 / 64 / 64 RPN candidates, proposals and RoIs; the
+NMS cases are cut to a few hundred boxes. What the card alone can show
+(that a kernel builds, agrees with its plain version, and how long it
+takes) stays with chip_smoke.py.
 """
 
 import time
@@ -40,6 +42,9 @@ class _Event:
 
     def record(self):
         self.t = time.perf_counter()
+
+    def query(self):
+        return False  # as on the card while the spin kernel holds the stream
 
     def elapsed_time(self, other):
         return (other.t - self.t) * 1e3
@@ -74,6 +79,13 @@ class _PlainFunction(ra.RoIAlignFunction):
                                    for g, need in zip(grads, ctx.needs_input_grad[5:]))
 
 
+def _plain_accumulate(grads, grad, rois, levels, strides, sampling_ratio=2):
+    level_hw = [tuple(t.shape[1:3]) for t in grads]
+    for acc, add in zip(grads, ra.multilevel_roi_align_bwd_plain(
+            grad, level_hw, rois, levels, strides, sampling_ratio)):
+        acc.add_(add)
+
+
 @pytest.fixture
 def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "DEVICE", "cpu")
@@ -83,6 +95,7 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
     monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cpu"))
     for mod, name, plain in ((nms, "greedy_keep_cuda", nms.greedy_keep_plain),
                              (ra, "multilevel_roi_align_cuda", ra.multilevel_roi_align_plain),
@@ -90,6 +103,16 @@ def rehearsal(monkeypatch, tmp_path):
                               ra.multilevel_roi_align_bwd_plain)):
         monkeypatch.setattr(mod, name, _counting(plain))
     monkeypatch.setattr(nms, "greedy_keep", lambda *a, **k: nms.greedy_keep_cuda(*a, **k))
+    # the launches that chip_smoke times apart: timed here, never compared
+    monkeypatch.setattr(nms, "nms_mask_cuda", lambda sboxes, thresh, offset=0.0: sboxes)
+    monkeypatch.setattr(nms, "nms_scan_cuda", lambda mask, svalid, max_keep=None: svalid)
+    monkeypatch.setattr(ra, "roi_align_bwd_accumulate_cuda", _plain_accumulate)
+    monkeypatch.setattr(cs, "NMS_CASES", tuple(
+        dict(case, g=3, n=case["n"] // 5, n_invalid=case["n_invalid"] // 5,
+             max_out=case["max_out"] // 5) for case in cs.NMS_CASES))
+    monkeypatch.setattr(cs, "NMS_EDGE_CASES", tuple(
+        dict(case, n=min(case["n"], 300), n_invalid=min(case["n_invalid"], case["n"], 300))
+        for case in cs.NMS_EDGE_CASES))
     monkeypatch.setattr(ra, "RoIAlignFunction", _PlainFunction)
     get_config = detectron_tpu_torch.config.get_config
 
@@ -112,8 +135,51 @@ def test_kernel_phases_k3_and_function(rehearsal, capsys):
     k3 = cs.phase_roi_align_bwd(rehearsal, feats)
     assert [c["case"] for c in k3] == ["P7 R512", "P14 R128"]
     assert all(c["max_abs_err"] == 0.0 and c["bound_by"] == "bytes" for c in k3)
+    assert all(c["fill_ms"] >= 0.0 and c["kernel_ms"] >= 0.0 for c in k3)
+    out = capsys.readouterr().out
+    for kind in cs.K3_STRESS:
+        for p in (7, 14):
+            assert f"[K3 stress: {kind}, P={p} R=128] levels" in out
+    assert "(fill " in out and " + kernel " in out
     cs.phase_function(rehearsal, feats)
     assert "[function]" in capsys.readouterr().out
+
+
+def test_kernel_phase_k1_cases_and_split(rehearsal, capsys):
+    k1 = cs.phase_nms(rehearsal)
+    assert [c["case"] for c in k1] == ["rpn", "det", "rpn_train"]
+    assert [c["max_keep"] for c in k1] == [60, 20, 200]  # min(max_out, n), cut by 5
+    for c in k1:
+        assert {"ms", "mask_ms", "scan_ms", "scan_full_ms", "plain_ms", "bound_ms"} <= set(c)
+    out = capsys.readouterr().out
+    for case in cs.NMS_EDGE_CASES:
+        assert f"[K1 edge] {case['name']}: " in out
+    assert "max_keep=1," in out and "max_keep=None, 0 kept" in out  # all invalid
+
+
+@pytest.mark.parametrize("kind", cs.K3_STRESS)
+def test_k3_stress_rois_have_their_shape(kind):
+    """Each stress case gives what its name says, at the full canvas."""
+    rois, levels = cs.k3_stress_rois(np.random.RandomState(0), kind, 2, 128)
+    assert rois.shape == (2, 128, 4) and rois.dtype == np.float32
+    w = rois[..., 2] - rois[..., 0]
+    h = rois[..., 3] - rois[..., 1]
+    assert (w > 0).all() and (h > 0).all()
+    if levels is not None:
+        cells = w / np.array(cs.STRIDES)[levels]
+    if kind == "wider than P*S cells":
+        assert (cells > 28).all()  # P * S at P=14, S=2
+    elif kind == "all sub-cell":
+        assert (cells < 1).all() and (h / np.array(cs.STRIDES)[levels] < 1).all()
+    elif kind == "P5 whole level":
+        assert (levels == 3).all() and (rois[..., :2] <= 0).all()
+        assert (rois[..., 2] >= cs.CANVAS[1]).all() and (rois[..., 3] >= cs.CANVAS[0]).all()
+    elif kind == "all identical":
+        assert levels is None and (rois == rois[0, 0]).all()
+    else:
+        outside = (rois[..., 0] > cs.CANVAS[1]) | (rois[..., 1] > cs.CANVAS[0])
+        straddle = (rois[..., 0] < 0) | (rois[..., 1] < 0)
+        assert outside.sum() == 2 * 32 and straddle.sum() >= 2 * 64
 
 
 def test_train_phase_counts_launches_and_resumes_the_driver(rehearsal, capsys):
