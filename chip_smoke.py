@@ -13,12 +13,16 @@ Phases, in order; any failure exits non-zero before the result line:
    be equal; the mask and scan launches are timed apart;
 4. K2 (multilevel RoIAlign) against its plain version on the card, at the
    1024x1344 P2-P5 shapes, C=256, inference (R=300, P=7; R=100, P=14) and
-   training (R=512, P=7; R=128, P=14) RoI counts: max |diff| <= 1e-5 *
-   max |feature|;
+   training (R=512, P=7; R=128, P=14) RoI counts with both routing spans,
+   at K3's stress cases for P=7 and 14, and at sampling ratios 1 and 3
+   (the kernel's generic instance; the model's is 2): max |diff| <= 1e-5 *
+   max |feature|, and two K2 runs bitwise equal; each case logs, as a count
+   from its inputs, the bytes of each RoI's distinct cells (what K2 stages)
+   beside the distinct cells over the batch (the bound's);
 5. predict: Mask R-CNN R-50-FPN (configs/mask_rcnn_r50_fpn_coco.yaml) at
    full width, 1024x1344, float32, batch 2, weights from a numpy seed:
-   predict_fn three times; both kernels' launch counts must rise on every
-   call, detections must be non-empty and mask probabilities in [0, 1];
+   predict_fn three times; K1 must launch on every call and K2 twice,
+   detections must be non-empty and mask probabilities in [0, 1];
 6. cross-device predict: the same port at 256x256 with small widths on the
    card and on the CPU (plain versions) with the same weights: equal valid
    slots, boxes within 1e-3;
@@ -365,11 +369,55 @@ def level_features(rng, b=2, c=256):
                          device=DEVICE) for st in STRIDES]
 
 
+def k2_bound(feats, rois, levels, p, s=2):
+    """K2's bound at these inputs: the distinct feature cells its samples
+    read over the batch, its output, RoIs and routing, at the card's memory
+    rate, or its fp32 operations where slower. Returns (ms, by, bytes)."""
+    b, r = rois.shape[:2]
+    c = feats[0].shape[-1]
+    nbytes = (touched_bytes(feats, rois, levels, STRIDES, p, s) + b * r * p * p * c * 4
+              + b * r * (16 + 4))
+    # per output value: S^2 samples of four corners, a weight product and a
+    # scaled add each, and the division by S^2
+    b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (s * s * 4 * 3 + 1))
+    return b_ms, b_by, nbytes
+
+
+def check_k2(name, feats, rois, levels, p, fmax, s=2):
+    """K2 twice and its plain version on the same inputs: max |diff| against
+    the plain version must be within 1e-5 x max |feature|, and the two K2
+    runs bitwise equal (no atomics). Logs two counts from the inputs: the
+    bytes of each RoI's distinct cells, summed over the RoIs (what K2
+    stages, once a RoI), and of the distinct cells over the batch (the
+    bound's). Returns (max |diff|, per-RoI bytes)."""
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    got = ra.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, p, s)
+    again = ra.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, p, s)
+    want = ra.multilevel_roi_align_plain(feats, rois, levels, STRIDES, p, s)
+    torch.cuda.synchronize()
+    diff = float((got - want).abs().max())
+    same = torch.equal(got, again)
+    per_roi, distinct = roi_cell_bytes(feats, rois, levels, p, s)
+    hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    log(f"[K2 {name}] levels {hist}, max |diff| {diff:.3e} (limit {1e-5 * fmax:.3e}), two "
+        f"runs bitwise equal: {same}; per-RoI distinct cells, from the inputs, "
+        f"{per_roi / 1e6:.1f} MB; {distinct / 1e6:.1f} MB distinct over the batch")
+    if not diff <= 1e-5 * fmax:
+        raise AssertionError(f"K2 {name}: max |diff| {diff} > {1e-5 * fmax}")
+    if not same:
+        raise AssertionError(f"K2 {name}: two runs differ")
+    return diff, per_roi
+
+
 def phase_roi_align(rng, feats):
+    """K2 against its plain version at the main path's cases, with both
+    routing spans, then at the K3 stress cases and at sampling ratios 1 and
+    3 (their own seeded draws, so the later phases' inputs do not move)."""
     from detectron_tpu_torch.ops import roi_align as ra
 
     dev = torch.device(DEVICE)
-    b, c, canvas, strides = 2, 256, CANVAS, STRIDES
+    b, c, canvas, strides = 2, feats[0].shape[-1], CANVAS, STRIDES
     fmax = max(float(f.abs().max()) for f in feats)
     results = []
     for path, p, r in ROI_CASES:
@@ -378,27 +426,32 @@ def phase_roi_align(rng, feats):
         # both routing spans; the main path's (28, 44) last, so it is the one timed
         for span in (ra.DEFAULT_MAX_SPAN, (28.0, 44.0)):
             levels = ra.assign_fpn_levels(rois, 4, 2, max_span=span)
-            got = ra.multilevel_roi_align_cuda(feats, rois, levels, strides, p, 2)
-            want = ra.multilevel_roi_align_plain(feats, rois, levels, strides, p, 2)
-            torch.cuda.synchronize()
-            diff = float((got - want).abs().max())
+            diff, per_roi = check_k2(f"P={p} R={r} span={span}", feats, rois, levels, p, fmax)
             worst = max(worst, diff)
-            hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
-            log(f"[K2 P={p} R={r} span={span}] levels {hist}, max |diff| {diff:.3e} "
-                f"(limit {1e-5 * fmax:.3e})")
-            if not diff <= 1e-5 * fmax:
-                raise AssertionError(f"K2 P={p} span={span}: max |diff| {diff} > "
-                                     f"{1e-5 * fmax}")
         ms = cuda_ms(lambda: ra.multilevel_roi_align_cuda(feats, rois, levels, strides, p, 2))
         plain_ms = cuda_ms(lambda: ra.multilevel_roi_align_plain(
             feats, rois, levels, strides, p, 2), iters=5, warmup=1)
         out_bytes = b * r * p * p * c * 4
-        nbytes = touched_bytes(feats, rois, levels, strides, p, 2) + out_bytes + b * r * (16 + 4)
-        b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (12 * 2 * 2 + 1))
+        b_ms, b_by, nbytes = k2_bound(feats, rois, levels, p)
         log(f"[K2 P={p} R={r}] kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB)")
+            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); per-RoI distinct cells, "
+            f"from the inputs, {per_roi / 1e6:.1f} MB; output {out_bytes / 1e6:.1f} MB")
         results.append(dict(case=f"P{p} R{r}", path=path, ms=ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, max_abs_err=worst))
+    stress = np.random.RandomState(4)
+    for kind in K3_STRESS:
+        for p in (7, 14):
+            rois, levels = k3_stress_rois(stress, kind, b, 128)
+            rois = torch.tensor(rois, device=dev)
+            levels = (ra.assign_fpn_levels(rois, len(feats), 2, max_span=(28.0, 44.0))
+                      if levels is None else torch.tensor(levels, device=dev))
+            check_k2(f"stress: {kind}, P={p} R=128", feats, rois, levels, p, fmax)
+    ratios = np.random.RandomState(5)
+    for s in (1, 3):
+        for p in (7, 14):
+            rois = torch.tensor(roi_cases(ratios, b, 128, canvas), device=dev)
+            levels = ra.assign_fpn_levels(rois, len(feats), 2, max_span=(28.0, 44.0))
+            check_k2(f"S={s}, P={p} R=128", feats, rois, levels, p, fmax, s)
     return results
 
 
@@ -472,6 +525,9 @@ def phase_slice(seed=0, calls=3):
             if n <= 0:
                 raise AssertionError(f"predict_fn call {call} launched {name} no time")
             totals[name] += n
+        if counts["multilevel_roi_align"] != 2:
+            raise AssertionError(f"predict_fn call {call} launched K2 "
+                                 f"{counts['multilevel_roi_align']} times, want 2 (box, mask)")
 
     # the stages one by one, timed; they also show the candidates that
     # entered the detection NMS
@@ -561,6 +617,10 @@ def profile_call(fn, label, top=8):
         return
     log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel names")
+    # the layout copies around the FPN (NCHW <-> NHWC) are among these
+    copies = [e for e in kernels if "copy" in e.key.lower()]
+    log(f"[profile]   copy kernels: {sum(e.self_device_time_total for e in copies) / 1e3:.3f} "
+        f"ms in {sum(e.count for e in copies)} launches of {len(copies)} kernel names")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
             f"{e.key[:90]}")
@@ -647,10 +707,10 @@ def k3_stress_rois(rng, kind, b, r):
     return rois.astype(np.float32), lv.astype(np.int32)
 
 
-def k3_adds(feats, rois, levels, p, s):
-    """Bytes K3's atomics add (each RoI: its distinct touched columns x
-    rows, C channels, fp32) and the bytes of the distinct cells they land
-    on, over all RoIs."""
+def roi_cell_bytes(feats, rois, levels, p, s):
+    """Bytes of each RoI's distinct touched cells (its distinct columns x
+    rows, C channels, fp32), summed over the RoIs: what K2 stages and K3's
+    atomics add; and the bytes of the distinct cells over all RoIs."""
     from detectron_tpu_torch.ops.roi_align import _sample_geometry
 
     level_hw = [tuple(f.shape[1:3]) for f in feats]
@@ -720,7 +780,7 @@ def phase_roi_align_bwd(rng, feats):
         nbytes = g.numel() * 4 + out_bytes + b * r * (16 + 4)
         # per sample and corner: one weight product, one scaled add
         b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (4 * 4 * 3 + 1))
-        added, distinct = k3_adds(feats, rois, levels, p, 2)
+        added, distinct = roi_cell_bytes(feats, rois, levels, p, 2)
         log(f"[K3 P={p} R={r}] {ms:.4f} ms (fill {fill_ms:.4f} + kernel {kernel_ms:.4f}), "
             f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB: "
             f"level gradients {out_bytes / 1e6:.1f}, g {g.numel() * 4 / 1e6:.1f}); the kernel "

@@ -253,7 +253,11 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
                               output_size: int = 7,
                               sampling_ratio: int = 2) -> torch.Tensor:
     """:func:`multilevel_roi_align_plain` as kernel K2 of
-    ``csrc/roi_align.cu``: one launch for all RoIs of all levels."""
+    ``csrc/roi_align.cu``: one launch for all RoIs of all levels. A block
+    folds its RoI's samples onto the cells they touch, stages those cells
+    once per channel slice and contracts them along x, then y.
+    Deterministic (no atomics). Takes C a multiple of 4 and 16-byte aligned
+    levels."""
     f0 = features[0]
     if f0.dtype == torch.bfloat16:
         raise NotImplementedError(
@@ -269,6 +273,10 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
                 and f.is_contiguous()):
             raise ValueError("features: contiguous float32 NHWC CUDA tensors on "
                              "the RoIs' device, one batch and channel count")
+    if c % 4 or any(f.data_ptr() % 16 for f in features):
+        # so that every cell's slice is whole float4s, copied 16 bytes at a time
+        raise ValueError(f"features: K2 copies 4 channels at a time and takes C a multiple "
+                         f"of 4 (C={c}) and 16-byte aligned levels")
     out = torch.empty((b, r, p, p, c), dtype=torch.float32, device=rois.device)
     if b * r == 0 or c == 0:
         return out

@@ -145,6 +145,33 @@ def test_kernel_phases_k3_and_function(rehearsal, capsys):
     assert "[function]" in capsys.readouterr().out
 
 
+def test_kernel_phase_k2_cases_stress_and_rerun(rehearsal, capsys):
+    feats = cs.level_features(rehearsal, c=16)
+    before = ra.multilevel_roi_align_cuda.launches
+    k2 = cs.phase_roi_align(rehearsal, feats)
+    assert [c["case"] for c in k2] == ["P7 R300", "P14 R100", "P7 R512", "P14 R128"]
+    assert [c["path"] for c in k2] == ["predict", "predict", "train", "train"]
+    for c in k2:
+        assert c["max_abs_err"] == 0.0 and c["bound_by"] == "bytes"
+        assert c["ms"] >= 0.0 and c["plain_ms"] >= 0.0
+        assert "cells_read_mb" not in c  # a count from the inputs: logged, not reported
+    out = capsys.readouterr().out
+    for _, p, r in cs.ROI_CASES:
+        for span in ((28.0, 36.0), (28.0, 44.0)):
+            assert f"[K2 P={p} R={r} span={span}] levels" in out
+    for kind in cs.K3_STRESS:
+        for p in (7, 14):
+            assert f"[K2 stress: {kind}, P={p} R=128] levels" in out
+    for s in (1, 3):
+        for p in (7, 14):
+            assert f"[K2 S={s}, P={p} R=128] levels" in out
+    assert out.count("two runs bitwise equal: True") == 4 * 2 + len(cs.K3_STRESS) * 2 + 4
+    assert "per-RoI distinct cells, from the inputs" in out
+    assert "distinct over the batch" in out
+    # each check runs the kernel twice; the timing adds its own calls
+    assert ra.multilevel_roi_align_cuda.launches - before >= 2 * (4 * 2 + 10 + 4)
+
+
 def test_kernel_phase_k1_cases_and_split(rehearsal, capsys):
     k1 = cs.phase_nms(rehearsal)
     assert [c["case"] for c in k1] == ["rpn", "det", "rpn_train"]

@@ -4,6 +4,8 @@ agree within 1e-5 (float32: the two gather the same samples and differ
 only in summation order). The CUDA kernel is held against the same plain
 path on the card by chip_smoke.py."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,3 +140,211 @@ def test_model_pooling_path_matches_jax(overrides):
 def test_roi_pool_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tra.roi_max_span(get_config(None, ["roi.pool_type=pool"]), (32, 32))
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of kernel K2's arithmetic (csrc/roi_align.cu,
+# roi_align_forward_kernel), held against the plain version and the JAX
+# package: what the card alone cannot show on the CPU is the algorithm, so
+# it is checked here before the kernel runs.
+
+# Stagings the model runs, each as (stage cells, ring rows): the kernel's at
+# C = 256; one row of the widest fold (2*P*S cells) a chunk, so that every
+# RoI taller than a row streams; and a stage so large that the ring alone
+# limits a chunk (ring rows - 2*S + 1), so that bins straddle many chunks.
+K2_STAGES = ("kernel", "one row", "ring-bound")
+
+
+def k2_kernel_sizes(pool, ratio, channels=256):
+    """(stage cells, ring rows) of the kernel at C = ``channels``: the
+    slice pick_slice takes of 64, 32, 4 and fwd_stage_cells, fwd_ring_rows
+    and fwd_smem_bytes (within kFwdSmemLimit) of csrc/roi_align.cu."""
+    for width in (64, 32, 4):
+        rows = 1
+        while rows < 4 * ratio:
+            rows *= 2
+        while 2 * rows * pool * width * 4 <= 16 * 1024:
+            rows *= 2
+        cells = max(2 * pool * ratio, 16 * 1024 // (width * 4))
+        if channels % width == 0 and (rows * pool + 2 * cells) * width * 4 <= 64 * 1024:
+            return cells, rows
+    raise AssertionError("no slice fits")
+
+
+def k2_staging(stage, pool, ratio):
+    cells, rows = k2_kernel_sizes(pool, ratio)
+    return {"kernel": cells, "one row": 2 * pool * ratio, "ring-bound": 4096}[stage], rows
+
+
+def test_k2_kernel_sizes_at_the_model_ratio():
+    """At S = 2, C = 256 the kernel stages 64 cells of a 64-channel slice
+    (16 KB) and keeps a ring of 8 rows, at P = 7 and 14."""
+    assert k2_kernel_sizes(7, 2) == (64, 8) and k2_kernel_sizes(14, 2) == (64, 8)
+    assert k2_kernel_sizes(14, 3) == (128, 16)  # 32-channel slices: 64 would not fit
+
+
+def fold_axis_model(i0, i1, w0, w1, ratio):
+    """fold_axis of one axis of one RoI: the sorted distinct cells that the
+    nonzero taps touch, and the taps ``(cell, bin, weight)`` in the kernel's
+    merged order (by cell; on one cell the i0 taps in sample order, then
+    the i1 taps)."""
+    taps = [(int(i0[k]), k // ratio, w0[k]) for k in range(len(i0)) if w0[k] != 0]
+    taps += [(int(i1[k]), k // ratio, w1[k]) for k in range(len(i1)) if w1[k] != 0]
+    taps.sort(key=lambda tap: tap[0])  # stable: the i0 taps first on a tie
+    return np.array(sorted({tap[0] for tap in taps}), np.int64), taps
+
+
+def sample_slots(cells, taps, i0, i1, w0, w1, ratio):
+    """K2's per-sample view of the fold: the slot of each tap's cell, -1 for
+    a zero weight. It must hold exactly the fold's taps."""
+    s0 = np.where(w0 != 0, np.searchsorted(cells, i0), -1)
+    s1 = np.where(w1 != 0, np.searchsorted(cells, i1), -1)
+    per_sample = sorted((int(s), k // ratio, float(w)) for slots, ws in ((s0, w0), (s1, w1))
+                        for k, (s, w) in enumerate(zip(slots, ws)) if s >= 0)
+    assert per_sample == sorted((int(np.searchsorted(cells, c)), p, float(w))
+                                for c, p, w in taps)
+    return s0, s1
+
+
+def contract(values, slots, weights, ratio):
+    """sum over the ratio samples of each bin and their two taps of w * v,
+    in the kernel's order: values [..., slots, C] -> [..., bins, C]."""
+    acc = np.zeros(values.shape[:-2] + (len(slots[0]) // ratio, values.shape[-1]), np.float32)
+    for j in range(ratio):
+        for s, w in zip(slots, weights):
+            s, w = s[j::ratio], w[j::ratio].astype(np.float32)
+            acc += np.where(s >= 0, w, 0.0)[:, None] * values[..., np.maximum(s, 0), :]
+    return acc
+
+
+def k2_model(feats, rois, levels, strides, pool, ratio, stage_cells, ring_rows):
+    """K2 in numpy, float32: per RoI the fold of each axis, the distinct
+    cells staged ``chunk`` y rows at a time, pass x of each chunk into a ring
+    of ``ring_rows`` rows, pass y of every output row whose taps have all
+    arrived (and a check that each row it reads is still in the ring), and
+    the division by S^2."""
+    b, r = rois.shape[:2]
+    c = feats[0].shape[-1]
+    level_hw = [f.shape[1:3] for f in feats]
+    _, _, ys, xs = tra._sample_geometry(level_hw, torch.tensor(rois), torch.tensor(levels),
+                                        strides, pool, ratio)
+    axes = []
+    for i0, i1, w0, w1, inb in (xs, ys):  # the border rule folded into the weights
+        axes.append((i0.numpy(), i1.numpy(), torch.where(inb, w0, 0.0).numpy(),
+                     torch.where(inb, w1, 0.0).numpy()))
+    out = np.zeros((b, r, pool, pool, c), np.float32)
+    for n in range(b * r):
+        bi, ri = divmod(n, r)
+        folds = []
+        for i0, i1, w0, w1 in axes:
+            args = (i0[bi, ri], i1[bi, ri], w0[bi, ri], w1[bi, ri])
+            cells, taps = fold_axis_model(*args, ratio)
+            assert len(cells) <= 2 * pool * ratio
+            folds.append((cells, sample_slots(cells, taps, *args, ratio), args[2:]))
+        (xcells, xslots, xw), (ycells, yslots, yw) = folds
+        nx, ny = len(xcells), len(ycells)
+        if nx == 0 or ny == 0:
+            continue  # every sample outside the level: zeros
+        last_row = np.maximum(yslots[0], yslots[1]).reshape(pool, ratio).max(1)
+        feat = feats[levels[bi, ri]][bi]
+        chunk = min(stage_cells // nx, ring_rows - 2 * ratio + 1)
+        ring = np.zeros((ring_rows, pool, c), np.float32)
+        held = np.full(ring_rows, -1)  # the row each ring slot holds
+        done = 0
+        for r0 in range(0, ny, chunk):
+            rows = np.arange(r0, min(r0 + chunk, ny))
+            staged = feat[ycells[rows]][:, xcells]  # [rows, nx, C]
+            ring[rows % ring_rows] = contract(staged, xslots, xw, ratio)
+            held[rows % ring_rows] = rows
+            end = done
+            while end < pool and last_row[end] < rows[-1] + 1:
+                end += 1
+            for p in range(done, end):
+                need = [s for s in np.concatenate([sl[p * ratio:(p + 1) * ratio]
+                                                   for sl in yslots]) if s >= 0]
+                assert all(held[s % ring_rows] == s for s in need), "a row left the ring"
+            bins = [sl[done * ratio:end * ratio] for sl in yslots]
+            wts = [w[done * ratio:end * ratio] for w in yw]
+            # pass y reads ring slot (row % ring_rows); -1 (no tap) weighs 0
+            rows_of = [np.where(s >= 0, s % ring_rows, -1) for s in bins]
+            acc = contract(np.moveaxis(ring, 0, 1), rows_of, wts, ratio)  # [P(q), bins, C]
+            out[bi, ri, done:end] = np.moveaxis(acc, 0, 1) / np.float32(ratio * ratio)
+            done = end
+        assert done == pool
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def k2_case(kind, pool, ratio=2):
+    """Inputs of one case at a 256x1024 canvas (so that P5 is 32 cells
+    wide and 'wider than P*S cells' holds at P=14), C=8: the RoIs and
+    levels of chip_smoke's K3 stress kind (routed with the main path's
+    span where the kind sets no levels), or chip_smoke's main-path RoIs;
+    the plain version's and the JAX package's outputs at sampling ratio
+    ``ratio``."""
+    import chip_smoke as cs
+
+    canvas, b, r = (256, 1024), 2, 24
+    rng = np.random.RandomState(7 + pool)
+    feats = [rng.randn(b, canvas[0] // st, canvas[1] // st, 8).astype(np.float32)
+             for st in STRIDES]
+    saved, cs.CANVAS = cs.CANVAS, canvas
+    try:
+        if kind == "main path":
+            rois, levels = cs.roi_cases(rng, b, r, canvas), None
+        else:
+            rois, levels = cs.k3_stress_rois(rng, kind, b, r)
+    finally:
+        cs.CANVAS = saved
+    if levels is None:
+        levels = tra.assign_fpn_levels(torch.tensor(rois), 4, 2, max_span=(28.0, 44.0)).numpy()
+    plain = tra.multilevel_roi_align_plain([torch.tensor(f) for f in feats], torch.tensor(rois),
+                                           torch.tensor(levels), STRIDES, pool, ratio).numpy()
+    # the JAX package, one level at a time (a single level routes every RoI to it)
+    jax_out = np.zeros_like(plain)
+    for lv, (f, st) in enumerate(zip(feats, STRIDES)):
+        got = np.asarray(jra.multilevel_roi_align([jnp.asarray(f)], jnp.asarray(rois), (st,),
+                                                  output_size=pool, sampling_ratio=ratio,
+                                                  min_level=int(np.log2(st))))
+        jax_out[levels == lv] = got[levels == lv]
+    return feats, rois, levels, plain, jax_out
+
+
+K2_KINDS = ("main path", "wider than P*S cells", "all sub-cell", "all identical",
+            "P5 whole level", "past the border")
+
+
+def check_k2_model(kind, pool, stage, ratio):
+    feats, rois, levels, plain, jax_out = k2_case(kind, pool, ratio)
+    got = k2_model(feats, rois, levels, STRIDES, pool, ratio, *k2_staging(stage, pool, ratio))
+    limit = 1e-5 * max(float(np.abs(f).max()) for f in feats)
+    np.testing.assert_allclose(got, plain, rtol=0, atol=limit)
+    np.testing.assert_allclose(got, jax_out, rtol=0, atol=limit)
+    if kind == "wider than P*S cells":
+        cells = (rois[..., 2] - rois[..., 0]) / np.array(STRIDES)[levels]
+        assert (cells > 2 * pool).all()  # P * S cells at the model's S = 2
+    if kind == "past the border":
+        assert (got == 0).all(axis=(2, 3, 4)).any()  # RoIs wholly outside give zeros
+
+
+@pytest.mark.parametrize("stage", K2_STAGES)
+@pytest.mark.parametrize("pool", [7, 14])
+@pytest.mark.parametrize("kind", K2_KINDS)
+def test_k2_model_matches_plain_and_jax(kind, pool, stage):
+    """The kernel's algorithm (fold, staged chunks, x pass into the ring,
+    y pass, / S^2) gives the plain version's and the JAX package's output
+    within 1e-5 x max |feature| at the stress kinds chip_smoke holds the
+    card to, with the kernel's staging and with one row a chunk, at the
+    model's sampling ratio S = 2 (the kernel's S = 2 instance)."""
+    check_k2_model(kind, pool, stage, 2)
+
+
+@pytest.mark.parametrize("stage", K2_STAGES)
+@pytest.mark.parametrize("pool", [7, 14])
+@pytest.mark.parametrize("kind", K2_KINDS)
+@pytest.mark.parametrize("ratio", [1, 3])
+def test_k2_model_matches_plain_and_jax_at_other_ratios(ratio, kind, pool, stage):
+    """The same at S = 1 and 3, which take the kernel's generic instance
+    (S at run time, taps read from shared memory): its stage and ring
+    sizes follow S."""
+    check_k2_model(kind, pool, stage, ratio)
