@@ -4,7 +4,8 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc;
+2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc, and the
+   RLE codec (native/rle.cpp) with g++;
 3. K1 (greedy NMS) against its plain PyTorch version on the card, at the
    inference (G=10, N=1000; G=2, N=1200) and training (G=10, N=2000)
    shapes, with and without the main path's max_keep = min(max_out, N),
@@ -22,7 +23,9 @@ Phases, in order; any failure exits non-zero before the result line:
 5. predict: Mask R-CNN R-50-FPN (configs/mask_rcnn_r50_fpn_coco.yaml) at
    full width, 1024x1344, float32, batch 2, weights from a numpy seed:
    predict_fn three times; K1 must launch on every call and K2 twice,
-   detections must be non-empty and mask probabilities in [0, 1];
+   detections must be non-empty and mask probabilities in [0, 1]; one more
+   call under torch.cuda.set_sync_debug_mode must report no synchronising
+   call (the eval loop relies on it);
 6. cross-device predict: the same port at 256x256 with small widths on the
    card and on the CPU (plain versions) with the same weights: equal valid
    slots, boxes within 1e-3;
@@ -49,7 +52,26 @@ Phases, in order; any failure exits non-zero before the result line:
     UPDATE_RTOL of its update on the CPU (relative, in norm; float32
     gradients are summed in other orders by cuDNN and the CPU); as
     controls, the card step with K3's plain version must pass that limit,
-    and with a planted K3 fault (P2 zeroed; 10% short) must fail it.
+    and with a planted K3 fault (P2 zeroed; 10% short) must fail it;
+11. eval: the eval driver (detectron_tpu_torch.eval.driver.run) over an
+    in-memory COCO-format split of 8 uint8 images at COCO sizes with RLE
+    segmentations and crowd regions (no cv2): Mask R-CNN R-50-FPN as in
+    phase 5 (portrait images on the transposed canvas), batch 2, seeded
+    weights (the cls_score bias raised) restored from a checkpoint;
+    Loader -> predict_fn -> host paste + RLE -> box and segm COCO metrics. Every image consumed once, K1 and K2 twice
+    a predict call, detections and non-empty masks, every metric finite or
+    null; an oracle predictor must give box AP and segm AP50 of 1.0; logs
+    images/s of the loop, device ms per predict call and the host's ms per
+    batch by part (paste + RLE apart from the gt records), for this run
+    and for warm runs over 32 images with 8 and with 1 loader threads,
+    and, from a profiled run, the device's busy share of the loop;
+12. bench: python -m detectron_tpu_torch.bench at its default shapes
+    (1024x1024, batch 48 inference, batch 16 training, float32) with
+    --iters 3 --train-iters 2: its JSON line, positive finite rates, and
+    every kernel's launches as its calls and steps require; then K1 and
+    K2 against their plain versions at the bench's inference shapes
+    (batch 48: 240 RPN problems of 1000 boxes, 48 of 1200; 14400 and 4800
+    RoIs), exactly and within phase 4's bound.
 
 It then prints a JSON line of per-kernel results, the card's name and
 power limit, and as the last line
@@ -147,9 +169,14 @@ def phase_device() -> str:
 def phase_build() -> float:
     from detectron_tpu_torch import _build
 
+    from detectron_tpu_torch import native
+
     seconds = _build.build()
     log(f"[build] kernels {_build.KERNELS} in {seconds:.1f} s "
         f"(nvcc {_build.nvcc()})")
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"[build] RLE codec {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.1f} s")
     for name in _build.KERNELS:
         report = _build.library_path(name).with_suffix(".log")
         if report.exists():
@@ -529,6 +556,8 @@ def phase_slice(seed=0, calls=3):
             raise AssertionError(f"predict_fn call {call} launched K2 "
                                  f"{counts['multilevel_roi_align']} times, want 2 (box, mask)")
 
+    check_no_host_sync(lambda: det.predict_fn(params, batch), "predict_fn")
+
     # the stages one by one, timed; they also show the candidates that
     # entered the detection NMS
     det.module.load_state_dict(params)
@@ -555,6 +584,34 @@ def phase_slice(seed=0, calls=3):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_call(lambda: det.predict_fn(params, batch), "one predict_fn")
     return totals, times
+
+
+def check_no_host_sync(fn, label):
+    """``fn()`` must not wait for the device (the eval driver issues batch
+    k+1's predict call before it consumes batch k): run once under
+    ``torch.cuda.set_sync_debug_mode``, no synchronising call may be
+    reported. Logs the host's time to issue the call and to its end."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            fn()
+            issue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t0) * 1e3
+    reset_counts()
+    syncs = sorted({str(w.message)[:120] for w in caught
+                    if "synchroniz" in str(w.message).lower()})
+    log(f"[slice] {label} under the sync debug mode: issued in {issue_ms:.2f} ms of host "
+        f"time, done after {done_ms:.2f} ms; synchronising calls reported: {len(syncs)}")
+    if syncs:
+        raise AssertionError(f"{label} synchronises with the host: {syncs}")
 
 
 def stage_breakdown(det, batch, cfg, repeats=3):
@@ -844,33 +901,13 @@ TRAIN_OVERRIDES = ["train.batch_size=2", "train.base_lr=0.0025", "data.dataset=s
 TRAIN_OUT = os.path.join(REPO, "build", "train_smoke")  # the driver's output_dir
 
 
-def calibrate_frozen_bn(module, images):
-    """Sets every frozen BatchNorm's statistics to those of its input on
-    ``images`` (one forward, in order), as a pretrained backbone's frozen
-    statistics normalize its activations. With identity statistics the
-    random 101-layer backbone's activations grow at every residual add,
-    and SGD overflows to NaN within a few steps."""
-    from detectron_tpu_torch.models.resnet import FrozenBatchNorm
-
-    def set_stats(bn, args):
-        x = args[0]
-        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
-        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
-
-    hooks = [m.register_forward_pre_hook(set_stats) for m in module.backbone.modules()
-             if isinstance(m, FrozenBatchNorm)]
-    try:
-        with torch.no_grad():
-            module.features(images)
-    finally:
-        for h in hooks:
-            h.remove()
-
-
 def seeded_train_state(cfg, device, seed):
     """A train state from Detector.init(seed) with the frozen BatchNorm
-    statistics calibrated on the first synthetic batch; returns it and the
-    batch iterator, past that batch."""
+    statistics calibrated on the first synthetic batch (the bench's
+    ``calibrate_frozen_bn``: from identity statistics the random backbone's
+    activations grow at every residual add, and SGD overflows to NaN within
+    a few steps); returns it and the batch iterator, past that batch."""
+    from detectron_tpu_torch.bench import calibrate_frozen_bn
     from detectron_tpu_torch.models.zoo import build_detector
     from detectron_tpu_torch.train.driver import batch_iterator
     from detectron_tpu_torch.train.state import create_train_state
@@ -1086,6 +1123,389 @@ def phase_cross_train(seed=2):
     return readings
 
 
+# ---------------------------------------------------------------- phase 11
+
+# COCO-like image sizes: 5 landscape (or square) and 3 portrait ones. After
+# the 800/1333 resize a portrait image is taller than the 1024x1344 canvas,
+# so the phase turns orientation buckets on (portrait images on 1344x1024):
+# 3 + 2 batches of 2, each bucket's tail padded by repetition
+EVAL_SIZES = ((480, 640), (640, 480), (427, 640), (640, 427), (375, 500), (500, 375),
+              (480, 640), (612, 612))
+EVAL_OUT = os.path.join(REPO, "build", "eval_smoke")  # the eval driver's output_dir
+EVAL_WARM_REPEAT = 4  # the warm timing runs' split: EVAL_SIZES this many times
+
+
+class InMemoryCoco:
+    """A COCO-format val split held in memory, with ``CocoDataset``'s
+    interface (``__len__``, ``example``, ``index_of``, ``num_classes``,
+    ``segmentation_to_rle``) and no ``cv2``: seeded uint8 images at COCO
+    sizes, rectangles and ellipses drawn on a textured background, every
+    segmentation an RLE dict (compressed strings and count lists in turn),
+    crowd regions in every third image. The 28x28 box-frame rasters are the
+    full mask sampled at the grid's centres."""
+
+    def __init__(self, seed=0, sizes=EVAL_SIZES, num_classes=81, mask_size=28):
+        from detectron_tpu_torch.data.coco import CocoDataset
+
+        self.segmentation_to_rle = CocoDataset.segmentation_to_rle
+        self.num_classes = num_classes
+        self.mask_size = mask_size
+        rng = np.random.RandomState(seed)
+        self.examples = [self._example(rng, i, hw) for i, hw in enumerate(sizes)]
+
+    def __len__(self):
+        return len(self.examples)
+
+    def index_of(self, image_id) -> int:
+        return int(image_id)
+
+    def example(self, index: int) -> dict:
+        return dict(self.examples[index])
+
+    @staticmethod
+    def _segmentation(mask, compressed):
+        from detectron_tpu_torch.native import RLE
+
+        rle = RLE.encode(mask)
+        return {"size": list(mask.shape),
+                "counts": rle.to_string() if compressed else rle.counts.tolist()}
+
+    def _example(self, rng, index, hw):
+        h, w = hw
+        coarse = rng.randint(40, 216, (h // 16 + 1, w // 16 + 1, 3)).astype(np.uint8)
+        image = np.kron(coarse, np.ones((16, 16, 1), np.uint8))[:h, :w]
+        image = np.ascontiguousarray(image + rng.randint(0, 24, (h, w, 3)).astype(np.uint8))
+        ys, xs = np.mgrid[0:h, 0:w]
+        boxes, classes, areas, masks, segs = [], [], [], [], []
+        m = self.mask_size
+        for j in range(rng.randint(2, 6)):
+            bw, bh = rng.randint(w // 10, w // 2), rng.randint(h // 10, h // 2)
+            x, y = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            inside = (ys >= y) & (ys < y + bh) & (xs >= x) & (xs < x + bw)
+            if j % 2:  # an ellipse inscribed in the box
+                cy, cx = y + (bh - 1) / 2, x + (bw - 1) / 2
+                inside &= ((ys - cy) / (bh / 2)) ** 2 + ((xs - cx) / (bw / 2)) ** 2 <= 1.0
+            image[inside] = rng.randint(0, 256, 3)
+            boxes.append([x, y, x + bw, y + bh])
+            classes.append(rng.randint(1, self.num_classes))
+            areas.append(float(inside.sum()))
+            gy = np.clip((y + (np.arange(m) + 0.5) / m * bh).astype(int), 0, h - 1)
+            gx = np.clip((x + (np.arange(m) + 0.5) / m * bw).astype(int), 0, w - 1)
+            masks.append(inside[gy][:, gx].astype(np.float32))
+            segs.append(self._segmentation(inside, compressed=(index + j) % 2 == 0))
+        crowd = []
+        if index % 3 == 0:  # a crowd region in a corner, class of the first object
+            region = (ys >= h - h // 4) & (xs < w // 3)
+            crowd.append(([0, h - h // 4, w // 3, h], classes[0], float(region.sum()),
+                          self._segmentation(region, compressed=index % 2 == 0)))
+        return {
+            "image": image,
+            "boxes": np.asarray(boxes, np.float32),
+            "classes": np.asarray(classes, np.int32),
+            "areas": np.asarray(areas, np.float64),
+            "crowd_areas": np.asarray([c[2] for c in crowd], np.float64),
+            "masks": np.stack(masks),
+            "polygons": segs,  # CocoDataset's key for the segmentations
+            "crowd_boxes": np.asarray([c[0] for c in crowd], np.float32).reshape(-1, 4),
+            "crowd_classes": np.asarray([c[1] for c in crowd], np.int32),
+            "crowd_segmentations": [c[3] for c in crowd],
+            "image_id": index,
+            "orig_hw": hw,
+        }
+
+
+def oracle_predict(params, batch):
+    """The ground truth as detections, in resized coordinates as the model
+    gives them; masks are the gt box-frame rasters."""
+    from detectron_tpu_torch.models.faster_rcnn import Detections
+
+    classes = np.asarray(batch["gt_classes"], np.int32)
+    valid = classes > 0
+    return Detections(boxes=np.asarray(batch["gt_boxes"], np.float32),
+                      scores=np.where(valid, 0.9, 0.0).astype(np.float32),
+                      classes=classes, valid=valid), np.asarray(batch["gt_masks"], np.float32)
+
+
+def log_eval_timing(tag, timing):
+    """One line of the eval driver's timing: the loop's images/s, the device
+    span of each predict call, the host's milliseconds per batch by part."""
+    dev_ms = [round(t, 3) for t in timing["device_ms_per_call"]]
+    log(f"[eval {tag}] loop {timing['loop_s']:.3f} s = {timing['img_per_s']:.2f} images/s "
+        f"(evaluation {timing['eval_s']:.3f} s after it); device ms per predict call "
+        f"{dev_ms}; host ms per batch: waiting for the loader "
+        f"{timing['loader_wait_ms_per_batch']:.2f}, inputs to the card "
+        f"{timing['to_device_ms_per_batch']:.2f}, issuing predict_fn "
+        f"{timing['predict_ms_per_batch']:.2f}, consume {timing['consume_ms_per_batch']:.2f} = "
+        f"fetch {timing['fetch_ms_per_batch']:.2f} + paste+RLE "
+        f"{timing['paste_rle_ms_per_batch']:.2f} + gt records {timing['gt_ms_per_batch']:.2f}; "
+        f"paste+RLE {timing['paste_rle_ms_per_image']:.3f} ms per image, "
+        f"{timing['detections'] / timing['images']:.1f} detections per image")
+
+
+def phase_eval(seed=0):
+    """The eval driver as a user runs it, on an in-memory COCO split of 8
+    images: Mask R-CNN R-50-FPN at full width, weights from a numpy seed
+    (the cls_score bias raised) restored from a checkpoint in its
+    output_dir; Loader -> predict_fn (K1, K2) -> paste + RLE -> box and
+    segm COCO metrics. Then warm timing runs over 32 images (8 and 1 loader
+    threads), the loop with an oracle predictor (box AP and segm AP50 must
+    be 1.0), and once under the profiler. Returns the kernels' launches over
+    the first run."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.eval import driver
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.train import checkpoint as ckpt
+    from detectron_tpu_torch.train.state import create_train_state
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(os.path.join(REPO, "configs", "mask_rcnn_r50_fpn_coco.yaml"),
+                     ["train.batch_size=2", "data.orientation_buckets=true",
+                      f"output_dir={EVAL_OUT}"])
+    ds = InMemoryCoco(seed, num_classes=cfg.model.num_classes)
+    shutil.rmtree(EVAL_OUT, ignore_errors=True)
+    det = build_detector(cfg)
+    ckpt.save(EVAL_OUT, create_train_state(
+        cfg, det, raise_class_bias(det.init(seed), RAISED_CLASSES)))
+    del det
+    log(f"[eval] {cfg.model.name} {cfg.model.backbone} FPN {cfg.model.fpn_channels} classes "
+        f"{cfg.model.num_classes} short side {cfg.data.short_side} max {cfg.data.max_size} "
+        f"canvas {tuple(cfg.data.image_size)} and its transpose {cfg.model.dtype} batch "
+        f"{cfg.train.batch_size}; "
+        f"{len(ds)} in-memory images {list(EVAL_SIZES)}, "
+        f"{sum(len(e['boxes']) for e in ds.examples)} objects, "
+        f"{sum(len(e['crowd_boxes']) for e in ds.examples)} crowd regions")
+    records = {}
+    real_merge = driver.merge_across_processes
+
+    def capture(gts, dts):
+        records["gts"], records["dts"] = gts, dts
+        return real_merge(gts, dts)
+
+    driver.merge_across_processes = capture
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        res = driver.run(cfg, dataset=ds)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        dts = records["dts"]
+        timing = res.pop("timing")
+        ids = sorted(int(d["image_id"]) for d in dts)
+        n_dets = sum(len(d["scores"]) for d in dts)
+        n_masks = sum(m.area() > 0 for d in dts for m in d["masks"])
+        log(f"[eval] restored from {os.path.relpath(EVAL_OUT, REPO)}; {timing['images']} images "
+            f"in {timing['batches']} batches; launches {counts}; {n_dets} detections, "
+            f"{n_masks} non-empty mask RLEs")
+        if ids != list(range(len(ds))):
+            raise AssertionError(f"eval: images consumed {ids}, want each of {len(ds)} once")
+        calls = timing["batches"]
+        if counts != {"greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
+                      "multilevel_roi_align_bwd": 0}:
+            raise AssertionError(f"eval: launches {counts} over {calls} predict calls, want "
+                                 "K1 and K2 twice a call, K3 never")
+        if not (n_dets > 0 and n_masks > 0):
+            raise AssertionError("eval: no detection or no non-empty mask")
+        with open(os.path.join(EVAL_OUT, "eval_results.json")) as f:
+            written = json.load(f)
+        bad = {k: v for k, v in written.items() if not (v is None or np.isfinite(v))}
+        if bad or "segm_AP" not in written:
+            raise AssertionError(f"eval: metrics not finite or null, or no segm: {written}")
+        log(f"[eval] metrics (random weights): AP {written['AP']}, AP50 {written['AP50']}, "
+            f"segm_AP {written['segm_AP']}; "
+            f"{sum(v is None for v in written.values())} of {len(written)} null")
+        log_eval_timing("first run", timing)
+        # warm (both canvases' convolutions set up), over a longer split of
+        # the same kind so that the loop is past its start, with the config's
+        # loader threads and with one
+        long_ds = InMemoryCoco(seed + 1, EVAL_SIZES * EVAL_WARM_REPEAT, cfg.model.num_classes)
+        threads = cfg.data.num_workers
+        for workers in (threads, 1):
+            cfg.data.num_workers = workers
+            log_eval_timing(f"warm, {len(long_ds)} images, loader threads {workers}",
+                            driver.run(cfg, dataset=long_ds)["timing"])
+        cfg.data.num_workers = threads
+
+        reset_counts()
+        res_o = driver.run(cfg, dataset=ds, restore=False, predict=oracle_predict)
+        reset_counts()
+        log(f"[eval] oracle predictor: AP {res_o['AP']:.6f}, AP50 {res_o['AP50']:.6f}, "
+            f"segm_AP50 {res_o['segm_AP50']:.6f}, segm_AP {res_o['segm_AP']:.6f}")
+        if not (abs(res_o["AP"] - 1.0) <= 1e-6 and abs(res_o["segm_AP50"] - 1.0) <= 1e-6):
+            raise AssertionError("eval: the oracle predictor does not give box AP and segm "
+                                 "AP50 of 1.0")
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res_p = driver.run(cfg, dataset=ds)
+            torch.cuda.synchronize()
+        reset_counts()
+    finally:
+        driver.merge_across_processes = real_merge
+    loop_ms, busy_ms, n_events = device_busy_in(prof, driver.LOOP_SPAN)
+    batches = res_p["timing"]["batches"]
+    if not n_events:
+        log("[eval profile] the profiler recorded no device activity in the loop: busy "
+            "share not measured")
+    else:
+        log(f"[eval profile] under the profiler: loop {loop_ms:.1f} ms (the driver's clock: "
+            f"{res_p['timing']['loop_s'] * 1e3:.1f}) for {batches} batches, device busy "
+            f"{busy_ms:.1f} ms in it ({100 * busy_ms / loop_ms:.1f}% of the loop; "
+            f"{busy_ms / batches:.2f} ms busy and {(loop_ms - busy_ms) / batches:.2f} ms idle "
+            f"a batch; {n_events} kernels and copies)")
+    shutil.rmtree(EVAL_OUT, ignore_errors=True)
+    check_transposed_canvas(cfg)
+    return counts
+
+
+def device_busy_in(prof, span):
+    """(ms of the host range ``span`` recorded by ``record_function``, ms
+    of it in which the device ran a kernel, copy or fill, number of those):
+    the union of the device's activity intervals clipped to the range, so
+    that work before it (weights to the card) does not count."""
+    events = prof.events()
+    host = [e for e in events if e.name == span and e.device_type.name == "CPU"]
+    if not host:
+        return 0.0, 0.0, 0
+    t0, t1 = host[0].time_range.start, host[0].time_range.end
+    # the range's own projection onto the device timeline carries its name
+    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1)) for e in events
+                   if e.device_type.name == "CUDA" and e.name != span
+                   and e.time_range.end > t0 and e.time_range.start < t1)
+    busy, reached = 0.0, t0
+    for a, b in spans:
+        a = max(a, reached)
+        if b > a:
+            busy, reached = busy + (b - a), b
+    return (t1 - t0) / 1e3, busy / 1e3, len(spans)
+
+
+def check_transposed_canvas(cfg, seed=7):
+    """K2 against its plain version at the eval loop's portrait shapes:
+    batch 2 on the transposed canvas, 300 RoIs at P=7 and 100 at P=14 an
+    image, with the routing span of that canvas. (K1's problems do not
+    depend on the canvas' orientation: phase 3 holds them.) The launches
+    here are not counted."""
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    w, h = cfg.data.image_size  # the canvas is (h, w): this is its transpose
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = cfg.train.batch_size
+    feats = [torch.randn(b, h // st, w // st, cfg.model.fpn_channels, generator=gen,
+                         device=dev) for st in STRIDES]
+    fmax = max(float(f.abs().max()) for f in feats)
+    span = ra.roi_max_span(cfg, tuple(feats[-1].shape[1:3]))
+    for p, r in ((7, cfg.rpn.post_nms_topk_test), (14, cfg.test.detections_per_image)):
+        rois = torch.tensor(roi_cases(rng, b, r, (h, w)), device=dev)
+        levels = ra.assign_fpn_levels(rois, len(feats), 2, max_span=span)
+        check_k2(f"eval B={b} {h}x{w} (transposed canvas) P={p} R={r} span={span}", feats,
+                 rois, levels, p, fmax)
+    reset_counts()
+
+
+# ---------------------------------------------------------------- phase 12
+
+BENCH_ARGS = ["--iters", "3", "--train-iters", "2"]  # the defaults otherwise
+
+
+def phase_bench():
+    """``python -m detectron_tpu_torch.bench`` at its default shapes (1024x1024,
+    inference batch 48, train batch 16, float32), iterations cut: its JSON
+    line (the bench raises if its outputs or losses sum to a non-finite
+    value), every kernel's launches over the run, then K1-K3 against their
+    plain versions at the bench's shapes. Returns the launches."""
+    from detectron_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = bench.parse_args(BENCH_ARGS)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = bench.run(args)  # prints its JSON line
+    torch.cuda.synchronize()
+    counts = read_counts()
+    reset_counts()
+    calls, steps = bench.WARMUP + args.iters, bench.WARMUP + args.train_iters
+    want = {"greedy_nms": 2 * calls + steps, "multilevel_roi_align": 2 * calls + 2 * steps,
+            "multilevel_roi_align_bwd": 2 * steps}
+    log(f"[bench] {time.perf_counter() - t0:.1f} s ({calls} predict calls at batch "
+        f"{args.batch}, {steps} train steps at batch {args.train_batch}, warm-ups included); "
+        f"launches {counts}; predict outputs and training losses summed finite; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != want:
+        raise AssertionError(f"bench: launches {counts}, want {want}")
+    for key in ("value", "train_img_s_chip", "train_step_ms"):
+        if not (np.isfinite(out[key]) and out[key] > 0):
+            raise AssertionError(f"bench: {key} = {out[key]}")
+    torch.cuda.empty_cache()
+    check_bench_shapes(args)
+    return counts
+
+
+def check_bench_shapes(args, seed=6):
+    """K1, K2 and K3 against their plain versions at the shapes that the
+    bench's config gives at ``args.size`` x ``args.size``. Inference at
+    batch ``args.batch``: the RPN's problems, one an image and level, of
+    ``pre_nms_topk_test`` boxes; the detections' one problem an image of
+    ``4 x post_nms_topk_test`` candidates; K2 at ``post_nms_topk_test``
+    RoIs at P=7 and ``detections_per_image`` at P=14 an image. Training at
+    batch ``args.train_batch``: the RPN's problems of ``pre_nms_topk_train``
+    boxes, and K2 and K3 at ``batch_per_image`` RoIs at P=7 and its
+    foreground share at P=14 an image. The launches here are not counted."""
+    from detectron_tpu_torch import bench
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    cfg = bench.bench_config(args)
+    b, tb, size = args.batch, args.train_batch or args.batch, int(args.size)
+    rpn, test = cfg.rpn, cfg.test
+    levels_n = len(STRIDES) + 1  # P2-P6 propose
+    # detection_candidates: top min(4 x post_nms_topk_test, R x K) of R RoIs and K classes
+    cand = rpn.post_nms_topk_test * min(4, cfg.model.num_classes - 1)
+    rng = np.random.RandomState(seed)
+    dev = torch.device(DEVICE)
+    for name, g, n, thresh, m, classes in (
+            ("rpn", levels_n * b, rpn.pre_nms_topk_test, rpn.nms_thresh,
+             min(rpn.post_nms_topk_test, rpn.pre_nms_topk_test), 0),
+            ("det", b, cand, test.nms_thresh, test.detections_per_image,
+             cfg.model.num_classes),
+            ("rpn_train", levels_n * tb, rpn.pre_nms_topk_train, rpn.nms_thresh,
+             min(rpn.post_nms_topk_train, rpn.pre_nms_topk_train), 0)):
+        boxes, scores, valid, cls = nms_problems(rng, g, n, (size, size), n // 8, classes)
+        tbx, ts, tv = (torch.tensor(x, device=dev) for x in (boxes, scores, valid))
+        if cls is not None:  # the class offsets of class_aware_nms
+            span = tbx.amax(dim=(1, 2)) - tbx.amin(dim=(1, 2)) + 1.0
+            tbx = tbx + (torch.tensor(cls, device=dev).to(tbx.dtype) * span[:, None])[..., None]
+        sboxes, svalid = sorted_problems(tbx, ts, tv)
+        keep = check_keep(f"bench {name}", sboxes, svalid, thresh, m)
+        log(f"[K1 bench {name}] G={g} N={n} t={thresh} max_keep={m}: keep masks equal to the "
+            f"plain version ({int(keep.sum())} kept)")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    span = ra.roi_max_span(cfg, (size // STRIDES[-1], size // STRIDES[-1]))
+    pool, mask_pool = cfg.roi.pool_size, cfg.roi.mask_pool_size
+    fg = int(round(cfg.roi.batch_per_image * cfg.roi.positive_fraction))
+    for batch, cases, backward in (
+            (b, ((pool, rpn.post_nms_topk_test), (mask_pool, test.detections_per_image)), False),
+            (tb, ((pool, cfg.roi.batch_per_image), (mask_pool, fg)), True)):
+        feats = [torch.randn(batch, size // st, size // st, cfg.model.fpn_channels,
+                             generator=gen, device=dev) for st in STRIDES]
+        fmax = max(float(f.abs().max()) for f in feats)
+        level_hw = [tuple(f.shape[1:3]) for f in feats]
+        for p, r in cases:
+            rois = torch.tensor(roi_cases(rng, batch, r, (size, size)), device=dev)
+            levels = ra.assign_fpn_levels(rois, len(feats), 2, max_span=span)
+            tag = f"bench B={batch} {size}x{size} P={p} R={r} span={span}"
+            check_k2(tag, feats, rois, levels, p, fmax)
+            if backward:
+                g = torch.randn(batch, r, p, p, feats[0].shape[-1], generator=gen, device=dev)
+                check_k3(tag, g, level_hw, rois, levels)
+                del g
+        del feats
+        torch.cuda.empty_cache()
+    reset_counts()
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -1099,10 +1519,12 @@ KERNELS = {
 
 
 def kernel_entry(name, cases, launches, max_abs_err):
-    """One kernel's line entry. ``launches`` are the training slice's (this
-    slice's main path), ``launches_by_path`` both paths'; times are summed
-    over the training step's cases (one launch of each case per step), the
-    inference cases are listed beside them."""
+    """One kernel's line entry. ``launches_by_path``: its launches on each
+    path's run (predict, train, eval, bench); ``launches`` the training
+    path's (phase 9's timed steps), the one path that launches all three
+    kernels, as in the line since K3 was ported. Times are summed over the
+    training step's cases (one launch of each case per step), the inference
+    cases are listed beside them."""
     train = [c for c in cases if c["path"] == "train"]
     return {
         "name": name, "route": "cuda", **KERNELS[name], "launches": launches["train"],
@@ -1142,9 +1564,12 @@ def main(argv=None) -> int:
     del feats
     train_launches, _ = phase_train()
     phase_cross_train()
+    eval_launches = phase_eval()
+    bench_launches = phase_bench()
 
     def launches(name):
-        return {"predict": predict_launches.get(name, 0), "train": train_launches[name]}
+        return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
+                "eval": eval_launches[name], "bench": bench_launches[name]}
 
     kernels = [
         kernel_entry("greedy_nms", k1, launches("greedy_nms"), 0.0),

@@ -1,1 +1,1 @@
-"""Synthetic training data."""
+"""Datasets (COCO, VOC, CityPersons, synthetic), transforms and the loader."""

@@ -1,1 +1,1 @@
-"""Backbone, FPN, heads and the two-stage detector."""
+"""Backbone, FPN, heads, the two-stage detector and the mask paste."""

@@ -5,7 +5,7 @@ latest one.
 The port of ``detectron_tpu/train/checkpoint.py`` (orbax there): ``save``
 writes one snapshot and keeps the newest ``max_to_keep``; ``restore`` loads
 the latest snapshot into a train state and returns it unchanged when there
-is none.
+is none; ``restore_params`` loads the weights alone, for evaluation.
 """
 
 from __future__ import annotations
@@ -57,3 +57,18 @@ def restore(directory: str, state: TrainState) -> TrainState:
     state.optimizer.load_state_dict(snap["optimizer"])
     state.step = int(snap["step"])
     return state
+
+
+def restore_params(directory: str, params: dict, device=None) -> tuple[dict, int | None]:
+    """``(params, step)`` of the latest snapshot in ``directory``, its
+    weights alone (the optimizer the training run used does not matter), or
+    ``(params, None)`` unchanged when there is none."""
+    step = latest_step(directory)
+    if step is None:
+        return params, None
+    snap = torch.load(os.path.join(directory, f"ckpt_{step}.pt"), map_location=device,
+                      weights_only=True)
+    if set(snap["params"]) != set(params):
+        raise KeyError(f"checkpoint {directory}/ckpt_{step}.pt holds other weights than the "
+                       f"model: {sorted(set(snap['params']) ^ set(params))[:5]}")
+    return snap["params"], int(snap["step"])

@@ -5,11 +5,11 @@
         --cfg data.dataset=synthetic train.batch_size=2 train.max_steps=20 \\
         output_dir=build/run [--restore] [--profile]
 
-config -> seeded synthetic batches -> detector on the card -> SGD with
+config -> batches (seeded synthetic ones, or the threaded ``Loader`` over
+``data.dataset=coco|voc|citypersons``) -> detector on the card -> SGD with
 warmup and step decay -> step loop with logging (``metrics.jsonl``) and
 ``torch.save`` checkpoints in ``output_dir``. It runs on the card; the CPU
-is for tests (``run(cfg, device="cpu")``). Only ``data.dataset=synthetic``
-is ported: the COCO/VOC loaders are ``ROADMAP.md``, Queue 1, item 7.
+is for tests (``run(cfg, device="cpu")``).
 ``train.debug_nans=true`` (``jax_debug_nans`` in ``train.py``) stops the
 run with ``FloatingPointError`` at the first step whose loss is not finite.
 """
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from detectron_tpu_torch.config import get_config
+from detectron_tpu_torch.data.loader import Loader, get_dataset
 from detectron_tpu_torch.data.synthetic import make_batch
 from detectron_tpu_torch.models.zoo import build_detector
 from detectron_tpu_torch.train import checkpoint as ckpt
@@ -44,15 +45,18 @@ def parse_args(argv=None):
 
 
 def batch_iterator(cfg):
-    """Fixed-shape numpy batch dicts, seeded from ``train.seed``."""
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"data.dataset={cfg.data.dataset!r}: only the synthetic dataset is "
-            "ported; the COCO/VOC loaders are ROADMAP.md, Queue 1, item 7")
-    rng = np.random.RandomState(cfg.train.seed * 1000)
-    while True:
-        yield make_batch(rng, cfg.train.batch_size, cfg.data.image_size,
-                         cfg.model.num_classes, max_gt=cfg.train.max_gt_boxes)
+    """Endless fixed-shape numpy batch dicts, seeded from ``train.seed``:
+    synthetic ones, or the shuffled, augmented ``Loader`` over the train
+    split of ``data.dataset`` (its ``_image_id`` / ``_orig_hw`` keys
+    dropped)."""
+    ds = get_dataset(cfg, cfg.data.train_split, train=True)
+    if ds is None:
+        rng = np.random.RandomState(cfg.train.seed * 1000)
+        while True:
+            yield make_batch(rng, cfg.train.batch_size, cfg.data.image_size,
+                             cfg.model.num_classes, max_gt=cfg.train.max_gt_boxes)
+    for batch in Loader(ds, cfg, train=True, seed=cfg.train.seed):
+        yield {k: v for k, v in batch.items() if not k.startswith("_")}
 
 
 class Timer:

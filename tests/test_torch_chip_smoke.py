@@ -1,17 +1,21 @@
-"""A rehearsal of chip_smoke.py's kernel and training phases on the CPU, so
-that the script's own code (phase logic, cases, checks, breakdown, driver
-resume) is exercised before a card runs it.
+"""A rehearsal of chip_smoke.py's kernel, training, eval and bench phases on
+the CPU, so that the script's own code (phase logic, cases, checks,
+breakdown, driver resume, the in-memory COCO split and its oracle) is
+exercised before a card runs it.
 
 The card-only pieces are replaced: the kernels' plain versions stand in
 for the CUDA wrappers (and count launches as the wrappers do), the kernel
 dispatch takes them for CPU tensors, ``torch.cuda`` timing and memory
 calls are stubbed, and the configs are cut to 64x128 with FPN 32, an
-R-50 backbone and 256 / 64 / 64 RPN candidates, proposals and RoIs; the
-NMS cases are cut to a few hundred boxes. What the card alone can show
-(that a kernel builds, agrees with its plain version, and how long it
-takes) stays with chip_smoke.py.
+R-50 backbone, 256 / 64 / 64 RPN candidates, proposals and RoIs, images
+resized to a short side of 48 and 20 detections an image; the NMS cases
+are cut to a few hundred boxes, the bench to 128x128, batch 2, one call
+and one step after its warm-ups. What the card alone can show (that a
+kernel builds, agrees with its plain version, and how long it takes)
+stays with chip_smoke.py.
 """
 
+import json
 import time
 
 import numpy as np
@@ -120,7 +124,10 @@ def rehearsal(monkeypatch, tmp_path):
         overrides = list(overrides)
         for small in ("model.fpn_channels=32", "model.backbone=resnet50",
                       "data.image_size=[64, 128]", "rpn.pre_nms_topk_train=256",
-                      "rpn.post_nms_topk_train=64", "roi.batch_per_image=64"):
+                      "rpn.post_nms_topk_train=64", "roi.batch_per_image=64",
+                      "data.short_side=48", "data.max_size=96",
+                      "rpn.pre_nms_topk_test=256", "rpn.post_nms_topk_test=64",
+                      "test.detections_per_image=20"):
             if not any(o.split("=")[0] == small.split("=")[0] for o in overrides):
                 overrides.append(small)
         return get_config(path, overrides)
@@ -241,7 +248,118 @@ def test_kernel_entry_reports_the_training_path():
              dict(case="b", path="train", ms=3.0, plain_ms=4.0, bound_ms=1.5,
                   bound_by="bytes")]
     entry = cs.kernel_entry("multilevel_roi_align_bwd", cases,
-                            {"predict": 0, "train": 10}, 1e-5)
+                            {"predict": 0, "train": 10, "eval": 0, "bench": 8}, 1e-5)
     assert entry["launches"] == 10 and entry["ms"] == 3.0 and entry["bound_ms"] == 1.5
+    assert entry["launches_by_path"]["bench"] == 8
     assert entry["replaces"] == "detectron_tpu/ops/roi_align_pallas.py:529"
     assert entry["library_ms"] is None and entry["route"] == "cuda"
+
+
+def test_in_memory_coco_split_has_cocos_interface():
+    ds = cs.InMemoryCoco(0)
+    assert len(ds) == len(cs.EVAL_SIZES) and ds.index_of(3) == 3
+    crowd = 0
+    for i, hw in enumerate(cs.EVAL_SIZES):
+        ex = ds.example(i)
+        assert ex["image"].shape == hw + (3,) and ex["image"].dtype == np.uint8
+        n = len(ex["boxes"])
+        assert ex["masks"].shape == (n, 28, 28) and len(ex["polygons"]) == n
+        assert ex["classes"].min() >= 1 and ex["classes"].max() < 81
+        for seg, area, box in zip(ex["polygons"], ex["areas"], ex["boxes"]):
+            rle = ds.segmentation_to_rle(seg, hw)
+            mask = rle.decode()
+            assert rle.area() == area > 0
+            ys, xs = np.nonzero(mask)  # the box is the mask's extent
+            np.testing.assert_array_equal([xs.min(), ys.min(), xs.max() + 1, ys.max() + 1], box)
+        for seg, area in zip(ex["crowd_segmentations"], ex["crowd_areas"]):
+            assert ds.segmentation_to_rle(seg, hw).area() == area
+        crowd += len(ex["crowd_boxes"])
+        assert isinstance(ex["polygons"][0]["counts"], str if i % 2 == 0 else list)
+    assert crowd == 3
+
+
+def test_eval_phase_runs_the_driver_and_its_oracle(rehearsal, monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
+    monkeypatch.setattr(cs, "EVAL_WARM_REPEAT", 1)
+    counts = cs.phase_eval()
+    # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
+    assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
+                      "multilevel_roi_align_bwd": 0}
+    out = capsys.readouterr().out
+    assert "8 images in 5 batches" in out
+    assert "[eval] oracle predictor: AP 1.000000, AP50 1.000000, segm_AP50 1.000000" in out
+    assert "images/s" in out and "paste+RLE" in out and "gt records" in out
+    assert "[eval warm, 8 images, loader threads 8]" in out
+    assert "[eval warm, 8 images, loader threads 1]" in out
+    assert "[eval profile]" in out
+    assert "[K2 eval B=2 128x64 (transposed canvas) P=7 R=64" in out
+    assert "[K2 eval B=2 128x64 (transposed canvas) P=14 R=20" in out
+    assert not (tmp_path / "eval_smoke").exists()
+
+
+class _Range:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+
+class _ProfiledEvent:
+    def __init__(self, name, device, start, end):
+        self.name, self.time_range = name, _Range(start, end)
+        self.device_type = type("Device", (), {"name": device})
+
+
+class _Profile:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def test_device_busy_counts_the_loop_alone():
+    """Work before the loop (weights to the card) is not counted, work at
+    its edges is clipped, overlapping work counted once, and the loop's
+    own projection onto the device timeline is not work."""
+    prof = _Profile([
+        _ProfiledEvent("Memcpy HtoD", "CUDA", 0.0, 900.0),  # before the loop
+        _ProfiledEvent("eval_loop", "CPU", 1000.0, 3000.0),
+        _ProfiledEvent("eval_loop", "CUDA", 1000.0, 3000.0),
+        _ProfiledEvent("conv", "CUDA", 950.0, 1100.0),  # 100 inside
+        _ProfiledEvent("conv", "CUDA", 1500.0, 2000.0),
+        _ProfiledEvent("Memcpy DtoH", "CUDA", 1800.0, 2200.0),  # overlaps: 200 more
+        _ProfiledEvent("aten::conv2d", "CPU", 1500.0, 1600.0),
+        _ProfiledEvent("nms", "CUDA", 2900.0, 3100.0),  # 100 inside
+    ])
+    loop_ms, busy_ms, n = cs.device_busy_in(prof, "eval_loop")
+    assert (loop_ms, busy_ms, n) == (2.0, 0.9, 4)
+    assert cs.device_busy_in(_Profile([]), "eval_loop") == (0.0, 0.0, 0)
+
+
+def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
+    from detectron_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "resolve_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(cs, "BENCH_ARGS", [
+        "--size", "128", "--batch", "2", "--train-batch", "2", "--iters", "1",
+        "--train-iters", "1", "--set", "model.num_classes=5", "model.fpn_channels=32",
+        "rpn.pre_nms_topk_test=256", "rpn.post_nms_topk_test=64",
+        "rpn.pre_nms_topk_train=192", "rpn.post_nms_topk_train=48",
+        "roi.batch_per_image=64", "test.detections_per_image=20"])
+    counts = cs.phase_bench()
+    # 3 predict calls (K1, K2 twice each), 3 train steps (K1 once, K2 and K3
+    # twice): two warm-ups and one timed each
+    assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
+                      "multilevel_roi_align_bwd": 6}
+    out = capsys.readouterr().out
+    line = next(json.loads(x) for x in out.splitlines() if x.startswith('{"metric"'))
+    assert line["value"] > 0 and line["train_img_s_chip"] > 0
+    # the shapes of the bench's config: 4 x 64 detection candidates, 64 / 20
+    # RoIs at inference, 64 sampled RoIs of which 16 foreground in training
+    assert "[K1 bench rpn] G=10 N=256 t=0.7 max_keep=64" in out
+    assert "[K1 bench det] G=2 N=256 t=0.5 max_keep=20" in out
+    assert "[K2 bench B=2 128x128 P=7 R=64" in out and "[K2 bench B=2 128x128 P=14 R=20" in out
+    assert "[K1 bench rpn_train] G=10 N=192 t=0.7 max_keep=48" in out
+    for p, r in ((7, 64), (14, 16)):
+        assert f"[K2 bench B=2 128x128 P={p} R={r}" in out
+        assert f"[K3 bench B=2 128x128 P={p} R={r}" in out
+    assert "summed finite" in out

@@ -340,6 +340,38 @@ def test_driver_flags_and_profile_window(tmp_path):
 
 
 def test_driver_refuses_unported_data():
-    cfg = get_config(None, ["model.name=mask_rcnn", "data.dataset=coco"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """COCO, VOC and CityPersons are ported (the test below); a dataset
+    that neither package has raises."""
+    cfg = get_config(None, ["model.name=mask_rcnn", "data.dataset=kitti"])
+    with pytest.raises(ValueError, match="unknown dataset"):
         next(driver.batch_iterator(cfg))
+
+
+def test_batch_iterator_reads_the_coco_fixture(tmp_path, monkeypatch):
+    """``data.dataset=coco``: the shuffled, augmented ``Loader`` batches of
+    ``train.py``'s ``batch_iterator`` (the JAX resize injected, one worker
+    so that the order is the seeded one), without the ``_image_id`` /
+    ``_orig_hw`` keys; then one driver step on them."""
+    import train as train_py
+
+    from detectron_tpu.data import transforms as jT
+    from detectron_tpu_torch.data import transforms as tT
+    from tests import fixture_coco
+
+    monkeypatch.setattr(tT, "resize_shortest_side", jT.resize_shortest_side)
+    root = fixture_coco.make_fixture(str(tmp_path / "coco"))
+    overrides = OVERRIDES + [
+        "data.dataset=coco", f"data.root={root}", "data.train_split=val",
+        "data.short_side=96", "data.max_size=128", "data.num_workers=1", "train.seed=4"]
+    got = driver.batch_iterator(get_config(None, overrides))
+    want = train_py.batch_iterator(jax_get_config(None, overrides))
+    for _ in range(4):  # past one epoch of the 6 images
+        g, w = next(got), next(want)
+        assert set(g) == {"image", "image_hw", "gt_boxes", "gt_classes", "gt_masks"}
+        assert set(w) == set(g) | {"_image_id", "_orig_hw"}
+        for k in g:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    got.close()
+    cfg = get_config(None, overrides + ["train.max_steps=1", "train.log_every=1",
+                                        f"output_dir={tmp_path / 'run'}"])
+    assert np.isfinite(driver.run(cfg, device="cpu")["loss_total"])
