@@ -2,7 +2,7 @@
 
     python -m detectron_tpu_torch.bench [--size 1024] [--batch 48] [--train-batch 16]
         [--model mask_rcnn] [--mode both|infer|train] [--iters 20] [--train-iters 8]
-        [--dtype float32] [--set key=value ...]
+        [--dtype bfloat16|float32] [--set key=value ...]
 
 The port of ``bench.py``. It prints ONE JSON line in that script's format:
 
@@ -10,7 +10,10 @@ The port of ``bench.py``. It prints ONE JSON line in that script's format:
      "train_img_s_chip": N, "train_step_ms": N, "train_vs_baseline": null}
 
 on seeded synthetic batches (``data.synthetic.make_batch``) and random
-weights from a numpy seed. It differs from ``bench.py`` in six ways:
+weights from a numpy seed. ``--dtype`` defaults to ``bfloat16``, as in
+``bench.py``: float32 parameters, bf16 compute (the bf16 instances of the
+RoIAlign kernels). ``--dtype float32`` computes in float32, with TF32 off
+for convolutions and matmuls. It differs from ``bench.py`` in five ways:
 
 * Timing: the host clock around ``iters`` calls (``train_iters`` steps)
   that end in ``torch.cuda.synchronize()``, after ``WARMUP`` calls (the
@@ -30,9 +33,6 @@ weights from a numpy seed. It differs from ``bench.py`` in six ways:
   (``calibrate_frozen_bn``): from identity statistics the random
   backbone's activations grow at every residual add and SGD reaches NaN
   within a few steps, and steps on NaN are not the steps users time.
-* ``--dtype`` defaults to float32 (TF32 off for convolutions and matmuls),
-  and ``bfloat16`` raises: the bf16 model and kernels are ROADMAP.md's next
-  slice.
 
 It runs on the card; ``run(args, device="cpu")`` runs it on the CPU (tests).
 """
@@ -63,7 +63,7 @@ def calibrate_frozen_bn(module, images):
     overflows to NaN within a few steps."""
 
     def set_stats(bn, args):
-        x = args[0]
+        x = args[0].float()  # the statistics are float32 whatever the compute dtype
         bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
         bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
 
@@ -92,7 +92,7 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=48)
     ap.add_argument("--train-batch", type=int, default=16,
                     help="train bench batch (0 = same as --batch)")
-    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--train-iters", type=int, default=8)
     ap.add_argument("--model", default="mask_rcnn")
@@ -114,15 +114,9 @@ def bench_config(args):
 
 def run(args, device=None) -> dict:
     """Times what ``args`` asks for, prints the JSON line and returns it."""
-    if args.dtype == "bfloat16":
-        raise NotImplementedError(
-            "--dtype bfloat16: the port runs float32 only; the bf16 model and kernels "
-            "are the next slice in ROADMAP.md")
-    if args.dtype != "float32":
-        raise ValueError(f"--dtype {args.dtype!r}: want float32 (or bfloat16, not ported)")
     device = resolve_device(device)
     on_card = device.type == "cuda"
-    if on_card:  # float32 means float32 arithmetic
+    if on_card and args.dtype == "float32":  # float32 means float32 arithmetic
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 

@@ -99,7 +99,27 @@
 // whose shared memory lets blocks share an SM: K2 64, 32 or 4 (64 at C=256,
 // P=7 and 14; 32 at the small configs' C=32; 4 divides any C the wrapper
 // takes), K3 32, 16, 8 or 4 (32 at P=7, 16 at P=14, with S=2).
+//
+// bf16. Each kernel has an instance for fp32 and one for bf16 features
+// (K2) or upstream gradient (K3), as the TPU kernels read either and
+// compute in fp32 (roi_align_pallas.py: the window's .astype(float32), the
+// fp32 matmuls, the output's .astype(out_dtype)). Only the outside of a
+// kernel changes with the element type: a thread still takes 4 channels at
+// a time (a float4, or 4 bf16 in 8 bytes) and converts them to fp32 where it
+// reads them; every tap, fold, contraction and division is the fp32
+// instance's, in the same order, so a bf16 output is the fp32 kernel's on
+// the upcast inputs, rounded to nearest even once. K2 stages the bf16 cells
+// as they are (a 16-byte cp.async carries 8 channels; cp.async cannot
+// convert) and converts them as pass x reads them: the staging buffers keep
+// their bytes, so a chunk holds twice the cells; the ring stays fp32. Its
+// bf16 slices are 64, 32 or 8 channels (whole 16-byte copies), so the
+// wrapper takes C a multiple of 8. K3 reads bf16 g into its fp32 tile and
+// adds into the same fp32 buffers with the same atomics; the caller rounds
+// each level's gradient to bf16 once, after the kernel (the TPU kernel
+// rounds the level gradient to the features' dtype after every RoI's
+// window: the port's single rounding is the more accurate of the two).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -126,6 +146,39 @@ struct Levels {
   int w[kMaxLevels];
   float stride[kMaxLevels];
 };
+
+// Four channels of T, what a thread reads, contracts and writes at a time:
+// a float4, or four bf16 in a uint2 (channel 0 in the low half of .x).
+template <typename T>
+struct Vec4;
+template <>
+struct Vec4<float> {
+  using type = float4;
+};
+template <>
+struct Vec4<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 to_float4(const float4 v) { return v; }
+
+// bf16 -> fp32 is exact: the bf16 bits are the top half of the float's.
+__device__ __forceinline__ float4 to_float4(const uint2 v) {
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(float4* dst, const float4 v) { *dst = v; }
+
+// fp32 -> bf16 rounded to nearest even, as PyTorch's .to(torch.bfloat16).
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+__device__ __forceinline__ void store4(uint2* dst, const float4 v) {
+  *dst = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+}
 
 // _bilinear_1d of the JAX package, with the border rule folded into the
 // weights (an out-of-range sample gets weight 0 on both taps).
@@ -403,17 +456,18 @@ struct BinTaps {
     for (int e = 0; e < kTaps; ++e) tap[e] = e < n ? taps[e] : Tap{0, 0.0f};
   }
 
-  // sum over the taps of w * v[(slot & mask) * stride], in tap order
-  __device__ __forceinline__ float4 contract(const float4* v, int stride, int mask) const {
+  // sum over the taps of w * v[(slot & mask) * stride] (as fp32), in tap order
+  template <typename V>
+  __device__ __forceinline__ float4 contract(const V* v, int stride, int mask) const {
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (kTaps > 0) {
 #pragma unroll
       for (int e = 0; e < kTaps; ++e) {
-        if (e < count) fma4(acc, v[(tap[e].slot & mask) * stride], tap[e].weight);
+        if (e < count) fma4(acc, to_float4(v[(tap[e].slot & mask) * stride]), tap[e].weight);
       }
     } else {
       for (int e = 0; e < count; ++e) {
-        fma4(acc, v[(shared[e].slot & mask) * stride], shared[e].weight);
+        fma4(acc, to_float4(v[(shared[e].slot & mask) * stride]), shared[e].weight);
       }
     }
     return acc;
@@ -431,34 +485,40 @@ int fwd_ring_rows(int pool, int ratio, int slice) {
   return rows;
 }
 
-// Cells one of K2's two staging buffers holds: kFwdStageBytes, and at
-// least one row of the widest fold (2 * P * S cells).
-int fwd_stage_cells(int pool, int ratio, int slice) {
-  return std::max(2 * pool * ratio, kFwdStageBytes / (slice * static_cast<int>(sizeof(float))));
+// Cells one of K2's two staging buffers holds: kFwdStageBytes of cells of
+// `elem` bytes a channel, and at least one row of the widest fold (2 * P * S
+// cells).
+int fwd_stage_cells(int pool, int ratio, int slice, int elem) {
+  return std::max(2 * pool * ratio, kFwdStageBytes / (slice * elem));
 }
 
-// Dynamic shared memory of one K2 block: the ring [rows][P][slice] and the
-// two staging buffers [cells][slice], fp32, which the set-up's tables use
-// first.
-int fwd_smem_bytes(int pool, int ratio, int slice) {
-  const int bytes = (fwd_ring_rows(pool, ratio, slice) * pool +
-                     2 * fwd_stage_cells(pool, ratio, slice)) *
-                    slice * static_cast<int>(sizeof(float));
+// Dynamic shared memory of one K2 block: the fp32 ring [rows][P][slice] and
+// the two staging buffers [cells][slice] of the features' type, which the
+// set-up's tables use first.
+int fwd_smem_bytes(int pool, int ratio, int slice, int elem) {
+  const int bytes = fwd_ring_rows(pool, ratio, slice) * pool * slice *
+                        static_cast<int>(sizeof(float)) +
+                    2 * fwd_stage_cells(pool, ratio, slice, elem) * slice * elem;
   return std::max(bytes, static_cast<int>(sizeof(FwdSetup)));
 }
 
 // One block per (RoI, group of `per_block` consecutive channel slices).
-// kRatio is S where the instance is specialised for it, else 0 (S at run
-// time).
-template <int kSlice, int kRatio>
+// T is the features' and the output's element type; kRatio is S where the
+// instance is specialised for it, else 0 (S at run time).
+template <typename T, int kSlice, int kRatio>
 __global__ void __launch_bounds__(kThreads)
-    roi_align_forward_kernel(Levels<const float> lv, const float4* __restrict__ rois,
-                             const int* __restrict__ levels, float* __restrict__ out,
+    roi_align_forward_kernel(Levels<const T> lv, const float4* __restrict__ rois,
+                             const int* __restrict__ levels, T* __restrict__ out,
                              int rois_per_image, int channels, int pool, int ratio_arg,
                              int per_block, int ring_rows, int stage_cells) {
-  constexpr int kV4 = kSlice / 4;             // float4 groups of a slice
-  constexpr int kLanes = kThreads / kV4;      // threads on one float4 group
+  using V4 = typename Vec4<T>::type;          // 4 channels of T
+  constexpr int kV4 = kSlice / 4;             // 4-channel groups of a slice
+  constexpr int kLanes = kThreads / kV4;      // threads on one 4-channel group
+  constexpr int kCopies = kSlice * static_cast<int>(sizeof(T)) / 16;  // 16-byte copies a cell
+  constexpr int kCopyLanes = kThreads / kCopies;  // threads on one copy of a cell
   constexpr int kTaps = 2 * kRatio;
+  static_assert(kCopies * 16 == kSlice * static_cast<int>(sizeof(T)),
+                "a slice of a cell is whole 16-byte copies");
   const int ratio = kRatio > 0 ? kRatio : ratio_arg;
   extern __shared__ __align__(16) float fwd_smem[];
   __shared__ FwdTaps ft;
@@ -481,26 +541,27 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   const int nx = ft.cells[0], ny = ft.cells[1];
-  const int row4 = channels / 4;  // float4s from one output to the next
+  const int row4 = channels / 4;  // 4-channel groups from one output to the next
   const int c4 = t % kV4;
-  const int u = t / kV4;  // this thread's place among the kLanes on its float4 group
-  float4* dst = reinterpret_cast<float4*>(out) + static_cast<size_t>(n) * pool * pool * row4 +
-                first * kV4 + c4;
+  const int u = t / kV4;  // this thread's place among the kLanes on its group
+  V4* dst = reinterpret_cast<V4*>(out) + static_cast<size_t>(n) * pool * pool * row4 +
+            first * kV4 + c4;
   if (nx == 0 || ny == 0) {  // every sample outside the level (block-uniform)
     for (int j = u; j < pool * pool * per_block; j += kLanes) {
       const int pq = j / per_block;
-      dst[pq * row4 + (j - pq * per_block) * kV4] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      store4(&dst[pq * row4 + (j - pq * per_block) * kV4], make_float4(0.0f, 0.0f, 0.0f, 0.0f));
     }
     return;
   }
 
   // 2. items (slice, chunk of y rows), in order: the distinct cells of the
-  //    item staged by 16-byte asynchronous copies, the next item's copies in
-  //    flight while the current one is contracted
-  const float* feat = lv.ptr[l] + static_cast<size_t>(b) * height * width * channels +
-                      first * kSlice + c4 * 4;
-  float4* ring = reinterpret_cast<float4*>(fwd_smem);  // [ring_rows][pool][kV4]
-  float4* stage = ring + ring_rows * pool * kV4;        // [2][stage_cells][kV4]
+  //    item staged, as they are, by 16-byte asynchronous copies, the next
+  //    item's copies in flight while the current one is contracted
+  const T* feat = lv.ptr[l] + static_cast<size_t>(b) * height * width * channels +
+                  first * kSlice;
+  float4* ring = reinterpret_cast<float4*>(fwd_smem);  // [ring_rows][pool][kV4], fp32
+  // [2][stage_cells][kV4] of V4: each cell's slice is kCopies 16-byte units
+  uint4* stage = reinterpret_cast<uint4*>(ring + ring_rows * pool * kV4);
   const int mask = ring_rows - 1;
   const int chunk = min(stage_cells / nx, ring_rows - 2 * ratio + 1);  // rows an item
   const int chunks = (ny + chunk - 1) / chunk;
@@ -508,19 +569,21 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned long long by_nx = div_magic(nx);
   const unsigned long long by_pool = div_magic(pool);
   // the passes give a thread one output column q (and, where the lanes of a
-  // float4 group outnumber the columns, every `spread`-th row of it)
+  // 4-channel group outnumber the columns, every `spread`-th row of it)
   const int spread = max(1, kLanes / pool);
   const float count = static_cast<float>(ratio * ratio);
+  const int cc = t % kCopies;  // this thread's 16-byte unit of a cell's slice
+  const int cu = t / kCopies;
   auto load = [&](int item) {
     const int j = item / chunks;
     const int r0 = (item - j * chunks) * chunk;
     const int cells = min(chunk, ny - r0) * nx;
-    const float* src = feat + j * kSlice;
-    float4* buf = stage + (item & 1) * stage_cells * kV4 + c4;
-    for (int e = u; e < cells; e += kLanes) {
+    const T* src = feat + j * kSlice + cc * (16 / static_cast<int>(sizeof(T)));
+    uint4* buf = stage + (item & 1) * stage_cells * kCopies + cc;
+    for (int e = cu; e < cells; e += kCopyLanes) {
       const int r = div_small(e, by_nx);
       const int s = e - r * nx;
-      cp_async16(buf + e * kV4,
+      cp_async16(buf + e * kCopies,
                  src + (static_cast<size_t>(ft.cell[1][r0 + r]) * width + ft.cell[0][s]) *
                            channels);
     }
@@ -541,8 +604,8 @@ __global__ void __launch_bounds__(kThreads)
     const int rows = min(chunk, ny - r0);
     if (r0 == 0) p_done = 0;
 
-    // 3. pass x: the item's rows into the ring
-    const float4* buf = stage + (item & 1) * stage_cells * kV4 + c4;
+    // 3. pass x: the item's rows into the ring, converted to fp32 as read
+    const V4* buf = reinterpret_cast<const V4*>(stage + (item & 1) * stage_cells * kCopies) + c4;
     for (int e = u; e < pool * spread; e += kLanes) {
       const int g = div_small(e, by_pool);
       const int q = e - g * pool;
@@ -557,7 +620,7 @@ __global__ void __launch_bounds__(kThreads)
     //    pass y: every output row whose taps all lie in rows already contracted
     int p_end = p_done;
     while (p_end < pool && ft.last_row[p_end] < r0 + rows) ++p_end;
-    float4* dj = dst + j * kV4;
+    V4* dj = dst + j * kV4;
     for (int e = u; e < pool * spread; e += kLanes) {
       const int g = div_small(e, by_pool);
       const int q = e - g * pool;
@@ -568,7 +631,7 @@ __global__ void __launch_bounds__(kThreads)
         acc.y = acc.y / count;
         acc.z = acc.z / count;
         acc.w = acc.w / count;
-        dj[(p * pool + q) * row4] = acc;
+        store4(&dj[(p * pool + q) * row4], acc);
       }
     }
     p_done = p_end;
@@ -583,12 +646,15 @@ int bwd_smem_bytes(int pool, int ratio, int slice) {
   return (pool * pool + pool * 2 * pool * ratio) * slice * static_cast<int>(sizeof(float));
 }
 
-template <int kSlice>
+// T is the element type of the upstream gradient; the level gradients are
+// fp32 whatever T is.
+template <typename T, int kSlice>
 __global__ void __launch_bounds__(kThreads)
     roi_align_backward_kernel(Levels<float> lv, const float4* __restrict__ rois,
                               const int* __restrict__ levels,
-                              const float* __restrict__ grad_out, int rois_per_image,
+                              const T* __restrict__ grad_out, int rois_per_image,
                               int channels, int pool, int ratio) {
+  using V4 = typename Vec4<T>::type;          // 4 channels of T
   constexpr int kV4 = kSlice / 4;             // float4 groups of the slice
   constexpr int kCells = kThreads / kV4;      // cells one sweep of the block covers
   extern __shared__ __align__(16) float bwd_smem[];
@@ -613,11 +679,11 @@ __global__ void __launch_bounds__(kThreads)
     roi_axis(tab, rois[n], lv.stride[l], warp ? height : width, pool, ratio, warp, lane);
   } else {
     const float count = static_cast<float>(ratio * ratio);
-    const float* src = grad_out + static_cast<size_t>(n) * pool * pool * channels + c0;
+    const T* src = grad_out + static_cast<size_t>(n) * pool * pool * channels + c0;
     for (int e = t - 64; e < pool * pool * kV4; e += kThreads - 64) {
       const int pq = e / kV4, c4 = e % kV4;
-      float4 v = __ldg(
-          reinterpret_cast<const float4*>(src + static_cast<size_t>(pq) * channels) + c4);
+      float4 v = to_float4(
+          __ldg(reinterpret_cast<const V4*>(src + static_cast<size_t>(pq) * channels) + c4));
       v.x = v.x / count;
       v.y = v.y / count;
       v.z = v.z / count;
@@ -718,15 +784,16 @@ int fwd_per_block(int num_rois, int slices, int sms) {
   return per_block;
 }
 
-template <int kSlice, int kRatio>
-cudaError_t launch_fwd(const Levels<const float>& lv, const void* rois, const void* levels,
+template <typename T, int kSlice, int kRatio>
+cudaError_t launch_fwd(const Levels<const T>& lv, const void* rois, const void* levels,
                        void* out, int num_rois, int rois_per_image, int channels, int pool,
                        int ratio, cudaStream_t stream) {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
   static int sms[kMaxDevices] = {};
+  constexpr int kElem = static_cast<int>(sizeof(T));
   cudaError_t err =
-      allow_smem(roi_align_forward_kernel<kSlice, kRatio>, kFwdSmemLimit, &mu, done);
+      allow_smem(roi_align_forward_kernel<T, kSlice, kRatio>, kFwdSmemLimit, &mu, done);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -737,39 +804,101 @@ cudaError_t launch_fwd(const Levels<const float>& lv, const void* rois, const vo
   }
   const int slices = channels / kSlice;
   const int per_block = fwd_per_block(num_rois, slices, sms[dev]);
-  roi_align_forward_kernel<kSlice, kRatio>
-      <<<num_rois * (slices / per_block), kThreads, fwd_smem_bytes(pool, ratio, kSlice),
+  roi_align_forward_kernel<T, kSlice, kRatio>
+      <<<num_rois * (slices / per_block), kThreads, fwd_smem_bytes(pool, ratio, kSlice, kElem),
          stream>>>(lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
-                   static_cast<float*>(out), rois_per_image, channels, pool, ratio, per_block,
-                   fwd_ring_rows(pool, ratio, kSlice), fwd_stage_cells(pool, ratio, kSlice));
+                   static_cast<T*>(out), rois_per_image, channels, pool, ratio, per_block,
+                   fwd_ring_rows(pool, ratio, kSlice),
+                   fwd_stage_cells(pool, ratio, kSlice, kElem));
   return cudaGetLastError();
 }
 
 // K2 at slice width kSlice, with the instance specialised for S = 2 (the
 // model's sampling ratio) where it applies.
-template <int kSlice>
-cudaError_t launch_fwd_slice(const Levels<const float>& lv, const void* rois,
-                             const void* levels, void* out, int num_rois, int rois_per_image,
-                             int channels, int pool, int ratio, cudaStream_t stream) {
-  return ratio == 2 ? launch_fwd<kSlice, 2>(lv, rois, levels, out, num_rois, rois_per_image,
-                                            channels, pool, ratio, stream)
-                    : launch_fwd<kSlice, 0>(lv, rois, levels, out, num_rois, rois_per_image,
-                                            channels, pool, ratio, stream);
+template <typename T, int kSlice>
+cudaError_t launch_fwd_slice(const Levels<const T>& lv, const void* rois, const void* levels,
+                             void* out, int num_rois, int rois_per_image, int channels,
+                             int pool, int ratio, cudaStream_t stream) {
+  return ratio == 2 ? launch_fwd<T, kSlice, 2>(lv, rois, levels, out, num_rois, rois_per_image,
+                                               channels, pool, ratio, stream)
+                    : launch_fwd<T, kSlice, 0>(lv, rois, levels, out, num_rois, rois_per_image,
+                                               channels, pool, ratio, stream);
 }
 
-template <int kSlice>
+// K2 for features of type T at the first slice width of kWidths (64, 32,
+// then 4 for fp32 or 8 for bf16: whole 16-byte copies) that divides C and
+// fits kFwdSmemLimit.
+template <typename T, int kNarrow>
+int forward_entry(const void* const* feats, const int* heights, const int* widths,
+                  const float* strides, int num_levels, const void* rois, const void* levels,
+                  void* out, int num_rois, int rois_per_image, int channels, int pool,
+                  int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois <= 0 || channels <= 0) return 0;
+  Levels<const T> lv = {};
+  fill_levels(&lv, feats, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto bytes = [](int p, int r, int slice) {
+    return fwd_smem_bytes(p, r, slice, static_cast<int>(sizeof(T)));
+  };
+  switch (pick_slice({64, 32, kNarrow}, channels, pool, ratio, kFwdSmemLimit, bytes)) {
+    case 64:
+      return static_cast<int>(launch_fwd_slice<T, 64>(lv, rois, levels, out, num_rois,
+                                                      rois_per_image, channels, pool, ratio, s));
+    case 32:
+      return static_cast<int>(launch_fwd_slice<T, 32>(lv, rois, levels, out, num_rois,
+                                                      rois_per_image, channels, pool, ratio, s));
+    case kNarrow:
+      return static_cast<int>(launch_fwd_slice<T, kNarrow>(
+          lv, rois, levels, out, num_rois, rois_per_image, channels, pool, ratio, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int kSlice>
 cudaError_t launch_bwd(const Levels<float>& lv, const void* rois, const void* levels,
                        const void* grad_out, int num_rois, int rois_per_image, int channels,
                        int pool, int ratio, cudaStream_t stream) {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
-  cudaError_t err = allow_smem(roi_align_backward_kernel<kSlice>, kBwdSmemLimit, &mu, done);
+  cudaError_t err =
+      allow_smem(roi_align_backward_kernel<T, kSlice>, kBwdSmemLimit, &mu, done);
   if (err != cudaSuccess) return err;
-  roi_align_backward_kernel<kSlice>
+  roi_align_backward_kernel<T, kSlice>
       <<<num_rois * (channels / kSlice), kThreads, bwd_smem_bytes(pool, ratio, kSlice),
          stream>>>(lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
-                   static_cast<const float*>(grad_out), rois_per_image, channels, pool, ratio);
+                   static_cast<const T*>(grad_out), rois_per_image, channels, pool, ratio);
   return cudaGetLastError();
+}
+
+// K3 for an upstream gradient of type T (the level gradients are fp32).
+template <typename T>
+int backward_entry(void* const* grads, const int* heights, const int* widths,
+                   const float* strides, int num_levels, const void* rois, const void* levels,
+                   const void* grad_out, int num_rois, int rois_per_image, int channels,
+                   int pool, int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois <= 0 || channels <= 0) return 0;
+  Levels<float> lv = {};
+  fill_levels(&lv, grads, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pick_slice({32, 16, 8, 4}, channels, pool, ratio, kBwdSmemLimit, bwd_smem_bytes)) {
+    case 32:
+      return static_cast<int>(launch_bwd<T, 32>(lv, rois, levels, grad_out, num_rois,
+                                                rois_per_image, channels, pool, ratio, s));
+    case 16:
+      return static_cast<int>(launch_bwd<T, 16>(lv, rois, levels, grad_out, num_rois,
+                                                rois_per_image, channels, pool, ratio, s));
+    case 8:
+      return static_cast<int>(launch_bwd<T, 8>(lv, rois, levels, grad_out, num_rois,
+                                               rois_per_image, channels, pool, ratio, s));
+    case 4:
+      return static_cast<int>(launch_bwd<T, 4>(lv, rois, levels, grad_out, num_rois,
+                                               rois_per_image, channels, pool, ratio, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -785,24 +914,21 @@ extern "C" int roi_align_forward(const void* const* feats, const int* heights,
                                  const void* levels, void* out, int num_rois,
                                  int rois_per_image, int channels, int pool,
                                  int ratio, void* stream) {
-  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rois <= 0 || channels <= 0) return 0;
-  Levels<const float> lv = {};
-  fill_levels(&lv, feats, heights, widths, strides, num_levels);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_slice({64, 32, 4}, channels, pool, ratio, kFwdSmemLimit, fwd_smem_bytes)) {
-    case 64:
-      return static_cast<int>(launch_fwd_slice<64>(lv, rois, levels, out, num_rois, rois_per_image,
-                                             channels, pool, ratio, s));
-    case 32:
-      return static_cast<int>(launch_fwd_slice<32>(lv, rois, levels, out, num_rois, rois_per_image,
-                                             channels, pool, ratio, s));
-    case 4:
-      return static_cast<int>(launch_fwd_slice<4>(lv, rois, levels, out, num_rois, rois_per_image,
-                                            channels, pool, ratio, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return forward_entry<float, 4>(feats, heights, widths, strides, num_levels, rois, levels,
+                                 out, num_rois, rois_per_image, channels, pool, ratio, stream);
+}
+
+// roi_align_forward for bf16 features and output ([B, Hl, Wl, C] and
+// [num_rois, P, P, C] bf16, 16-byte aligned); C a multiple of 8.
+extern "C" int roi_align_forward_bf16(const void* const* feats, const int* heights,
+                                      const int* widths, const float* strides,
+                                      int num_levels, const void* rois,
+                                      const void* levels, void* out, int num_rois,
+                                      int rois_per_image, int channels, int pool,
+                                      int ratio, void* stream) {
+  return forward_entry<__nv_bfloat16, 8>(feats, heights, widths, strides, num_levels, rois,
+                                         levels, out, num_rois, rois_per_image, channels, pool,
+                                         ratio, stream);
 }
 
 // grads: host array of num_levels device pointers to zero-filled
@@ -816,25 +942,19 @@ extern "C" int roi_align_backward(void* const* grads, const int* heights,
                                   const void* levels, const void* grad_out,
                                   int num_rois, int rois_per_image, int channels,
                                   int pool, int ratio, void* stream) {
-  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rois <= 0 || channels <= 0) return 0;
-  Levels<float> lv = {};
-  fill_levels(&lv, grads, heights, widths, strides, num_levels);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_slice({32, 16, 8, 4}, channels, pool, ratio, kBwdSmemLimit, bwd_smem_bytes)) {
-    case 32:
-      return static_cast<int>(launch_bwd<32>(lv, rois, levels, grad_out, num_rois,
-                                             rois_per_image, channels, pool, ratio, s));
-    case 16:
-      return static_cast<int>(launch_bwd<16>(lv, rois, levels, grad_out, num_rois,
-                                             rois_per_image, channels, pool, ratio, s));
-    case 8:
-      return static_cast<int>(launch_bwd<8>(lv, rois, levels, grad_out, num_rois,
-                                            rois_per_image, channels, pool, ratio, s));
-    case 4:
-      return static_cast<int>(launch_bwd<4>(lv, rois, levels, grad_out, num_rois,
-                                            rois_per_image, channels, pool, ratio, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return backward_entry<float>(grads, heights, widths, strides, num_levels, rois, levels,
+                               grad_out, num_rois, rois_per_image, channels, pool, ratio, stream);
+}
+
+// roi_align_backward for a bf16 grad_out ([num_rois, P, P, C] bf16, 16-byte
+// aligned, C a multiple of 8), added into the same float32 buffers.
+extern "C" int roi_align_backward_bf16(void* const* grads, const int* heights,
+                                       const int* widths, const float* strides,
+                                       int num_levels, const void* rois,
+                                       const void* levels, const void* grad_out,
+                                       int num_rois, int rois_per_image, int channels,
+                                       int pool, int ratio, void* stream) {
+  return backward_entry<__nv_bfloat16>(grads, heights, widths, strides, num_levels, rois,
+                                       levels, grad_out, num_rois, rois_per_image, channels,
+                                       pool, ratio, stream);
 }

@@ -80,9 +80,14 @@ def merge_across_processes(gts, dts):
     return all_gts, all_dts
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 output as float32 (exact), where it lies; numpy has no bf16."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return upcast(x.detach()).cpu().numpy()
     return np.asarray(x)
 
 
@@ -92,14 +97,16 @@ def start_fetch(dets, masks):
     queued on the stream right behind the call's own work, so waiting for
     ``event`` waits for this batch only. A plain ``.cpu()`` in ``consume``
     would be queued behind the next batch's work, which the loop issues
-    first, and would wait for that too. Elsewhere the outputs are returned
-    as they are, with no event."""
+    first, and would wait for that too. bf16 outputs (scores, mask
+    probabilities) are cast to float32 on the card first, in the same
+    queue; the cast is exact, so the host holds the bf16 values themselves.
+    Elsewhere the outputs are returned as they are, with no event."""
     fields = [dets.boxes, dets.scores, dets.classes, dets.valid]
     if masks is not None:
         fields.append(masks)
     if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in fields):
         return fields, None
-    host = [t.to("cpu", non_blocking=True) for t in fields]
+    host = [upcast(t).to("cpu", non_blocking=True) for t in fields]
     done = torch.cuda.Event()
     done.record()
     return host, done

@@ -23,6 +23,7 @@ from detectron_tpu_torch.layers.proposal_target import RoiTargets, sample_rois
 from detectron_tpu_torch.models import losses
 from detectron_tpu_torch.models.fpn import FPN
 from detectron_tpu_torch.models.heads import BoxHead, MaskHead, RPNHead
+from detectron_tpu_torch.models.precision import compute_dtype
 from detectron_tpu_torch.models.resnet import ResNet
 from detectron_tpu_torch.ops import boxes as box_ops
 from detectron_tpu_torch.ops.anchors import AnchorGenerator
@@ -54,33 +55,59 @@ def rpn_anchor_generator(cfg) -> AnchorGenerator:
     )
 
 
+# The layout of the convolutions, per compute dtype, as measured on the
+# card with the same weights (PERF.md): cuDNN's float32 kernels are
+# NCHW (channels-last took a float32 predict call from 53.2-53.7 to
+# 58.7-59.0 ms), its bf16 tensor-core kernels NHWC (channels-last took the
+# bench's bf16 predict call at batch 48 from 216 to 171 ms and its training
+# step at batch 16 from 166 to 122 ms; at batch 2, where the host sets the
+# pace, it is 3-4% faster).
+CHANNELS_LAST = {torch.float32: False, torch.bfloat16: True}
+
+
 class TwoStageDetector(nn.Module):
     """Backbone + FPN + RPN + box head (+ mask head), with the JAX module's
     methods: ``features``, ``rpn``, ``box``, ``mask``. ``forward`` is the
     whole eval pass (:func:`faster_rcnn_eval_forward`) or, given targets,
-    the training pass (:func:`faster_rcnn_train_forward`)."""
+    the training pass (:func:`faster_rcnn_train_forward`).
+
+    ``dtype`` (``model.dtype``) is the compute dtype of every layer; the
+    parameters stay float32. The proposals, the detection boxes and the
+    RoIs stay float32 whatever the dtype (decode promotes against the
+    float32 anchors and RoIs), so K1 and the level routing see float32;
+    objectness, deltas, class and mask logits, scores and pooled features
+    come in ``dtype``."""
 
     def __init__(self, cfg, include_mask: bool = False):
         super().__init__()
-        if cfg.model.dtype != "float32":
-            raise NotImplementedError(
-                f"model.dtype={cfg.model.dtype!r}: the port runs float32 only; "
-                "bf16 kernels are ROADMAP.md, Queue 2")
         self.cfg = cfg
         self.include_mask = include_mask
+        self.dtype = dt = compute_dtype(cfg.model.dtype)
         ch = cfg.model.fpn_channels
         self.backbone = ResNet(
             depth=cfg.model.backbone, frozen_stages=cfg.model.frozen_stages,
             norm=cfg.model.norm, stem=cfg.model.stem,
-            dilate_c5=cfg.model.dilate_c5, remat=cfg.model.remat)
-        self.fpn = FPN(self.backbone.out_channels, ch, levels="p2p6")
-        self.rpn_head = RPNHead(ch, len(cfg.anchors.ratios) * len(cfg.anchors.rpn_scales))
+            dilate_c5=cfg.model.dilate_c5, remat=cfg.model.remat, dtype=dt)
+        self.fpn = FPN(self.backbone.out_channels, ch, levels="p2p6", dtype=dt)
+        self.rpn_head = RPNHead(ch, len(cfg.anchors.ratios) * len(cfg.anchors.rpn_scales),
+                                dtype=dt)
         p = cfg.roi.pool_size
         self.box_head = BoxHead(ch * p * p, cfg.model.num_classes,
-                                class_agnostic=cfg.roi.class_agnostic_regression)
+                                class_agnostic=cfg.roi.class_agnostic_regression, dtype=dt)
         if include_mask:
-            self.mask_head = MaskHead(ch, cfg.model.num_classes)
+            self.mask_head = MaskHead(ch, cfg.model.num_classes, dtype=dt)
+        self.set_channels_last(CHANNELS_LAST[dt])
         self._anchors = {}
+
+    def set_channels_last(self, on: bool) -> None:
+        """Runs the convolutions channels-last (NHWC in memory) or NCHW. The
+        levels are NHWC for RoIAlign either way: channels-last hands them
+        to RoIAlign and the RPN head without a copy, NCHW copies each level
+        once a call each way."""
+        self.memory_format = torch.channels_last if on else torch.contiguous_format
+        for m in self.modules():
+            if m is not self and hasattr(m, "memory_format"):
+                m.memory_format = self.memory_format
 
     def anchors(self, image_shape, device) -> list[torch.Tensor]:
         """Per-level RPN anchors of a padded canvas, made once per shape."""
@@ -91,18 +118,17 @@ class TwoStageDetector(nn.Module):
                                   for a in gen.grid_anchors(tuple(image_shape))]
         return self._anchors[key]
 
-    # The convolutions run on contiguous NCHW tensors: cuDNN's float32
-    # kernels are NCHW, and channels-last inputs made it transpose around
-    # every convolution. The NHWC levels the RoIAlign kernel reads are one
-    # copy per level, made once per call.
     def features(self, images):
-        """NHWC images ``[B, H, W, 3]`` -> NHWC levels P2..P6."""
-        x = images.permute(0, 3, 1, 2).contiguous()
+        """NHWC images ``[B, H, W, 3]`` (float32) -> NHWC levels P2..P6 in the
+        compute dtype."""
+        x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=self.memory_format)
         return [p.permute(0, 2, 3, 1).contiguous()
                 for p in self.fpn(self.backbone(x))]
 
     def rpn(self, levels):
-        outs = [self.rpn_head(p.permute(0, 3, 1, 2).contiguous()) for p in levels]
+        outs = [self.rpn_head(p.permute(0, 3, 1, 2).contiguous(
+            memory_format=self.memory_format)) for p in levels]
         return [o[0] for o in outs], [o[1] for o in outs]
 
     def _pool(self, levels, rois, size):

@@ -3,24 +3,29 @@
 The port of ``detectron_tpu/models/heads.py``. The convolutions run NCHW;
 outputs keep the JAX layouts: RPN outputs flatten in (h, w, anchor)
 order, the box head flattens pooled features in HWC order, and mask
-logits come out ``[B, R, 2P, 2P, K-1]``.
+logits come out ``[B, R, 2P, 2P, K-1]``. Every layer computes in the
+compute ``dtype`` and returns it (``models/precision.py``).
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 from torch.nn import functional as F
+
+from detectron_tpu_torch.models.precision import Conv2d, ConvTranspose2d, Linear
 
 
 class RPNHead(nn.Module):
     """3x3 conv + sibling 1x1 convs: one objectness logit and 4 deltas per
     anchor. Shared across FPN levels."""
 
-    def __init__(self, channels: int = 256, num_anchors: int = 3):
+    def __init__(self, channels: int = 256, num_anchors: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
-        self.objectness = nn.Conv2d(channels, num_anchors, 1)
-        self.deltas = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.conv = Conv2d(channels, channels, 3, padding=1, compute_dtype=dtype)
+        self.objectness = Conv2d(channels, num_anchors, 1, compute_dtype=dtype)
+        self.deltas = Conv2d(channels, num_anchors * 4, 1, compute_dtype=dtype)
 
     def forward(self, x):  # [B, C, H, W]
         t = F.relu(self.conv(x))
@@ -36,13 +41,13 @@ class BoxHead(nn.Module):
     class-agnostic)."""
 
     def __init__(self, in_features: int, num_classes: int, hidden: int = 1024,
-                 class_agnostic: bool = False):
+                 class_agnostic: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.nreg = 1 if class_agnostic else num_classes
-        self.fc1 = nn.Linear(in_features, hidden)
-        self.fc2 = nn.Linear(hidden, hidden)
-        self.cls_score = nn.Linear(hidden, num_classes)
-        self.bbox_pred = nn.Linear(hidden, self.nreg * 4)
+        self.fc1 = Linear(in_features, hidden, compute_dtype=dtype)
+        self.fc2 = Linear(hidden, hidden, compute_dtype=dtype)
+        self.cls_score = Linear(hidden, num_classes, compute_dtype=dtype)
+        self.bbox_pred = Linear(hidden, self.nreg * 4, compute_dtype=dtype)
 
     def forward(self, x):  # [B, R, P, P, C]
         b, r = x.shape[:2]
@@ -53,19 +58,23 @@ class BoxHead(nn.Module):
 
 class MaskHead(nn.Module):
     """4x conv3x3 + 2x2/2 deconv + 1x1 conv to ``num_classes - 1`` mask
-    logits (foreground classes only)."""
+    logits (foreground classes only). ``memory_format``: the layout its
+    convolutions take the pooled features in (the detector's)."""
 
-    def __init__(self, in_channels: int, num_classes: int, channels: int = 256):
+    def __init__(self, in_channels: int, num_classes: int, channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         for i in range(4):
-            self.add_module(f"conv{i}", nn.Conv2d(in_channels if i == 0 else channels,
-                                                  channels, 3, padding=1))
-        self.deconv = nn.ConvTranspose2d(channels, channels, 2, stride=2)
-        self.mask_logits = nn.Conv2d(channels, num_classes - 1, 1)
+            self.add_module(f"conv{i}", Conv2d(in_channels if i == 0 else channels,
+                                               channels, 3, padding=1, compute_dtype=dtype))
+        self.deconv = ConvTranspose2d(channels, channels, 2, stride=2, compute_dtype=dtype)
+        self.mask_logits = Conv2d(channels, num_classes - 1, 1, compute_dtype=dtype)
+        self.memory_format = torch.contiguous_format
 
     def forward(self, x):  # [B, R, P, P, C]
         b, r, h, w, c = x.shape
-        x = x.reshape(b * r, h, w, c).permute(0, 3, 1, 2).contiguous()
+        x = x.reshape(b * r, h, w, c).permute(0, 3, 1, 2).contiguous(
+            memory_format=self.memory_format)
         for i in range(4):
             x = F.relu(getattr(self, f"conv{i}")(x))
         x = self.mask_logits(F.relu(self.deconv(x)))

@@ -8,6 +8,11 @@ NCHW.
 Module names follow the JAX parameter tree (``conv1``, ``bn1``,
 ``layer{s}.{i}.conv1..3 / bn1..3 / downsample_conv / downsample_bn``), so
 ``utils.weights.from_jax_params`` is a name map.
+
+``dtype`` is the compute dtype (``model.dtype``): the stem casts the
+images to it, every convolution computes in it and frozen BatchNorm
+applies its float32 scale and bias cast to it; parameters and statistics
+stay float32 (``models/precision.py``).
 """
 
 from __future__ import annotations
@@ -16,16 +21,21 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from detectron_tpu_torch.models.precision import Conv2d
+
 STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm frozen at its statistics:
-    ``y = (x - mean) / sqrt(var + eps) * weight + bias``."""
+    ``y = (x - mean) / sqrt(var + eps) * weight + bias``, with the scale and
+    bias worked out in float32 and cast to ``dtype`` (the JAX module's
+    ``scale.astype(dtype)``)."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.compute_dtype = dtype
         self.register_buffer("weight", torch.ones(features))
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -34,29 +44,31 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         bias = self.bias - self.running_mean * scale
-        return x * scale[None, :, None, None] + bias[None, :, None, None]
+        dt = self.compute_dtype
+        return x * scale.to(dt)[None, :, None, None] + bias.to(dt)[None, :, None, None]
 
 
-def conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2,
-                     bias=False)
+def conv(cin: int, cout: int, kernel: int, stride: int = 1,
+         dtype: torch.dtype = torch.float32) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False,
+                  compute_dtype=dtype)
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride) -> 1x1, expansion 4."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv(cin, features, 1)
-        self.bn1 = FrozenBatchNorm(features)
-        self.conv2 = conv(features, features, 3, stride)
-        self.bn2 = FrozenBatchNorm(features)
-        self.conv3 = conv(features, features * 4, 1)
-        self.bn3 = FrozenBatchNorm(features * 4)
+        self.conv1 = conv(cin, features, 1, dtype=dtype)
+        self.bn1 = FrozenBatchNorm(features, dtype=dtype)
+        self.conv2 = conv(features, features, 3, stride, dtype=dtype)
+        self.bn2 = FrozenBatchNorm(features, dtype=dtype)
+        self.conv3 = conv(features, features * 4, 1, dtype=dtype)
+        self.bn3 = FrozenBatchNorm(features * 4, dtype=dtype)
         if downsample:
-            self.downsample_conv = conv(cin, features * 4, 1, stride)
-            self.downsample_bn = FrozenBatchNorm(features * 4)
+            self.downsample_conv = conv(cin, features * 4, 1, stride, dtype=dtype)
+            self.downsample_bn = FrozenBatchNorm(features * 4, dtype=dtype)
         else:
             self.downsample_conv = None
 
@@ -93,7 +105,8 @@ class ResNet(nn.Module):
 
     def __init__(self, depth: str = "resnet50", frozen_stages: int = 1,
                  norm: str = "frozen_bn", stem: str = "conv",
-                 dilate_c5: bool = False, remat: bool = False):
+                 dilate_c5: bool = False, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm != "frozen_bn":
             raise NotImplementedError(
@@ -105,14 +118,15 @@ class ResNet(nn.Module):
                 "Queue 1, backbone variants")
         if stem not in ("conv", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        self.conv1 = conv(3, 64, 7, stride=2, dtype=dtype)  # casts the images
+        self.bn1 = FrozenBatchNorm(64, dtype=dtype)
         cin, features = 64, 64
         for stage, num_blocks in enumerate(STAGE_BLOCKS[depth]):
             blocks = []
             for i in range(num_blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
-                blocks.append(Bottleneck(cin, features, stride, downsample=(i == 0)))
+                blocks.append(Bottleneck(cin, features, stride, downsample=(i == 0),
+                                         dtype=dtype))
                 cin = features * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             features *= 2

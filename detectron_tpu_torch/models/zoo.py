@@ -15,7 +15,9 @@ and returns ``(Detections, mask_probs [B, D, 28, 28] | None)``, and whose
 ``params`` is a state dict (``Detector.init`` or
 ``utils.weights.from_jax_params``), or None for the module's own weights.
 The default device is the card; without CUDA that default raises, it does
-not fall back to the CPU.
+not fall back to the CPU. With ``model.dtype=bfloat16`` the inputs stay
+float32 (the model casts them) and so do the parameters; the detector
+computes in bf16 (``Detector.dtype``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from torch.func import functional_call
 
 from detectron_tpu_torch.models import faster_rcnn as frcnn
+from detectron_tpu_torch.ops.roi_align import check_roi_align_contract
 
 MODEL_NAMES = ("faster_rcnn", "mask_rcnn", "retinanet", "rfcn")
 
@@ -57,7 +60,9 @@ def _init_std(name: str, shape) -> float:
 
 class Detector:
     """A two-stage detector module on a device, with the JAX Detector's
-    pure-function interface."""
+    pure-function interface. ``dtype``: the compute dtype. On the card the
+    config is held to what the RoIAlign kernels take
+    (``check_roi_align_contract``) when the detector is built."""
 
     def __init__(self, cfg, device=None):
         name = cfg.model.name
@@ -72,6 +77,9 @@ class Detector:
         self.device = resolve_device(device)
         self.with_masks = name == "mask_rcnn"
         self.module = frcnn.build_two_stage(cfg, include_mask=self.with_masks)
+        self.dtype = self.module.dtype
+        if self.device.type == "cuda":
+            check_roi_align_contract(cfg, self.dtype, len(frcnn.ROI_STRIDES))
         self.module.to(device=self.device).eval()
 
     def init(self, seed: int = 0) -> dict:

@@ -18,6 +18,15 @@ hand-written kernels of ``csrc/roi_align.cu``, K2 forward and K3 backward
 versions, :func:`multilevel_roi_align_plain` and
 :func:`multilevel_roi_align_bwd_plain`. All four take the same level
 index, so forward and backward route identically by construction.
+
+Features may be float32 or bfloat16, as the JAX kernels take either: the
+output (forward) and the level gradients (backward) come in the features'
+dtype, every sum is float32, and a bf16 result is the float32 result on
+the upcast inputs rounded once. The Pallas backward rounds each level's
+gradient to bf16 after every RoI's window; the port rounds it once, after
+all RoIs (a stated divergence, the more accurate of the two).
+:func:`check_roi_align_contract` states what the kernels take, for a
+config, before a detector runs.
 """
 
 from __future__ import annotations
@@ -165,11 +174,12 @@ def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Ten
     base, wrow, ys, xs = _sample_geometry([f.shape[1:3] for f in features], rois,
                                           levels, strides, p, s)
     bidx = torch.arange(b, device=rois.device)[:, None, None, None]
-    pts = sum(flat[bidx, idx] * w[..., None]  # [B, R, PS, PS, C]
+    # the corners gathered in the features' dtype, summed in float32
+    pts = sum(flat[bidx, idx].float() * w[..., None]  # [B, R, PS, PS, C]
               for idx, w in _corners(base, wrow, ys, xs))
     inb = (ys[4][..., :, None] & xs[4][..., None, :])[..., None]
     pts = torch.where(inb, pts, torch.zeros_like(pts))
-    return pts.reshape(b, r, p, s, p, s, c).mean(dim=(3, 5))
+    return pts.reshape(b, r, p, s, p, s, c).mean(dim=(3, 5)).to(features[0].dtype)
 
 
 def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Tensor,
@@ -182,7 +192,8 @@ def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Ten
 
     grad: ``[B, R, P, P, C]``; level_hw: the ``(H, W)`` of each level;
     levels: the routing the forward used. Returns per-level
-    ``[B, Hl, Wl, C]`` gradients in ``grad``'s dtype.
+    ``[B, Hl, Wl, C]`` gradients in ``grad``'s dtype: summed in float32
+    from the upcast ``grad``, then rounded once.
     """
     b, r, p, _, c = grad.shape
     s = sampling_ratio
@@ -190,27 +201,59 @@ def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Ten
     total = sum(sizes)
     base, wrow, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s)
     # d(mean over the S x S samples of a bin) = grad / S^2 at every sample
-    gs = true_div(grad, s * s)[:, :, :, None, :, None, :]
+    gs = true_div(grad.float(), s * s)[:, :, :, None, :, None, :]
     gs = gs.expand(b, r, p, s, p, s, c).reshape(b, r, p * s, p * s, c)
     inb = (ys[4][..., :, None] & xs[4][..., None, :])[..., None]
     gs = torch.where(inb, gs, torch.zeros_like(gs))
-    out = grad.new_zeros(b * total, c)
+    out = torch.zeros(b * total, c, dtype=torch.float32, device=grad.device)
     bbase = torch.arange(b, device=rois.device)[:, None, None, None] * total
     for idx, w in _corners(base, wrow, ys, xs):
         out.index_add_(0, (bbase + idx).reshape(-1), (gs * w[..., None]).reshape(-1, c))
-    out = out.view(b, total, c)
+    out = out.to(grad.dtype).view(b, total, c)
     offsets = np.cumsum([0] + sizes)
     return [out[:, o:o + n].reshape(b, int(h), int(w), c)
             for o, n, (h, w) in zip(offsets, sizes, level_hw)]
 
 
-_MAX_LEVELS = 8
+# What K2 and K3 take (csrc/roi_align.cu: kMaxLevels, kMaxSamples, and the
+# channel multiple of each instance's 16-byte copies or float4 atomics).
+MAX_LEVELS = 8
+MAX_SAMPLES = 64  # output_size * sampling_ratio along one axis
+CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
+
+
+def check_roi_align_contract(cfg, dtype: torch.dtype, num_levels: int = 4) -> None:
+    """Raises ``ValueError`` where ``cfg`` (computing in ``dtype``, pooling
+    from ``num_levels`` FPN levels) asks kernels K2 and K3 for what they do
+    not take, naming the limit and the config key, so that a detector on
+    the card fails when it is built and not in the middle of a call. The
+    plain versions, on the CPU, take anything."""
+    if dtype not in CHANNEL_MULTIPLE:
+        raise ValueError(f"model.dtype: the RoIAlign kernels take float32 or bfloat16, "
+                         f"not {dtype}")
+    multiple = CHANNEL_MULTIPLE[dtype]
+    channels = cfg.model.fpn_channels
+    if channels % multiple:
+        raise ValueError(f"model.fpn_channels={channels}: the {dtype} RoIAlign kernels take "
+                         f"channels in multiples of {multiple}")
+    sizes = [("roi.pool_size", cfg.roi.pool_size)]
+    if cfg.model.name == "mask_rcnn":
+        sizes.append(("roi.mask_pool_size", cfg.roi.mask_pool_size))
+    ratio = cfg.roi.sampling_ratio
+    for key, size in sizes:
+        if not (size >= 1 and ratio >= 1 and size * ratio <= MAX_SAMPLES):
+            raise ValueError(f"{key}={size} x roi.sampling_ratio={ratio} = {size * ratio} "
+                             f"samples an axis: the RoIAlign kernels take 1..{MAX_SAMPLES}")
+    if not 1 <= num_levels <= MAX_LEVELS:
+        raise ValueError(f"{num_levels} pooled FPN levels: the RoIAlign kernels take "
+                         f"1..{MAX_LEVELS}")
 
 
 @functools.cache
 def _roi_align_lib() -> ctypes.CDLL:
     lib = _build.load("roi_align")
-    for fn in (lib.roi_align_forward, lib.roi_align_backward):
+    for fn in (lib.roi_align_forward, lib.roi_align_forward_bf16, lib.roi_align_backward,
+               lib.roi_align_backward_bf16):
         fn.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
@@ -223,9 +266,9 @@ def _roi_align_lib() -> ctypes.CDLL:
 
 def _check_launch_args(rois, levels, num_levels, strides, p, s):
     """Checks what K2 and K3 share: RoIs, routing, level count, sizes."""
-    if not 1 <= num_levels <= _MAX_LEVELS or len(strides) != num_levels:
+    if not 1 <= num_levels <= MAX_LEVELS or len(strides) != num_levels:
         raise ValueError(f"{num_levels} levels and {len(strides)} strides: "
-                         f"want 1..{_MAX_LEVELS} of each")
+                         f"want 1..{MAX_LEVELS} of each")
     if not (rois.is_cuda and rois.dtype == torch.float32 and rois.dim() == 3
             and rois.shape[2] == 4 and rois.is_contiguous()
             and rois.data_ptr() % 16 == 0):
@@ -235,9 +278,9 @@ def _check_launch_args(rois, levels, num_levels, strides, p, s):
             and levels.shape == rois.shape[:2] and levels.is_contiguous()):
         raise ValueError("levels: a contiguous int32 [B, R] tensor on the RoIs' "
                          "device")
-    if p * s > 64 or p < 1 or s < 1:
+    if p * s > MAX_SAMPLES or p < 1 or s < 1:
         raise ValueError(f"output_size * sampling_ratio = {p * s}: the kernel "
-                         "takes 1..64 samples per axis")
+                         f"takes 1..{MAX_SAMPLES} samples per axis")
 
 
 def _level_args(tensors, strides):
@@ -248,6 +291,13 @@ def _level_args(tensors, strides):
             (ctypes.c_float * n)(*[float(x) for x in strides]), n)
 
 
+def _kernel_dtype(dtype: torch.dtype, what: str) -> int:
+    """The channel multiple of the kernels' instance for ``dtype``."""
+    if dtype not in CHANNEL_MULTIPLE:
+        raise ValueError(f"{what}: the kernel takes float32 or bfloat16, not {dtype}")
+    return CHANNEL_MULTIPLE[dtype]
+
+
 def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tensor,
                               levels: torch.Tensor, strides: Sequence[int],
                               output_size: int = 7,
@@ -256,35 +306,33 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
     ``csrc/roi_align.cu``: one launch for all RoIs of all levels. A block
     folds its RoI's samples onto the cells they touch, stages those cells
     once per channel slice and contracts them along x, then y.
-    Deterministic (no atomics). Takes C a multiple of 4 and 16-byte aligned
-    levels."""
+    Deterministic (no atomics). Float32 features take C a multiple of 4,
+    bfloat16 ones (read as they are, summed in float32, written bf16) a
+    multiple of 8; levels 16-byte aligned."""
     f0 = features[0]
-    if f0.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bfloat16 RoIAlign kernel is not ported yet: ROADMAP.md, Queue 2, "
-            "bf16 kernels")
     p, s = output_size, sampling_ratio
     _check_launch_args(rois, levels, len(features), strides, p, s)
     b, r = rois.shape[:2]
     c = f0.shape[-1]
+    multiple = _kernel_dtype(f0.dtype, "features")
     for f in features:
-        if not (f.is_cuda and f.device == rois.device and f.dtype == torch.float32
+        if not (f.is_cuda and f.device == rois.device and f.dtype == f0.dtype
                 and f.dim() == 4 and f.shape[0] == b and f.shape[3] == c
                 and f.is_contiguous()):
-            raise ValueError("features: contiguous float32 NHWC CUDA tensors on "
-                             "the RoIs' device, one batch and channel count")
-    if c % 4 or any(f.data_ptr() % 16 for f in features):
-        # so that every cell's slice is whole float4s, copied 16 bytes at a time
-        raise ValueError(f"features: K2 copies 4 channels at a time and takes C a multiple "
-                         f"of 4 (C={c}) and 16-byte aligned levels")
-    out = torch.empty((b, r, p, p, c), dtype=torch.float32, device=rois.device)
+            raise ValueError("features: contiguous NHWC CUDA tensors of one dtype on the "
+                             "RoIs' device, one batch and channel count")
+    if c % multiple or any(f.data_ptr() % 16 for f in features):
+        # so that every cell's slice is whole 16-byte copies
+        raise ValueError(f"features: K2 copies 16 bytes at a time and takes {f0.dtype} C a "
+                         f"multiple of {multiple} (C={c}) and 16-byte aligned levels")
+    out = torch.empty((b, r, p, p, c), dtype=f0.dtype, device=rois.device)
     if b * r == 0 or c == 0:
         return out
     lib = _roi_align_lib()
+    fn = lib.roi_align_forward if f0.dtype == torch.float32 else lib.roi_align_forward_bf16
     with torch.cuda.device(rois.device):
-        err = lib.roi_align_forward(
-            *_level_args(features, strides), rois.data_ptr(), levels.data_ptr(),
-            out.data_ptr(), b * r, r, c, p, s, _build.stream_handle(rois.device))
+        err = fn(*_level_args(features, strides), rois.data_ptr(), levels.data_ptr(),
+                 out.data_ptr(), b * r, r, c, p, s, _build.stream_handle(rois.device))
     _build.check(err, "roi_align_forward")
     multilevel_roi_align_cuda.launches += 1
     return out
@@ -297,60 +345,70 @@ def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tens
                                   levels: torch.Tensor, strides: Sequence[int],
                                   sampling_ratio: int = 2) -> list[torch.Tensor]:
     """:func:`multilevel_roi_align_bwd_plain` as kernel K3 of
-    ``csrc/roi_align.cu``: one zero fill of all levels' gradients, then one
-    launch that builds each RoI's gradient window on chip and adds it into
-    them, one 16-byte atomic add per touched cell and 4 channels (the order
-    in which overlapping RoIs add, and so the last bits, varies from run to
-    run). Takes C a multiple of 4 and a 16-byte aligned ``grad``."""
-    if grad.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bfloat16 RoIAlign kernel is not ported yet: ROADMAP.md, Queue 2, "
-            "bf16 kernels")
+    ``csrc/roi_align.cu``: one zero fill of all levels' float32 gradients,
+    then one launch that builds each RoI's gradient window on chip and adds
+    it into them, one 16-byte atomic add per touched cell and 4 channels
+    (the order in which overlapping RoIs add, and so the last bits, varies
+    from run to run). A bfloat16 ``grad`` (C a multiple of 8) is read as
+    it is and added into the same float32 buffers, which are then rounded
+    to bf16 in one pass; a float32 one takes C a multiple of 4. ``grad``
+    16-byte aligned."""
     s = sampling_ratio
     p = grad.shape[2] if grad.dim() == 5 else 0
     _check_launch_args(rois, levels, len(level_hw), strides, p, s)
     b, r = rois.shape[:2]
-    if not (grad.is_cuda and grad.device == rois.device and grad.dtype == torch.float32
+    if not (grad.is_cuda and grad.device == rois.device
             and grad.shape[:4] == (b, r, p, p) and grad.is_contiguous()):
-        raise ValueError("grad: a contiguous float32 [B, R, P, P, C] CUDA tensor on "
-                         "the RoIs' device")
-    if grad.shape[4] % 4 or grad.data_ptr() % 16:
-        # so that every cell of grad and of the level gradients is float4-aligned
-        raise ValueError(f"grad: K3 adds 4 channels at a time and takes C a multiple of "
-                         f"4 (C={grad.shape[4]}) and a 16-byte aligned tensor")
-    grads = level_grad_buffers(b, grad.shape[4], level_hw, rois.device)
-    if b * r == 0 or grad.shape[4] == 0:
-        return grads
-    roi_align_bwd_accumulate_cuda(grads, grad, rois, levels, strides, s)
-    multilevel_roi_align_bwd_cuda.launches += 1
-    return grads
+        raise ValueError("grad: a contiguous [B, R, P, P, C] CUDA tensor on the RoIs' "
+                         "device")
+    multiple = _kernel_dtype(grad.dtype, "grad")
+    if grad.shape[4] % multiple or grad.data_ptr() % 16:
+        # so that every cell of grad is whole float4s, or 4-channel bf16 groups
+        raise ValueError(f"grad: K3 adds 4 channels at a time and takes {grad.dtype} C a "
+                         f"multiple of {multiple} (C={grad.shape[4]}) and a 16-byte aligned "
+                         "tensor")
+    c = grad.shape[4]
+    flat = level_grad_buffer(b, c, level_hw, rois.device)
+    if b * r and c:
+        roi_align_bwd_accumulate_cuda(level_views(flat, b, c, level_hw), grad, rois, levels,
+                                      strides, s)
+        multilevel_roi_align_bwd_cuda.launches += 1
+    # bf16: one rounding pass over every level's gradient (float32: no-op)
+    return level_views(flat.to(grad.dtype), b, c, level_hw)
 
 
 multilevel_roi_align_bwd_cuda.launches = 0
 
 
-def level_grad_buffers(b: int, c: int, level_hw, device) -> list[torch.Tensor]:
-    """K3's zero fill: one zero fp32 buffer for all levels' gradients,
-    viewed as per-level ``[B, Hl, Wl, C]`` tensors."""
+def level_views(flat: torch.Tensor, b: int, c: int, level_hw) -> list[torch.Tensor]:
+    """``flat`` (all levels' gradients, one after another) viewed as the
+    per-level ``[B, Hl, Wl, C]`` tensors."""
     sizes = [b * int(h) * int(w) * c for h, w in level_hw]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=device)
     return [part.view(b, int(h), int(w), c)
             for part, (h, w) in zip(flat.split(sizes), level_hw)]
+
+
+def level_grad_buffer(b: int, c: int, level_hw, device) -> torch.Tensor:
+    """K3's zero fill: one zero fp32 buffer for all levels' gradients
+    (:func:`level_views` gives the per-level tensors)."""
+    return torch.zeros(b * c * sum(int(h) * int(w) for h, w in level_hw), dtype=torch.float32,
+                       device=device)
 
 
 def roi_align_bwd_accumulate_cuda(grads: Sequence[torch.Tensor], grad: torch.Tensor,
                                   rois: torch.Tensor, levels: torch.Tensor,
                                   strides: Sequence[int], sampling_ratio: int = 2) -> None:
-    """K3's launch alone: adds the gradient of every RoI into ``grads``
-    (:func:`level_grad_buffers`). Takes what
+    """K3's launch alone: adds the gradient of every RoI into the float32
+    ``grads`` (:func:`level_views` of :func:`level_grad_buffer`). Takes what
     :func:`multilevel_roi_align_bwd_cuda` has checked; counts nothing."""
     b, r = rois.shape[:2]
     p, c = grad.shape[2], grad.shape[4]
+    lib = _roi_align_lib()
+    fn = lib.roi_align_backward if grad.dtype == torch.float32 else lib.roi_align_backward_bf16
     with torch.cuda.device(rois.device):
-        err = _roi_align_lib().roi_align_backward(
-            *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
-            grad.data_ptr(), b * r, r, c, p, sampling_ratio,
-            _build.stream_handle(rois.device))
+        err = fn(*_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
+                 grad.data_ptr(), b * r, r, c, p, sampling_ratio,
+                 _build.stream_handle(rois.device))
     _build.check(err, "roi_align_backward")
 
 

@@ -1,8 +1,8 @@
 """The port's bench driver (``python -m detectron_tpu_torch.bench``) on the
 CPU at a small size: its ``run(args, device="cpu")`` (the function ``main``
-calls) prints one JSON line with ``bench.py``'s keys, the A100 ratios null;
-``--dtype bfloat16`` raises, naming ROADMAP.md; without CUDA the default
-device raises."""
+calls) prints one JSON line with ``bench.py``'s keys, the A100 ratios null,
+at its default ``--dtype bfloat16`` (as ``bench.py``) and at ``--dtype
+float32``; without CUDA the default device raises."""
 
 import json
 import math
@@ -38,7 +38,7 @@ def test_bench_prints_one_json_line_in_bench_py_format(capsys):
     assert line["unit"] == "images/sec"
     assert line["vs_baseline"] is None and line["train_vs_baseline"] is None
     assert line["metric"].startswith("mask_rcnn R-50-FPN inference images/sec/chip "
-                                     "(128x128, bs=2, float32, cpu)")
+                                     "(128x128, bs=2, bfloat16, cpu)")
     for key in ("value", "train_img_s_chip", "train_step_ms"):
         assert math.isfinite(line[key]) and line[key] > 0
 
@@ -53,9 +53,10 @@ def test_bench_defaults_and_refusals(monkeypatch):
     args = bench.parse_args([])
     assert (args.size, args.batch, args.train_batch, args.model, args.mode, args.iters,
             args.train_iters, args.dtype) == ("1024", 48, 16, "mask_rcnn", "both", 20, 8,
-                                              "float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        bench.run(bench.parse_args(["--dtype", "bfloat16"]), device="cpu")
+                                              "bfloat16")
+    assert bench.bench_config(args).model.dtype == "bfloat16"
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--dtype", "float16"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         bench.run(bench.parse_args(SMALL))
@@ -83,3 +84,12 @@ def test_bench_sets_frozen_bn_statistics_and_refuses_a_non_finite_loss(monkeypat
         bench.run(bench.parse_args(SMALL + ["--mode", "train"]), device="cpu")
     assert capsys.readouterr().out == ""
     assert seen and not all(torch.equal(v, torch.ones_like(v)) for v in seen)
+
+
+def test_bench_float32_line(capsys):
+    """``--dtype float32`` stays selectable: the float32 model, named in
+    the line."""
+    out = bench.run(bench.parse_args(SMALL + ["--dtype", "float32", "--mode", "infer"]),
+                    device="cpu")
+    assert "(128x128, bs=2, float32, cpu)" in out["metric"]
+    assert math.isfinite(out["value"]) and out["value"] > 0

@@ -54,9 +54,11 @@ class _Event:
         return (other.t - self.t) * 1e3
 
 
-def _counting(plain):
+def _counting(module, name, plain):
+    """A stand-in for ``module.name`` that counts its launches as the
+    wrappers do: on the name it is bound to in its module."""
     def wrapper(*args, **kwargs):
-        wrapper.launches += 1
+        getattr(module, name).launches += 1
         return plain(*args, **kwargs)
 
     wrapper.launches = 0
@@ -105,7 +107,7 @@ def rehearsal(monkeypatch, tmp_path):
                              (ra, "multilevel_roi_align_cuda", ra.multilevel_roi_align_plain),
                              (ra, "multilevel_roi_align_bwd_cuda",
                               ra.multilevel_roi_align_bwd_plain)):
-        monkeypatch.setattr(mod, name, _counting(plain))
+        monkeypatch.setattr(mod, name, _counting(mod, name, plain))
     monkeypatch.setattr(nms, "greedy_keep", lambda *a, **k: nms.greedy_keep_cuda(*a, **k))
     # the launches that chip_smoke times apart: timed here, never compared
     monkeypatch.setattr(nms, "nms_mask_cuda", lambda sboxes, thresh, offset=0.0: sboxes)
@@ -140,14 +142,20 @@ def rehearsal(monkeypatch, tmp_path):
 def test_kernel_phases_k3_and_function(rehearsal, capsys):
     feats = cs.level_features(rehearsal, c=16)
     k3 = cs.phase_roi_align_bwd(rehearsal, feats)
-    assert [c["case"] for c in k3] == ["P7 R512", "P14 R128"]
-    assert all(c["max_abs_err"] == 0.0 and c["bound_by"] == "bytes" for c in k3)
+    assert [(c["case"], c["dtype"]) for c in k3] == [
+        ("P7 R512", "float32"), ("P7 R512", "bfloat16"), ("P14 R128", "float32"),
+        ("P14 R128", "bfloat16")]
+    assert all(c["max_abs_err"] == 0.0 and c["bound_ms"] > 0.0 for c in k3)
+    assert all(c["bound_by"] == "bytes" for c in k3[::2])  # fp32
     assert all(c["fill_ms"] >= 0.0 and c["kernel_ms"] >= 0.0 for c in k3)
+    bf16 = [c for c in k3 if c["dtype"] == "bfloat16"]
+    assert all(c["cast_ms"] >= 0.0 and c["fp32_kernel_bf16_steps"] == 0 for c in bf16)
     out = capsys.readouterr().out
     for kind in cs.K3_STRESS:
         for p in (7, 14):
             assert f"[K3 stress: {kind}, P={p} R=128] levels" in out
-    assert "(fill " in out and " + kernel " in out
+            assert f"[K3 bf16 stress: {kind}, P={p} R=128] max |diff| 0.000e+00" in out
+    assert "(fill " in out and " + kernel " in out and " + cast to bf16 " in out
     cs.phase_function(rehearsal, feats)
     assert "[function]" in capsys.readouterr().out
 
@@ -156,10 +164,15 @@ def test_kernel_phase_k2_cases_stress_and_rerun(rehearsal, capsys):
     feats = cs.level_features(rehearsal, c=16)
     before = ra.multilevel_roi_align_cuda.launches
     k2 = cs.phase_roi_align(rehearsal, feats)
-    assert [c["case"] for c in k2] == ["P7 R300", "P14 R100", "P7 R512", "P14 R128"]
-    assert [c["path"] for c in k2] == ["predict", "predict", "train", "train"]
+    assert [c["case"] for c in k2[::2]] == ["P7 R300", "P14 R100", "P7 R512", "P14 R128"]
+    assert [c["path"] for c in k2[::2]] == ["predict", "predict", "train", "train"]
+    assert [c["case"] for c in k2[1::2]] == [c["case"] for c in k2[::2]]
+    assert {c["dtype"] for c in k2[::2]} == {"float32"}
+    assert {c["dtype"] for c in k2[1::2]} == {"bfloat16"}
     for c in k2:
-        assert c["max_abs_err"] == 0.0 and c["bound_by"] == "bytes"
+        # at these small shapes the bf16 bytes fall below the operations
+        assert c["max_abs_err"] == 0.0 and c["bound_by"] in ("bytes", "operations")
+        assert c["bound_by"] == "bytes" or c["dtype"] == "bfloat16"
         assert c["ms"] >= 0.0 and c["plain_ms"] >= 0.0
         assert "cells_read_mb" not in c  # a count from the inputs: logged, not reported
     out = capsys.readouterr().out
@@ -172,11 +185,23 @@ def test_kernel_phase_k2_cases_stress_and_rerun(rehearsal, capsys):
     for s in (1, 3):
         for p in (7, 14):
             assert f"[K2 S={s}, P={p} R=128] levels" in out
-    assert out.count("two runs bitwise equal: True") == 4 * 2 + len(cs.K3_STRESS) * 2 + 4
+    # every check of the fp32 and of the bf16 instance, and the bf16 ones at
+    # the 32- and 8-channel slices
+    checks = 4 * 2 + len(cs.K3_STRESS) * 2 + 4
+    assert out.count("two runs bitwise equal: True") == 2 * checks + 4
+    for _, p, r in cs.ROI_CASES:
+        for span in ((28.0, 36.0), (28.0, 44.0)):
+            assert (f"[K2 bf16 P={p} R={r} span={span}] max |diff| 0.000e+00 from the bf16 "
+                    "plain version") in out
+    for c_n in (32, 24):
+        for p in (7, 14):
+            assert f"[K2 bf16 C={c_n}, P={p} R=64]" in out
+    assert out.count("0 bf16 steps at most (limit 1), 0 of") == checks + 4
     assert "per-RoI distinct cells, from the inputs" in out
     assert "distinct over the batch" in out
-    # each check runs the kernel twice; the timing adds its own calls
-    assert ra.multilevel_roi_align_cuda.launches - before >= 2 * (4 * 2 + 10 + 4)
+    # each check runs the kernel twice (bf16: three times, with the fp32
+    # kernel on the upcast features); the timing adds its own calls
+    assert ra.multilevel_roi_align_cuda.launches - before >= 2 * checks + 3 * (checks + 4)
 
 
 def test_kernel_phase_k1_cases_and_split(rehearsal, capsys):
@@ -217,17 +242,64 @@ def test_k3_stress_rois_have_their_shape(kind):
 
 
 def test_train_phase_counts_launches_and_resumes_the_driver(rehearsal, capsys):
-    totals, times = cs.phase_train(warmup=1, steps=2)
+    totals, times, summary = cs.phase_train(warmup=1, steps=2)
     assert totals == {"greedy_nms": 2, "multilevel_roi_align": 4,
                       "multilevel_roi_align_bwd": 4}
-    assert len(times) == 2
+    assert len(times) == 2 and summary["step_ms"] == times
     out = capsys.readouterr().out
-    assert "0 unchanged" in out and "0 changed" in out
+    assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
     stages = out.split("[train stages]")[1].splitlines()[0]
     for stage in ("anchors+draws", "backbone+fpn", "proposals (K1)", "mask: targets",
                   "backward", "optimizer"):
         assert stage in stages
     assert "restored checkpoint at step" in out and "[driver] resumed" in out
+    assert "[layout train float32] channels-last" in out
+    assert summary["channels_last_ms"] > 0 and summary["nchw_ms"] > 0
+
+
+def test_train_phase_in_bf16(rehearsal, capsys):
+    """The bf16 step: K2 and K3 handed bf16, K1 float32 boxes, every
+    parameter and gradient float32; no driver run."""
+    totals, times, summary = cs.phase_train(warmup=1, steps=1, dtype="bfloat16")
+    assert totals == {"greedy_nms": 1, "multilevel_roi_align": 2,
+                      "multilevel_roi_align_bwd": 2}
+    out = capsys.readouterr().out
+    assert "[train bfloat16]" in out and "bfloat16 batch 2" in out
+    assert "convolutions channels-last" in out and "not float32: 0" in out
+    assert "[train bfloat16 stages]" in out and "[layout train bfloat16]" in out
+    assert "[driver]" not in out
+
+
+def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
+    """phase 5's checks and numbers, at float32 and bf16 (the sync debug
+    mode stubbed: the card's)."""
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+    for dtype in ("float32", "bfloat16"):
+        totals, times, summary = cs.phase_slice(calls=2, dtype=dtype)
+        assert totals == {"greedy_nms": 4, "multilevel_roi_align": 4}
+        assert set(summary) == {"call_ms", "issue_ms", "done_ms", "stages_ms",
+                                "channels_last_ms", "nchw_ms"}
+        assert "backbone+fpn" in summary["stages_ms"]
+    out = capsys.readouterr().out
+    assert "kernel input dtypes {'greedy_nms': ['float32'], 'multilevel_roi_align': " \
+           "['float32']}" in out
+    assert "kernel input dtypes {'greedy_nms': ['float32'], 'multilevel_roi_align': " \
+           "['bfloat16']}" in out
+    assert "[slice bfloat16]" in out and "[layout predict bfloat16]" in out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_device_phase(rehearsal, capsys, dtype):
+    """Both sides run on the CPU here: equal, within every limit."""
+    cs.phase_cross_device(dtype=dtype)
+    out = capsys.readouterr().out
+    if dtype == "float32":
+        assert "equal slots True; max |box diff| 0.000e+00" in out
+    else:
+        assert "the CPU's detections found on the card 1.000, the card's on the CPU 1.000" \
+            in out
+        for stage in ("levels", "objectness", "deltas", "box head", "mask logits"):
+            assert f"{stage} ['0.00e+00'" in out
 
 
 def test_cross_train_phase(rehearsal, capsys):
@@ -281,10 +353,11 @@ def test_in_memory_coco_split_has_cocos_interface():
 def test_eval_phase_runs_the_driver_and_its_oracle(rehearsal, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
     monkeypatch.setattr(cs, "EVAL_WARM_REPEAT", 1)
-    counts = cs.phase_eval()
+    counts, img_s = cs.phase_eval()
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
                       "multilevel_roi_align_bwd": 0}
+    assert img_s > 0
     out = capsys.readouterr().out
     assert "8 images in 5 batches" in out
     assert "[eval] oracle predictor: AP 1.000000, AP50 1.000000, segm_AP50 1.000000" in out
@@ -295,6 +368,23 @@ def test_eval_phase_runs_the_driver_and_its_oracle(rehearsal, monkeypatch, tmp_p
     assert "[K2 eval B=2 128x64 (transposed canvas) P=7 R=64" in out
     assert "[K2 eval B=2 128x64 (transposed canvas) P=14 R=20" in out
     assert not (tmp_path / "eval_smoke").exists()
+
+
+def test_eval_phase_in_bf16(rehearsal, monkeypatch, tmp_path, capsys):
+    """The bf16 eval loop: K1 and K2 twice a call, scores fetched as
+    float32, and the oracle's bf16 outputs (on the card there) at AP 1.0."""
+    monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
+    monkeypatch.setattr(cs, "EVAL_WARM_REPEAT", 1)
+    counts, img_s = cs.phase_eval(dtype="bfloat16")
+    assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
+                      "multilevel_roi_align_bwd": 0}
+    out = capsys.readouterr().out
+    assert "scores fetched as ['float32']" in out
+    assert "[eval bfloat16] oracle predictor: AP 1.000000, AP50 1.000000, " \
+           "segm_AP50 1.000000" in out
+    assert "[eval bfloat16 warm, 8 images, loader threads 8]" in out
+    assert "loader threads 1]" not in out and "[eval profile]" not in out
+    assert "[K2 bf16 eval B=2 128x64 (transposed canvas) P=14 R=20" in out
 
 
 class _Range:
@@ -345,14 +435,22 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
         "rpn.pre_nms_topk_test=256", "rpn.post_nms_topk_test=64",
         "rpn.pre_nms_topk_train=192", "rpn.post_nms_topk_train=48",
         "roi.batch_per_image=64", "test.detections_per_image=20"])
-    counts = cs.phase_bench()
+    counts, line16 = cs.phase_bench()  # the default: bf16
     # 3 predict calls (K1, K2 twice each), 3 train steps (K1 once, K2 and K3
     # twice): two warm-ups and one timed each
+    assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
+                      "multilevel_roi_align_bwd": 6}
+    assert ", bfloat16, cpu)" in line16["metric"]
+    out16 = capsys.readouterr().out
+    assert "[K2 bf16 bench B=2 128x128 P=7 R=64" in out16
+    assert "[K3 bf16 bench B=2 128x128 P=14 R=16" in out16
+    counts, _ = cs.phase_bench("float32")
     assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
                       "multilevel_roi_align_bwd": 6}
     out = capsys.readouterr().out
     line = next(json.loads(x) for x in out.splitlines() if x.startswith('{"metric"'))
     assert line["value"] > 0 and line["train_img_s_chip"] > 0
+    assert ", float32, cpu)" in line["metric"]
     # the shapes of the bench's config: 4 x 64 detection candidates, 64 / 20
     # RoIs at inference, 64 sampled RoIs of which 16 foreground in training
     assert "[K1 bench rpn] G=10 N=256 t=0.7 max_keep=64" in out

@@ -5,6 +5,8 @@ only in summation order). The CUDA kernel is held against the same plain
 path on the card by chip_smoke.py."""
 
 import functools
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,38 +151,48 @@ def test_roi_pool_raises():
 # it is checked here before the kernel runs.
 
 # Stagings the model runs, each as (stage cells, ring rows): the kernel's at
-# C = 256; one row of the widest fold (2*P*S cells) a chunk, so that every
-# RoI taller than a row streams; and a stage so large that the ring alone
+# C = 256, of its fp32 and its bf16 instance (bf16 cells are staged as they
+# are, so its 16 KB buffers hold twice the cells; the ring is fp32 in both);
+# one row of the widest fold (2*P*S cells) a chunk, so that every RoI
+# taller than a row streams; and a stage so large that the ring alone
 # limits a chunk (ring rows - 2*S + 1), so that bins straddle many chunks.
-K2_STAGES = ("kernel", "one row", "ring-bound")
+# The bf16 instance's arithmetic is the fp32 one's on the upcast features,
+# so one model holds both.
+K2_STAGES = ("kernel", "kernel bf16", "one row", "ring-bound")
 
 
-def k2_kernel_sizes(pool, ratio, channels=256):
-    """(stage cells, ring rows) of the kernel at C = ``channels``: the
-    slice pick_slice takes of 64, 32, 4 and fwd_stage_cells, fwd_ring_rows
-    and fwd_smem_bytes (within kFwdSmemLimit) of csrc/roi_align.cu."""
-    for width in (64, 32, 4):
+def k2_kernel_sizes(pool, ratio, channels=256, elem=4):
+    """(stage cells, ring rows) of the kernel at C = ``channels`` and
+    ``elem`` bytes a feature: the slice pick_slice takes of 64, 32, then 4
+    (fp32) or 8 (bf16), and fwd_stage_cells, fwd_ring_rows and
+    fwd_smem_bytes (within kFwdSmemLimit) of csrc/roi_align.cu."""
+    for width in (64, 32, 4 if elem == 4 else 8):
         rows = 1
         while rows < 4 * ratio:
             rows *= 2
         while 2 * rows * pool * width * 4 <= 16 * 1024:
             rows *= 2
-        cells = max(2 * pool * ratio, 16 * 1024 // (width * 4))
-        if channels % width == 0 and (rows * pool + 2 * cells) * width * 4 <= 64 * 1024:
+        cells = max(2 * pool * ratio, 16 * 1024 // (width * elem))
+        if channels % width == 0 and (rows * pool * 4 + 2 * cells * elem) * width <= 64 * 1024:
             return cells, rows
     raise AssertionError("no slice fits")
 
 
 def k2_staging(stage, pool, ratio):
     cells, rows = k2_kernel_sizes(pool, ratio)
-    return {"kernel": cells, "one row": 2 * pool * ratio, "ring-bound": 4096}[stage], rows
+    return {"kernel": cells, "kernel bf16": k2_kernel_sizes(pool, ratio, elem=2)[0],
+            "one row": 2 * pool * ratio, "ring-bound": 4096}[stage], rows
 
 
 def test_k2_kernel_sizes_at_the_model_ratio():
     """At S = 2, C = 256 the kernel stages 64 cells of a 64-channel slice
-    (16 KB) and keeps a ring of 8 rows, at P = 7 and 14."""
+    (16 KB) and keeps a ring of 8 rows, at P = 7 and 14; its bf16 instance
+    128 cells (16 KB of bf16) with the same ring."""
     assert k2_kernel_sizes(7, 2) == (64, 8) and k2_kernel_sizes(14, 2) == (64, 8)
     assert k2_kernel_sizes(14, 3) == (128, 16)  # 32-channel slices: 64 would not fit
+    assert k2_kernel_sizes(7, 2, elem=2) == (128, 8)
+    assert k2_kernel_sizes(14, 2, elem=2) == (128, 8)
+    assert k2_kernel_sizes(14, 2, channels=24, elem=2) == (1024, 32)  # 8-channel slices
 
 
 def fold_axis_model(i0, i1, w0, w1, ratio):
@@ -348,3 +360,113 @@ def test_k2_model_matches_plain_and_jax_at_other_ratios(ratio, kind, pool, stage
     (S at run time, taps read from shared memory): its stage and ring
     sizes follow S."""
     check_k2_model(kind, pool, stage, ratio)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the plain version K2's bf16 instance is held to on the card, against
+# the JAX package's Pallas kernel on the same bf16 features.
+
+def bf16_steps(a, b):
+    """Elementwise distance between two bf16 tensors in bf16 steps."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("pool", [7, 14])
+@pytest.mark.parametrize("max_span", [(28.0, 44.0), (28.0, 36.0)])
+def test_bf16_plain_is_the_fp32_plain_rounded_once(pool, max_span):
+    """bf16 features: gathered as they are, summed in float32, the output
+    rounded to bf16 once, so bit for bit the float32 version on the upcast
+    features cast to bf16."""
+    feats = [torch.tensor(f).to(torch.bfloat16) for f in make_features(16)]
+    rois = torch.tensor(make_rois())
+    levels = tra.assign_fpn_levels(rois, 4, 2, max_span=max_span)
+    got = tra.multilevel_roi_align_plain(feats, rois, levels, STRIDES, pool)
+    want = tra.multilevel_roi_align_plain([f.float() for f in feats], rois, levels, STRIDES,
+                                          pool).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pool", [7, 14])
+def test_bf16_plain_matches_pallas_in_bf16(pool):
+    """Against ``multilevel_roi_align_pallas`` in interpret mode on the same
+    bf16 features (C=128 takes its kernel path; it reads bf16, sums in
+    float32 and writes bf16): every value within one bf16 step of the
+    Pallas output (at most 2^-7 x |value|) plus the float32 tolerance
+    (TOL): the two float32 sums differ in their order, and where they fall
+    on either side of a rounding boundary the bf16 values are one step
+    apart (measured: 37 of 100352 values at P=7, 147 of 401408 at P=14;
+    more steps only near zero, within 4e-6). Half a step (2^-8 x |value|)
+    would not hold at those boundaries. At least 99.9% bitwise equal."""
+    feats = [torch.tensor(f).to(torch.bfloat16)
+             for f in make_features(128, base=(64, 64), b=1, seed=3)]
+    rois = make_rois(b=1, r=16, canvas=(256, 256), seed=4)
+    want = multilevel_roi_align_pallas(
+        [jnp.asarray(f.float().numpy()).astype(jnp.bfloat16) for f in feats],
+        jnp.asarray(rois), STRIDES, output_size=pool, interpret=True)
+    assert want.dtype == jnp.bfloat16
+    want = torch.tensor(np.asarray(want).astype(np.float32)).to(torch.bfloat16)
+    levels = tra.assign_fpn_levels(torch.tensor(rois), 4, 2, max_span=tra.DEFAULT_MAX_SPAN)
+    got = tra.multilevel_roi_align_plain(feats, torch.tensor(rois), levels, STRIDES, pool)
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 2.0 ** -7 * want.float().abs() + TOL).all()), float(d.max())
+    assert float((got == want).float().mean()) >= 0.999
+    assert int(bf16_steps(got, want)[d > TOL].max()) <= 1
+
+
+# ---------------------------------------------------------------------------
+# What the kernels take, checked when a detector is built on the card.
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+
+
+@pytest.mark.parametrize("override,dtype,key", [
+    ("model.fpn_channels=30", torch.float32, "model.fpn_channels=30"),
+    ("model.fpn_channels=36", torch.bfloat16, "model.fpn_channels=36"),
+    ("roi.pool_size=33", torch.float32, "roi.pool_size=33"),
+    ("roi.mask_pool_size=40", torch.bfloat16, "roi.mask_pool_size=40"),
+    ("roi.sampling_ratio=5", torch.float32, "roi.mask_pool_size=14 x roi.sampling_ratio=5"),
+])
+def test_contract_check_names_the_limit_and_key(override, dtype, key):
+    cfg = get_config(None, ["model.name=mask_rcnn", override])
+    with pytest.raises(ValueError, match=re.escape(key)):
+        tra.check_roi_align_contract(cfg, dtype)
+
+
+def test_contract_check_passes_what_the_kernels_take():
+    cfg = get_config(None, ["model.name=mask_rcnn", "model.fpn_channels=36"])
+    tra.check_roi_align_contract(cfg, torch.float32)  # a multiple of 4
+    faster = get_config(None, ["model.name=faster_rcnn", "roi.mask_pool_size=40"])
+    tra.check_roi_align_contract(faster, torch.bfloat16)  # no mask head
+    with pytest.raises(ValueError, match="9 pooled FPN levels"):
+        tra.check_roi_align_contract(cfg, torch.float32, num_levels=9)
+    with pytest.raises(ValueError, match="model.dtype"):
+        tra.check_roi_align_contract(cfg, torch.float16)
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(CONFIGS)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contract_holds_for_every_config_the_port_builds(name, dtype):
+    """Every config whose model the port builds (Faster and Mask R-CNN)
+    passes the check in both dtypes; the others name their model."""
+    cfg = get_config(os.path.join(CONFIGS, name), [f"model.dtype={dtype}"])
+    if cfg.model.name not in ("faster_rcnn", "mask_rcnn"):
+        assert cfg.model.name in ("retinanet", "rfcn")
+        return
+    tra.check_roi_align_contract(cfg, getattr(torch, dtype))
+
+
+def test_detector_on_the_card_checks_the_contract(monkeypatch):
+    """A CUDA detector refuses, when it is built, a config the kernels do
+    not take (here faked: no card is asked for anything else)."""
+    from detectron_tpu_torch.models import zoo
+
+    monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cuda"))
+    cfg = get_config(None, ["model.name=mask_rcnn", "model.dtype=bfloat16",
+                            "model.fpn_channels=36"])
+    with pytest.raises(ValueError, match="model.fpn_channels=36"):
+        zoo.build_detector(cfg)
