@@ -9,11 +9,13 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
 2. build: compiles the hand-written kernels (csrc/*.cu) with nvcc, and the
    RLE codec (native/rle.cpp) with g++;
 3. K1 (greedy NMS) against its plain PyTorch version on the card, at the
-   inference (G=10, N=1000; G=2, N=1200) and training (G=10, N=2000)
-   shapes, with and without the main path's max_keep = min(max_out, N),
-   and at edge cases (N=65, N=4096, odd W, max_keep=1, max_keep above the
-   kept count, an all-invalid problem): keep masks and (idx, valid) must
-   be equal; the mask and scan launches are timed apart;
+   inference (G=10, N=1000; G=2, N=1200), training (G=10, N=2000) and
+   RetinaNet (G=2, N=5000 and 2000, 81 classes shifted apart) shapes, with
+   and without the main path's max_keep = min(max_out, N), and at edge
+   cases (N=65, N=4096, N=8192 = the limit, odd W below and above 64,
+   max_keep=1 at N=700 and 5000, max_keep above the kept count, an
+   all-invalid problem): keep masks and (idx, valid) must be equal; N=8193
+   must be refused; the mask and scan launches are timed apart;
 4. K2 (multilevel RoIAlign) against its plain version on the card, at the
    1024x1344 P2-P5 shapes, C=256, inference (R=300, P=7; R=100, P=14) and
    training (R=512, P=7; R=128, P=14) RoI counts with both routing spans,
@@ -93,6 +95,36 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     batches; then K1, K2 and K3 against their plain versions at the bench's
     shapes (batch 48: 240 RPN problems of 1000 boxes, 48 of 1200; 14400 and
     4800 RoIs; batch 16 for training), K2 and K3 in the run's dtype.
+
+13. RetinaNet predict: R-50-FPN (configs/retinanet_r50_fpn_coco.yaml) at
+    full width, 1024x1344, batch 2, 81 classes, seeded weights with the
+    cls_score bias raised for five classes (at the prior's bias no logit
+    passes the threshold), float32 then bf16: predict_fn three times, K1
+    once a call on float32 boxes, N = 5 x retinanet.pre_nms_topk = 5000 a
+    problem; detections non-empty, scores in [0, 1]; one call under the
+    sync debug mode; the stage breakdown (backbone+FPN, head, per-level
+    top-k + decode, NMS); a profiled call;
+14. cross-device RetinaNet at 256x256 and 160x224 (odd levels), small
+    widths, card against CPU with the same weights: levels and head
+    outputs within CROSS_F32 (bf16: CROSS_BF16) of their magnitude; the
+    post-process on the same head outputs: equal valid slots and classes,
+    boxes within 1e-3; end to end, the detections' match rate logged;
+15. RetinaNet train: R-50-FPN, 1024x1344, batch 2, train.grad_clip_norm=1.0
+    (without it SGD from random weights reaches NaN at step 2), float32
+    then bf16, 2 warm-up steps and 3: losses finite, no kernel launched, frozen
+    parameters unchanged, trainable ones changed, parameters and gradients
+    float32, ms a step, peak memory, the stage breakdown; in float32 then
+    the train driver for 2 steps;
+16. RetinaNet eval: phase 11's in-memory COCO split, float32 then bf16:
+    every image once, K1 once a predict call, box metrics finite or null
+    (no segm), a warm run's images/s, the oracle's box AP 1.0;
+17. RetinaNet bench: python -m detectron_tpu_torch.bench --model retinanet
+    at 1024x1024, batch 8 for inference and training, --iters 3
+    --train-iters 2, --set train.grad_clip_norm=1.0, bf16 then float32:
+    the JSON line, K1 once a predict call; then K1 against its plain
+    version at the bench's shape (G=8, N=5000), timed;
+18. demo: python -m detectron_tpu_torch.demo --no-restore with RetinaNet's
+    config writes its two synthetic images.
 
 It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
 of per-kernel results (float32 at top level; the bf16 cases in ``cases``
@@ -237,8 +269,10 @@ def nms_problems(rng, g, n, canvas, n_invalid, classes=0):
 
 
 # the main path's NMS calls: RPN per (image, level) at inference and in
-# training (pre_nms_topk 1000 / 2000, post 300 / 1000), and the class-shifted
-# detection candidates per image (1200 candidates, 100 detections)
+# training (pre_nms_topk 1000 / 2000, post 300 / 1000), the class-shifted
+# detection candidates per image (1200 candidates, 100 detections), and
+# RetinaNet's merged candidates per image (5 levels x retinanet.pre_nms_topk
+# 1000, and the 2000 that configs/retinanet_fast.yaml keeps; 100 detections)
 NMS_CASES = (
     dict(name="rpn", g=10, n=1000, thresh=0.7, max_out=300, n_invalid=120, classes=0,
          path="predict"),
@@ -246,14 +280,24 @@ NMS_CASES = (
          path="predict"),
     dict(name="rpn_train", g=10, n=2000, thresh=0.7, max_out=1000, n_invalid=200,
          classes=0, path="train"),
+    dict(name="retinanet", g=2, n=5000, thresh=0.5, max_out=100, n_invalid=1000,
+         classes=81, path="retinanet predict"),
+    dict(name="retinanet_fast", g=2, n=2000, thresh=0.5, max_out=100, n_invalid=400,
+         classes=81, path="retinanet predict (fast)"),
 )
+NMS_LIMIT = 8192  # the most boxes a K1 problem takes (csrc/nms.cu, kMaxWords x 64)
 # edge cases, each held exactly against the plain version; max_keep "above"
 # is one more than the largest kept count of the problems
 NMS_EDGE_CASES = (
     dict(name="N=65", g=3, n=65, thresh=0.5, n_invalid=5, max_keep=None),
-    dict(name="N=4096 (the limit)", g=2, n=4096, thresh=0.7, n_invalid=96, max_keep=None),
+    dict(name="N=4096 (W=64)", g=2, n=4096, thresh=0.7, n_invalid=96, max_keep=None),
+    dict(name=f"N={NMS_LIMIT} (the limit)", g=2, n=NMS_LIMIT, thresh=0.5, n_invalid=192,
+         max_keep=None),
     dict(name="N=1200 (odd W)", g=3, n=1200, thresh=0.6, n_invalid=0, max_keep=None),
+    dict(name="N=4500 (odd W above 64)", g=2, n=4500, thresh=0.5, n_invalid=0,
+         max_keep=None),
     dict(name="max_keep=1", g=4, n=700, thresh=0.5, n_invalid=50, max_keep=1),
+    dict(name="max_keep=1, N=5000", g=2, n=5000, thresh=0.5, n_invalid=1000, max_keep=1),
     dict(name="max_keep above the kept count", g=4, n=700, thresh=0.5, n_invalid=50,
          max_keep="above"),
     dict(name="all invalid", g=2, n=300, thresh=0.5, n_invalid=300, max_keep=None),
@@ -285,54 +329,67 @@ def check_keep(name, sboxes, svalid, thresh, max_keep):
 
 
 def phase_nms(rng):
+    results = [nms_case(rng, case) for case in NMS_CASES]
+    nms_edge_cases(rng)
+    check_nms_limit()
+    return results
+
+
+def nms_case(rng, case, size=(1024, 1344)):
+    """One of NMS_CASES' shapes on a ``size`` canvas: K1 against its plain
+    version with and without max_keep, ``(idx, valid)`` against the CPU
+    path, the kernel timed whole and as its two launches, the plain version
+    timed, the bound from this run's data. Returns the case's result."""
     from detectron_tpu_torch.ops import nms
 
     dev = torch.device(DEVICE)
-    results = []
-    for case in NMS_CASES:
-        boxes, scores, valid, cls = nms_problems(
-            rng, case["g"], case["n"], (1024, 1344), case["n_invalid"], case["classes"])
-        tb, ts, tv = (torch.tensor(x, device=dev) for x in (boxes, scores, valid))
-        if cls is not None:
-            tc = torch.tensor(cls, device=dev)
-            span = tb.amax(dim=(1, 2)) - tb.amin(dim=(1, 2)) + 1.0
-            tb = tb + (tc.to(tb.dtype) * span[:, None])[..., None]
-        sboxes, svalid = sorted_problems(tb, ts, tv)
-        g, n, thresh = case["g"], case["n"], case["thresh"]
-        m = min(case["max_out"], n)  # what nms_padded_batched passes
-        full = check_keep(case["name"], sboxes, svalid, thresh, None)
-        keep_k = check_keep(case["name"], sboxes, svalid, thresh, m)
-        idx_g, ok_g = nms.nms_padded_batched(tb, ts, tv, thresh, case["max_out"])
-        idx_c, ok_c = nms.nms_padded_batched(tb.cpu(), ts.cpu(), tv.cpu(), thresh,
-                                             case["max_out"])
-        if not (torch.equal(idx_g.cpu(), idx_c) and torch.equal(ok_g.cpu(), ok_c)):
-            raise AssertionError(f"K1 {case['name']}: (idx, valid) differ from the "
-                                 "CPU plain path")
-        ms = cuda_ms(lambda: nms.greedy_keep_cuda(sboxes, svalid, thresh, max_keep=m))
-        mask = nms.nms_mask_cuda(sboxes, thresh)
-        mask_ms = cuda_ms(lambda: nms.nms_mask_cuda(sboxes, thresh))
-        scan_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid, m))
-        scan_full_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid))
-        plain_ms = cuda_ms(lambda: nms.greedy_keep_plain(sboxes, svalid, thresh, max_keep=m),
-                           iters=3, warmup=1)
-        # work this run's data needs: each kept box against every later valid
-        # box, up to the m-th kept box where the walk stops
-        pos = torch.arange(n, device=dev)[None, :]
-        n_valid = svalid.sum(1, keepdim=True)
-        last = torch.where(keep_k, pos, torch.full_like(pos, -1)).amax(1, keepdim=True)
-        stop = torch.where(keep_k.sum(1, keepdim=True) >= m, last, torch.full_like(last, n - 1))
-        upto = torch.minimum(n_valid, stop + 1)
-        pairs = int(torch.where(keep_k, upto - 1 - pos, torch.zeros_like(pos)).sum())
-        b_ms, b_by = bound_ms(nbytes=g * n * (16 + 1 + 1), ops=pairs * 16)
-        log(f"[K1 {case['name']}] G={g} N={n} t={thresh} max_keep={m}: keep masks equal "
-            f"with and without max_keep ({int(keep_k.sum())} of {int(full.sum())} kept), "
-            f"(idx, valid) equal to the CPU path; kernel {ms:.4f} ms (mask {mask_ms:.4f} + "
-            f"scan {scan_ms:.4f}; scan without max_keep {scan_full_ms:.4f}), plain "
-            f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
-        results.append(dict(case=case["name"], path=case["path"], dtype="float32",
-                            max_keep=m, ms=ms,
-                            mask_ms=mask_ms, scan_ms=scan_ms, scan_full_ms=scan_full_ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    boxes, scores, valid, cls = nms_problems(
+        rng, case["g"], case["n"], size, case["n_invalid"], case["classes"])
+    tb, ts, tv = (torch.tensor(x, device=dev) for x in (boxes, scores, valid))
+    if cls is not None:
+        tc = torch.tensor(cls, device=dev)
+        span = tb.amax(dim=(1, 2)) - tb.amin(dim=(1, 2)) + 1.0
+        tb = tb + (tc.to(tb.dtype) * span[:, None])[..., None]
+    sboxes, svalid = sorted_problems(tb, ts, tv)
+    g, n, thresh = case["g"], case["n"], case["thresh"]
+    m = min(case["max_out"], n)  # what nms_padded_batched passes
+    full = check_keep(case["name"], sboxes, svalid, thresh, None)
+    keep_k = check_keep(case["name"], sboxes, svalid, thresh, m)
+    idx_g, ok_g = nms.nms_padded_batched(tb, ts, tv, thresh, case["max_out"])
+    idx_c, ok_c = nms.nms_padded_batched(tb.cpu(), ts.cpu(), tv.cpu(), thresh,
+                                         case["max_out"])
+    if not (torch.equal(idx_g.cpu(), idx_c) and torch.equal(ok_g.cpu(), ok_c)):
+        raise AssertionError(f"K1 {case['name']}: (idx, valid) differ from the "
+                             "CPU plain path")
+    ms = cuda_ms(lambda: nms.greedy_keep_cuda(sboxes, svalid, thresh, max_keep=m))
+    mask = nms.nms_mask_cuda(sboxes, thresh)
+    mask_ms = cuda_ms(lambda: nms.nms_mask_cuda(sboxes, thresh))
+    scan_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid, m))
+    scan_full_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid))
+    plain_ms = cuda_ms(lambda: nms.greedy_keep_plain(sboxes, svalid, thresh, max_keep=m),
+                       iters=3, warmup=1)
+    # work this run's data needs: each kept box against every later valid
+    # box, up to the m-th kept box where the walk stops
+    pos = torch.arange(n, device=dev)[None, :]
+    n_valid = svalid.sum(1, keepdim=True)
+    last = torch.where(keep_k, pos, torch.full_like(pos, -1)).amax(1, keepdim=True)
+    stop = torch.where(keep_k.sum(1, keepdim=True) >= m, last, torch.full_like(last, n - 1))
+    upto = torch.minimum(n_valid, stop + 1)
+    pairs = int(torch.where(keep_k, upto - 1 - pos, torch.zeros_like(pos)).sum())
+    b_ms, b_by = bound_ms(nbytes=g * n * (16 + 1 + 1), ops=pairs * 16)
+    log(f"[K1 {case['name']}] G={g} N={n} t={thresh} max_keep={m}: keep masks equal "
+        f"with and without max_keep ({int(keep_k.sum())} of {int(full.sum())} kept), "
+        f"(idx, valid) equal to the CPU path; kernel {ms:.4f} ms (mask {mask_ms:.4f} + "
+        f"scan {scan_ms:.4f}; scan without max_keep {scan_full_ms:.4f}), plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return dict(case=case["name"], path=case["path"], dtype="float32", max_keep=m, ms=ms,
+                mask_ms=mask_ms, scan_ms=scan_ms, scan_full_ms=scan_full_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def nms_edge_cases(rng):
+    """NMS_EDGE_CASES, each exactly against the plain version."""
+    dev = torch.device(DEVICE)
     for case in NMS_EDGE_CASES:
         boxes, scores, valid, _ = nms_problems(rng, case["g"], case["n"], (1024, 1344),
                                                case["n_invalid"])
@@ -346,7 +403,26 @@ def phase_nms(rng):
             check_keep(case["name"], sboxes, svalid, case["thresh"], max_keep)
         log(f"[K1 edge] {case['name']}: G={case['g']} N={case['n']} max_keep={max_keep}, "
             f"{int(full.sum())} kept: keep masks equal")
-    return results
+
+
+def check_nms_limit():
+    """The kernel's limit is NMS_LIMIT boxes a problem, and one box more is
+    refused by the wrapper with a message that names the limit."""
+    from detectron_tpu_torch.ops import nms
+
+    limit = nms._nms_lib().nms_max_boxes()
+    if limit != NMS_LIMIT:
+        raise AssertionError(f"K1 takes {limit} boxes, want {NMS_LIMIT}")
+    boxes = torch.zeros(1, limit + 1, 4, device=DEVICE)
+    valid = torch.ones(1, limit + 1, dtype=torch.bool, device=DEVICE)
+    try:
+        nms.greedy_keep_cuda(boxes, valid, 0.5)
+    except ValueError as err:
+        if str(limit) not in str(err):
+            raise AssertionError(f"K1's refusal does not name its limit: {err}") from err
+        log(f"[K1 edge] N={limit + 1}: refused ({err})")
+        return
+    raise AssertionError(f"K1 took N={limit + 1}, past its limit")
 
 
 # ----------------------------------------------------------------- phase 4
@@ -629,13 +705,14 @@ def read_counts() -> dict:
 
 
 @contextlib.contextmanager
-def kernel_dtypes():
+def kernel_dtypes(shapes=None):
     """Records the dtypes each kernel wrapper is handed (K1: the boxes; K2:
     the features; K3: the upstream gradient) while the block runs: each
     wrapper is replaced, by name in its module, with a recorder that calls
     it. A wrapper counts its launches on the name it is bound to, so the
     recorder carries the count while the block runs and hands it back.
-    Yields ``{name: set of dtypes}``."""
+    Yields ``{name: set of dtypes}``; with ``shapes`` (a dict), K1's box
+    shapes are appended to ``shapes["greedy_nms"]`` call by call."""
     from detectron_tpu_torch.ops import nms, roi_align
 
     seen = {}
@@ -650,6 +727,8 @@ def kernel_dtypes():
 
         def recorder(*args, _fn=fn, _name=name, _dtype_of=dtype_of, **kwargs):
             seen.setdefault(_name, set()).add(str(_dtype_of(args)).replace("torch.", ""))
+            if shapes is not None and _name == "greedy_nms":
+                shapes.setdefault(_name, []).append(tuple(args[0].shape))
             return _fn(*args, **kwargs)
 
         recorder.launches = fn.launches
@@ -1360,9 +1439,10 @@ def train_breakdown(state, batch, repeats=3, tag="train"):
     return parts
 
 
-def phase_driver(state, config_path):
+def phase_driver(state, config_path, overrides=TRAIN_OVERRIDES):
     """The train driver as a user runs it, resuming (--restore) from a
-    checkpoint of ``state`` for 2 more steps on the card."""
+    checkpoint of ``state`` for 2 more steps on the card, with the config
+    at ``config_path`` and ``overrides``."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.train import checkpoint as ckpt
     from detectron_tpu_torch.train import driver
@@ -1370,7 +1450,7 @@ def phase_driver(state, config_path):
     out = TRAIN_OUT
     shutil.rmtree(out, ignore_errors=True)
     ckpt.save(out, state)
-    cfg = get_config(config_path, TRAIN_OVERRIDES + [
+    cfg = get_config(config_path, overrides + [
         f"train.max_steps={state.step + 2}", "train.log_every=1", f"output_dir={out}"])
     t0 = time.perf_counter()
     last = driver.run(cfg, restore=True)
@@ -1933,6 +2013,454 @@ def check_bench_shapes(args, seed=6):
     reset_counts()
 
 
+# ---------------------------------------------------------- phases 13-18: RetinaNet
+
+RETINA_R50 = os.path.join(REPO, "configs", "retinanet_r50_fpn_coco.yaml")
+RETINA_RAISED_BIAS = 0.0  # sigmoid 0.5: every raised class's top logits pass the threshold
+
+
+def raise_retina_bias(params, classes, value=RETINA_RAISED_BIAS):
+    """At the prior's bias (-4.6) no logit reaches retinanet.score_thresh:
+    raise ``classes`` (1-based) at every anchor, so that the merged NMS
+    sees thousands of valid candidates."""
+    bias = params["head.cls_score.bias"].clone()
+    k = bias.shape[0] // 9
+    view = bias.view(-1, k)
+    view[:, [c - 1 for c in classes]] = value
+    params["head.cls_score.bias"] = bias
+    return params
+
+
+def retina_params(det, images, seed, classes=RAISED_CLASSES):
+    """RetinaNet weights from ``Detector.init(seed)``, the frozen BatchNorm
+    statistics set from ``images`` (the bench's ``calibrate_frozen_bn``:
+    from identity statistics the random backbone's activations grow at
+    every residual add, the logits saturate every score at 1.0 and a box
+    coordinate's float32 rounding alone exceeds 1e-3), and ``classes``'
+    bias raised. A state dict of copies, on the detector's device."""
+    from detectron_tpu_torch.bench import calibrate_frozen_bn
+
+    det.module.load_state_dict(det.init(seed))
+    calibrate_frozen_bn(det.module, torch.as_tensor(images, device=det.device))
+    params = {k: v.clone() for k, v in det.module.state_dict().items()}
+    return raise_retina_bias(params, classes)
+
+
+def retina_stage_breakdown(det, batch, cfg, repeats=3):
+    """Device milliseconds of each stage of retinanet_eval_forward (median
+    of ``repeats`` after one warm-up), CUDA events between the stage calls;
+    returns them and the last repeat's candidates' validity."""
+    from detectron_tpu_torch.models import retinanet as rn
+
+    m = det.module
+    image_hw = batch["image_hw"]
+    anchors = m.anchors(batch["image"].shape[1:3], det.device)
+    names = ("backbone+fpn", "head", "per-level top-k + decode", "NMS (K1) + gather")
+    samples = {n: [] for n in names}
+    with torch.no_grad():
+        for _ in range(repeats + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            ev[0].record()
+            levels = m.features(batch["image"])
+            ev[1].record()
+            outputs = m.head_outputs(levels)
+            ev[2].record()
+            boxes, logits, classes = rn.retinanet_candidates(outputs, anchors, image_hw, cfg)
+            ev[3].record()
+            rn.retinanet_detections(boxes, logits, classes, cfg)
+            ev[4].record()
+            torch.cuda.synchronize()
+            for i, n in enumerate(names):
+                samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+    reset_counts()
+    parts = {n: float(np.median(v[1:])) for n, v in samples.items()}
+    total = sum(parts.values())
+    t = cfg.retinanet.score_thresh
+    n_valid = int((logits > float(np.log(t / (1.0 - t)))).sum())
+    log(f"[retinanet stages {cfg.model.dtype}] median of {repeats}, device ms (share of "
+        f"{total:.2f} ms): " + "; ".join(f"{n} {v:.3f} ({100 * v / total:.1f}%)"
+                                         for n, v in parts.items()))
+    return parts, n_valid, tuple(logits.shape)
+
+
+def phase_retinanet(seed=0, calls=3, dtype="float32"):
+    """RetinaNet R-50-FPN predict_fn at full width in ``dtype``, on
+    :func:`retina_params` weights: ``calls`` calls, each launching K1 once
+    on float32 boxes, N = 5 x
+    retinanet.pre_nms_topk a problem, one problem an image; detections
+    non-empty, scores in [0, 1]; one more call under the sync debug mode;
+    the stage breakdown; a profiled call. Returns (launches over the
+    calls, ms a call, a summary)."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+
+    cfg = get_config(RETINA_R50, [f"model.dtype={dtype}"])
+    det = build_detector(cfg)
+    batch = slice_inputs(cfg, seed, det.device)
+    params = retina_params(det, batch["image"], seed)
+    b = batch["image"].shape[0]
+    n_want = 5 * cfg.retinanet.pre_nms_topk
+    tag = f"retinanet {dtype}"
+    log(f"[{tag}] {cfg.model.name} {cfg.model.backbone} FPN {cfg.model.fpn_channels} classes "
+        f"{cfg.model.num_classes} canvas {tuple(cfg.data.image_size)} batch {b}, "
+        f"pre_nms_topk {cfg.retinanet.pre_nms_topk} a level, frozen BN calibrated, raised "
+        f"classes {RAISED_CLASSES} (cls_score bias {RETINA_RAISED_BIAS}), convolutions "
+        f"{'channels-last' if det.module.memory_format == torch.channels_last else 'NCHW'}")
+    totals = dict.fromkeys(counted_wrappers(), 0)
+    times = []
+    for call in range(calls):
+        torch.cuda.synchronize()
+        reset_counts()
+        shapes = {}
+        t0 = time.perf_counter()
+        with kernel_dtypes(shapes) as seen:
+            dets, masks = det.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, K1 boxes "
+            f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
+        if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0}:
+            raise AssertionError(f"RetinaNet predict_fn call {call}: launches {counts}, want "
+                                 "K1 once, K2 and K3 never")
+        if shapes != {"greedy_nms": [(b, n_want, 4)]} or seen != {"greedy_nms": {"float32"}}:
+            raise AssertionError(f"RetinaNet predict_fn call {call}: K1 handed {shapes} "
+                                 f"{seen}, want float32 boxes ({b}, {n_want}, 4)")
+        for name, n in counts.items():
+            totals[name] += n
+    issue_ms, done_ms = check_no_host_sync(lambda: det.predict_fn(params, batch),
+                                           "RetinaNet predict_fn", tag)
+    det.module.load_state_dict(params)
+    parts, n_valid, cand_shape = retina_stage_breakdown(det, batch, cfg)
+    n_dets = int(dets.valid.sum())
+    log(f"[{tag}] merged candidates {cand_shape}, {n_valid} above the score threshold; "
+        f"detections valid {n_dets}, classes {sorted(set(dets.classes[dets.valid].tolist()))}")
+    if masks is not None or not (n_valid > 0 and n_dets > 0):
+        raise AssertionError("RetinaNet: masks returned, or no candidate or detection")
+    if tuple(dets.boxes.shape) != (b, cfg.test.detections_per_image, 4):
+        raise AssertionError(f"RetinaNet detections shape {tuple(dets.boxes.shape)}")
+    if (dets.boxes.dtype, dets.scores.dtype) != (torch.float32, det.dtype):
+        raise AssertionError(f"RetinaNet output dtypes {dets.boxes.dtype} {dets.scores.dtype}")
+    scores = dets.scores[dets.valid].float()
+    if not (bool(torch.isfinite(dets.boxes).all()) and float(scores.min()) >= 0.0
+            and float(scores.max()) <= 1.0):
+        raise AssertionError("RetinaNet: non-finite boxes or scores outside [0, 1]")
+    log(f"[{tag}] per-call ms {[round(t, 3) for t in times]}; scores in "
+        f"[{float(scores.min()):.4f}, {float(scores.max()):.4f}]; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_call(lambda: det.predict_fn(params, batch), f"one RetinaNet predict_fn, {dtype}")
+    return totals, times, dict(call_ms=times, issue_ms=issue_ms, done_ms=done_ms,
+                               stages_ms=parts, candidates_valid=n_valid)
+
+
+# the canvases of phase 14: every level even, and odd levels (C5 5x7, P6 3x4)
+RETINA_CROSS_CANVASES = ((256, 256), (160, 224))
+# phase 14's limit on the float32 levels and head outputs, card against CPU,
+# as a share of the output's magnitude: 30x under the bf16 limit, and room
+# for cuDNN's float32 engines (FFT, Winograd), which sum otherwise than the
+# CPU's direct convolution
+CROSS_F32 = 1e-3
+
+
+def phase_cross_retinanet(seed=3, dtype="float32"):
+    """RetinaNet at small widths on the card and on the CPU (K1's plain
+    version) with the same weights, at each of RETINA_CROSS_CANVASES: the
+    FPN levels and head outputs within CROSS_F32 (bf16: CROSS_BF16) of
+    their magnitude; the post-process on the same head outputs (the
+    card's) on both devices: equal valid slots and classes, boxes within
+    1e-3; predict_fn end to end on both, K1 launched once on the card, the
+    share of the CPU's detections found on the card logged. (End to end the
+    detections are not compared slot for slot: the raised classes' scores
+    crowd into a narrow band, 0.82-0.87 at full width, and the card's and
+    the CPU's float32 sums reorder near-ties there.) The frozen BatchNorm
+    keeps the identity statistics of ``Detector.init``, as in phase 6: set
+    from the batch (:func:`retina_params`), it subtracts means much larger
+    than the spread, and bf16 against float32 on the CPU alone then reads
+    40-70% of a level's magnitude, against 1.4-1.8% with identity
+    statistics."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models import retinanet as rn
+    from detectron_tpu_torch.models.zoo import build_detector
+
+    limit = CROSS_F32 if dtype == "float32" else CROSS_BF16
+    tag = "cross retinanet" if dtype == "float32" else f"cross retinanet {dtype}"
+    for canvas in RETINA_CROSS_CANVASES:
+        cfg = get_config(None, [
+            "model.name=retinanet", "model.num_classes=5", "model.fpn_channels=32",
+            f"data.image_size=[{canvas[0]}, {canvas[1]}]", "retinanet.pre_nms_topk=200",
+            "test.detections_per_image=20", f"model.dtype={dtype}"])
+        gpu, cpu = build_detector(cfg), build_detector(cfg, device="cpu")
+        batch = slice_inputs(cfg, seed, "cpu")
+        params = raise_retina_bias(cpu.init(seed), (1, 3))
+        reset_counts()
+        dets_g, _ = gpu.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        dets_c, _ = cpu.predict_fn(params, batch)
+        reset_counts()
+        if counts["greedy_nms"] != 1 or int(dets_c.valid.sum()) == 0:
+            raise AssertionError(f"cross-device RetinaNet {canvas}: launches {counts}, "
+                                 f"{int(dets_c.valid.sum())} detections on the CPU")
+        outs = {}
+        for name, det in (("card", gpu), ("cpu", cpu)):
+            det.module.load_state_dict(params)
+            with torch.no_grad():
+                levels = det.module.features(batch["image"].to(det.device))
+                heads = det.module.head_outputs(levels)
+            outs[name] = {"levels": levels, "class logits": [h[0] for h in heads],
+                          "deltas": [h[1] for h in heads]}
+        rel = {k: [float((g.cpu().float() - c.float()).abs().max() / c.float().abs().max())
+                   for g, c in zip(outs["card"][k], outs["cpu"][k])] for k in outs["cpu"]}
+        worst = max(max(v) for v in rel.values())
+        # the post-process on the card's head outputs, on the card and on the CPU
+        heads_g = list(zip(outs["card"]["class logits"], outs["card"]["deltas"]))
+        with torch.no_grad():
+            reset_counts()
+            post_g = rn.retinanet_inference(heads_g, gpu.module.anchors(canvas, gpu.device),
+                                            batch["image_hw"].to(gpu.device), cfg)
+            torch.cuda.synchronize()
+            post_counts = read_counts()
+            post_c = rn.retinanet_inference([(c.cpu(), b.cpu()) for c, b in heads_g],
+                                            cpu.module.anchors(canvas, "cpu"),
+                                            batch["image_hw"], cfg)
+        reset_counts()
+        same_slots = (torch.equal(post_g.valid.cpu(), post_c.valid)
+                      and torch.equal(post_g.classes.cpu(), post_c.classes))
+        box_diff = float((post_g.boxes.cpu() - post_c.boxes).abs().max())
+        log(f"[{tag}] {canvas[0]}x{canvas[1]} FPN 32: launches on the card {counts}; max "
+            f"|card - CPU| / max |CPU| (limit {limit:.0e}): "
+            + "; ".join(f"{k} {[f'{r:.2e}' for r in v]}" for k, v in rel.items())
+            + f"; post-process on the same head outputs (K1 launches {post_counts}): valid "
+            f"{int(post_c.valid.sum())}, equal slots and classes {same_slots}, max |box diff| "
+            f"{box_diff:.3e}; end to end the CPU's detections found on the card "
+            f"{match_rate(dets_c, dets_g):.3f}, the card's on the CPU "
+            f"{match_rate(dets_g, dets_c):.3f}")
+        if not (outs["card"]["levels"][0].dtype == getattr(torch, dtype) and worst <= limit):
+            raise AssertionError(f"cross-device RetinaNet {dtype} {canvas}: card and CPU "
+                                 f"differ by {worst:.3e} of an output's magnitude")
+        if not (same_slots and box_diff <= 1e-3 and post_counts["greedy_nms"] == 1
+                and int(post_c.valid.sum()) > 0):
+            raise AssertionError(f"cross-device RetinaNet {dtype} {canvas}: the post-process "
+                                 "on the same head outputs disagrees between card and CPU")
+
+
+# From random weights (frozen BN calibrated) RetinaNet's focal loss over every
+# anchor and class drives SGD at train.base_lr=0.0025 to NaN: at step 2 at
+# 1024x1344 on the card, at step 5 at 512x672 on the CPU (and at step 5 with
+# the linearly scaled 0.00125). optax's global-norm clip at 1.0 (the JAX
+# config's train.grad_clip_norm) keeps those steps finite.
+RETINA_TRAIN_OVERRIDES = TRAIN_OVERRIDES + ["train.grad_clip_norm=1.0"]
+
+
+def phase_retinanet_train(seed=0, warmup=2, steps=3, dtype="float32"):
+    """RetinaNet R-50-FPN train_step at full width in ``dtype`` (1024x1344,
+    batch 2): ``warmup`` + ``steps`` steps, each finite and launching no
+    kernel (RetinaNet's training pools no RoIs and runs no NMS); every
+    trainable parameter changed and float32, every frozen one unchanged;
+    the stage breakdown; in float32 then the train driver. Returns
+    (launches over the timed steps, ms a step, a summary)."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.train.state import train_step
+
+    cfg = get_config(RETINA_R50, RETINA_TRAIN_OVERRIDES + [f"model.dtype={dtype}"])
+    state, data = seeded_train_state(cfg, None, seed)
+    det = state.detector
+    tag = f"retinanet train {dtype}"
+    log(f"[{tag}] {cfg.model.name} {cfg.model.backbone} FPN {cfg.model.fpn_channels} classes "
+        f"{cfg.model.num_classes} canvas {tuple(cfg.data.image_size)} batch "
+        f"{cfg.train.batch_size} base_lr {cfg.train.base_lr} grad_clip_norm "
+        f"{cfg.train.grad_clip_norm}")
+    named = dict(det.module.named_parameters())
+    trainable = [n for n, q in named.items() if q.requires_grad]
+    frozen = [n for n, q in named.items() if not q.requires_grad]
+    before = {n: q.detach().clone() for n, q in named.items()}
+    batches = [det.batch_to_device(next(data)) for _ in range(warmup + steps)]
+    totals = dict.fromkeys(counted_wrappers(), 0)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        losses = {k: float(v) for k, v in metrics.items()}
+        log(f"[{tag}] {'warm-up' if i < warmup else 'step'} {i}: {ms:.1f} ms, launches "
+            f"{counts}, " + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"RetinaNet train step {i}: a loss is not finite: {losses}")
+        if any(counts.values()):
+            raise AssertionError(f"RetinaNet train step {i}: launches {counts}, want none")
+        if i >= warmup:
+            times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    unchanged = [n for n in trainable if torch.equal(named[n].detach(), before[n])]
+    moved = [n for n in frozen if not torch.equal(named[n].detach(), before[n])]
+    not_fp32 = [n for n, q in named.items()
+                if q.dtype != torch.float32 or (q.grad is not None and q.grad.dtype != q.dtype)]
+    log(f"[{tag}] {len(trainable)} trainable tensors, {len(unchanged)} unchanged; "
+        f"{len(frozen)} frozen, {len(moved)} changed; parameters or gradients not float32: "
+        f"{len(not_fp32)}")
+    if unchanged or moved or not frozen or not_fp32:
+        raise AssertionError(f"RetinaNet train: trainable unchanged {unchanged[:5]}, frozen "
+                             f"moved {moved[:5]}, not float32 {not_fp32[:5]}")
+    del before
+    med = float(np.median(times))
+    log(f"[{tag}] per-step ms {[round(t, 3) for t in times]}; median {med:.2f} ms = "
+        f"{cfg.train.batch_size * 1e3 / med:.2f} img/s; peak device memory {peak:.2f} GiB")
+    parts = train_breakdown(state, batches[-1], tag=tag)
+    if dtype == "float32":
+        phase_driver(state, RETINA_R50, RETINA_TRAIN_OVERRIDES)
+    return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts)
+
+
+def retina_oracle(params, batch):
+    """:func:`oracle_predict`'s detections, without masks (RetinaNet's)."""
+    return oracle_predict(params, batch)[0], None
+
+
+def phase_retinanet_eval(seed=0, dtype="float32"):
+    """The eval driver with RetinaNet R-50-FPN in ``dtype`` over phase 11's
+    in-memory COCO split (orientation buckets, batch 2, the raised-bias
+    weights restored from a checkpoint): every image consumed once, K1
+    once a predict call, box metrics only, finite or null; then a warm run
+    (images/s) and the oracle predictor (box AP 1.0). Returns the launches
+    over the first run and the warm run's images/s."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.eval import driver
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.train import checkpoint as ckpt
+    from detectron_tpu_torch.train.state import create_train_state
+
+    cfg = get_config(RETINA_R50, ["train.batch_size=2", "data.orientation_buckets=true",
+                                  f"output_dir={EVAL_OUT}", f"model.dtype={dtype}"])
+    tag = f"retinanet eval {dtype}"
+    ds = InMemoryCoco(seed, num_classes=cfg.model.num_classes)
+    shutil.rmtree(EVAL_OUT, ignore_errors=True)
+    det = build_detector(cfg)
+    images = slice_inputs(cfg, seed, det.device)["image"]  # noise on the canvas
+    ckpt.save(EVAL_OUT, create_train_state(cfg, det, retina_params(det, images, seed)))
+    del det
+    torch.cuda.synchronize()
+    reset_counts()
+    res = driver.run(cfg, dataset=ds)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    timing = res.pop("timing")
+    log(f"[{tag}] {timing['images']} images in {timing['batches']} batches; launches "
+        f"{counts}; {timing['detections']} detections")
+    calls = timing["batches"]
+    if timing["images"] != len(ds):
+        raise AssertionError(f"RetinaNet eval: {timing['images']} images, want {len(ds)}")
+    if counts != {"greedy_nms": calls, "multilevel_roi_align": 0,
+                  "multilevel_roi_align_bwd": 0}:
+        raise AssertionError(f"RetinaNet eval: launches {counts} over {calls} predict calls, "
+                             "want K1 once a call")
+    with open(os.path.join(EVAL_OUT, "eval_results.json")) as f:
+        written = json.load(f)
+    bad = {k: v for k, v in written.items() if not (v is None or np.isfinite(v))}
+    if bad or "segm_AP" in written or not timing["detections"]:
+        raise AssertionError(f"RetinaNet eval: metrics not finite or null, segm present, or "
+                             f"no detection: {written}")
+    log(f"[{tag}] metrics (random weights): AP {written['AP']}, AP50 {written['AP50']}; "
+        f"{sum(v is None for v in written.values())} of {len(written)} null")
+    log_eval_timing(f"retinanet {dtype} first run", timing)
+    warm = driver.run(cfg, dataset=ds)["timing"]
+    log_eval_timing(f"retinanet {dtype} warm, {len(ds)} images", warm)
+    reset_counts()
+    res_o = driver.run(cfg, dataset=ds, restore=False, predict=retina_oracle)
+    reset_counts()
+    log(f"[{tag}] oracle predictor: AP {res_o['AP']:.6f}, AP50 {res_o['AP50']:.6f}")
+    if not abs(res_o["AP"] - 1.0) <= 1e-6 or "segm_AP" in res_o:
+        raise AssertionError("RetinaNet eval: the oracle predictor does not give box AP 1.0")
+    shutil.rmtree(EVAL_OUT, ignore_errors=True)
+    return counts, warm["img_per_s"]
+
+
+# batch 8 for both halves (the bench's defaults, 48 and 16, are Mask R-CNN's);
+# the gradient clip of phase 15, without which SGD from random weights
+# reaches NaN within the bench's steps
+RETINA_BENCH_ARGS = ["--model", "retinanet", "--batch", "8", "--train-batch", "8",
+                     "--iters", "3", "--train-iters", "2", "--set", "train.grad_clip_norm=1.0"]
+
+
+def phase_retinanet_bench(dtype=None):
+    """``python -m detectron_tpu_torch.bench --model retinanet`` at 1024x1024,
+    batch 8 for both halves, iterations cut, at the bench's default dtype
+    (bf16) or ``--dtype dtype``, train.grad_clip_norm=1.0: its JSON line, K1 launched once a predict
+    call and never in training, then K1 against its plain version (and
+    timed) at the bench's shape: G = batch problems of 5 x pre_nms_topk
+    class-shifted boxes. Returns the launches, the line and K1's case."""
+    from detectron_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = bench.parse_args(RETINA_BENCH_ARGS + ([] if dtype is None else ["--dtype", dtype]))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = bench.run(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    reset_counts()
+    calls, steps = bench.WARMUP + args.iters, bench.WARMUP + args.train_iters
+    log(f"[retinanet bench {args.dtype}] {time.perf_counter() - t0:.1f} s ({calls} predict "
+        f"calls at batch {args.batch}, {steps} train steps at batch {args.train_batch}); "
+        f"launches {counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != {"greedy_nms": calls, "multilevel_roi_align": 0,
+                  "multilevel_roi_align_bwd": 0}:
+        raise AssertionError(f"RetinaNet bench: launches {counts}, want K1 {calls} times")
+    if not out["metric"].startswith("retinanet ") or f", {args.dtype}, " not in out["metric"]:
+        raise AssertionError(f"RetinaNet bench: the line does not name the run: {out['metric']}")
+    for key in ("value", "train_img_s_chip", "train_step_ms"):
+        if not (np.isfinite(out[key]) and out[key] > 0):
+            raise AssertionError(f"RetinaNet bench: {key} = {out[key]}")
+    torch.cuda.empty_cache()
+    cfg = bench.bench_config(args)
+    case = nms_case(np.random.RandomState(8), dict(
+        name=f"retinanet bench {args.dtype}", g=args.batch, n=5 * cfg.retinanet.pre_nms_topk,
+        thresh=cfg.retinanet.nms_thresh, max_out=cfg.test.detections_per_image,
+        n_invalid=cfg.retinanet.pre_nms_topk, classes=cfg.model.num_classes,
+        path="retinanet bench"), size=(int(args.size), int(args.size)))
+    return counts, out, case
+
+
+DEMO_OUT = os.path.join(REPO, "build", "demo_smoke")
+DEMO_ARGS = ["--no-restore", "--config", RETINA_R50, "--cfg", f"output_dir={DEMO_OUT}"]
+
+
+def phase_demo():
+    """``python -m detectron_tpu_torch.demo --no-restore`` with RetinaNet's
+    config, as a user runs it, on the card: it writes its two synthetic
+    images (PNG)."""
+    shutil.rmtree(DEMO_OUT, ignore_errors=True)
+    cmd = [sys.executable, "-m", "detectron_tpu_torch.demo", "--out", DEMO_OUT, *DEMO_ARGS]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    files = sorted(os.listdir(DEMO_OUT)) if os.path.isdir(DEMO_OUT) else []
+    log(f"[demo] {' '.join(os.path.relpath(c, REPO) if c.startswith(REPO) else c for c in cmd[1:])}"
+        f": exit {res.returncode} in {time.perf_counter() - t0:.1f} s; wrote {files}; "
+        + " | ".join(res.stdout.strip().splitlines()[-2:]))
+    if res.returncode != 0:
+        raise AssertionError(f"the demo failed: {res.stderr[-2000:]}")
+    want = ["synthetic_0.png", "synthetic_1.png"]
+    if files != want:
+        raise AssertionError(f"the demo wrote {files}; want {want}")
+    for name in files:
+        with open(os.path.join(DEMO_OUT, name), "rb") as f:
+            head = f.read(24)
+        w, h = int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big")
+        log(f"[demo] {name}: PNG {w}x{h}")
+        if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR" or not (w and h):
+            raise AssertionError(f"the demo's {name} is not a PNG image: {head!r}")
+    shutil.rmtree(DEMO_OUT, ignore_errors=True)
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -1947,7 +2475,8 @@ KERNELS = {
 
 def kernel_entry(name, cases, launches, max_abs_err):
     """One kernel's line entry. ``launches_by_path``: its launches on each
-    path's run (predict, train, eval, bench); ``launches`` the training
+    path's run (predict, train, eval, bench, and RetinaNet's: K1 alone, once
+    a predict call); ``launches`` the training
     path's (phase 9's timed float32 steps), the one path that launches all
     three kernels, as in the line since K3 was ported. Times are summed
     over the float32 training step's cases (one launch of each case per
@@ -1964,6 +2493,28 @@ def kernel_entry(name, cases, launches, max_abs_err):
         "library_ms": None,  # no single PyTorch call computes this function
         "cases": cases,
     }
+
+
+def retinanet_phases(k1) -> dict:
+    """Phases 13-18, each path in both dtypes; K1's bench cases are added
+    to ``k1``. Returns ``{path: (launches, summary)}``."""
+    retina = {}
+    for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        counts, _, summary = phase_retinanet(dtype=dtype)
+        retina["retinanet_predict" + sfx] = (counts, summary)
+    phase_cross_retinanet()
+    phase_cross_retinanet(dtype="bfloat16")
+    for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        counts, _, summary = phase_retinanet_train(dtype=dtype)
+        retina["retinanet_train" + sfx] = (counts, summary)
+        counts, img_s = phase_retinanet_eval(dtype=dtype)
+        retina["retinanet_eval" + sfx] = (counts, img_s)
+    for dtype, sfx in ((None, "_bf16"), ("float32", "")):
+        counts, line, case = phase_retinanet_bench(dtype)
+        retina["retinanet_bench" + sfx] = (counts, line)
+        k1.append(case)
+    phase_demo()
+    return retina
 
 
 def main(argv=None) -> int:
@@ -1999,13 +2550,15 @@ def main(argv=None) -> int:
     eval16_launches, eval16 = phase_eval(dtype="bfloat16")
     bench16_launches, bench16 = phase_bench()  # the bench's default, bf16
     bench_launches, bench32 = phase_bench("float32")
+    retina = retinanet_phases(k1)
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
                 "eval": eval_launches[name], "bench": bench_launches[name],
                 "predict_bf16": predict16_launches.get(name, 0),
                 "train_bf16": train16_launches[name], "eval_bf16": eval16_launches[name],
-                "bench_bf16": bench16_launches[name]}
+                "bench_bf16": bench16_launches[name],
+                **{path: counts[name] for path, (counts, _) in retina.items()}}
 
     kernels = [
         kernel_entry("greedy_nms", k1, launches("greedy_nms"), 0.0),
@@ -2019,7 +2572,8 @@ def main(argv=None) -> int:
         "predict": {"float32": predict32, "bfloat16": predict16},
         "train": {"float32": train32, "bfloat16": train16},
         "eval_img_s": {"float32": eval32, "bfloat16": eval16},
-        "bench": {"float32": bench32, "bfloat16": bench16}}}), flush=True)
+        "bench": {"float32": bench32, "bfloat16": bench16},
+        "retinanet": {path: summary for path, (_, summary) in retina.items()}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

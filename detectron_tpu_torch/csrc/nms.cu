@@ -32,7 +32,7 @@
 //      loaded only after the previous chunk is done pay the device-memory
 //      latency once a chunk, and a walk box by box pays a shared-memory
 //      load, a bit test and a branch per kept box (~150 ns a kept box on an
-//      H100). So each chunk's rows (64*W*8 bytes, at most 32 KB) arrive by
+//      H100). So each chunk's rows (64*W*8 bytes, at most 64 KB) arrive by
 //      one bulk asynchronous copy (cp.async.bulk, completed on an mbarrier)
 //      into one of two shared-memory buffers, the copy of chunk rb+1 issued
 //      before chunk rb is resolved; the valid flags are packed into one
@@ -42,8 +42,10 @@
 //      round (one warp-wide OR of the rows still kept, lane l holding rows
 //      l and l+32) settles at least the first box still wrong, so a chunk
 //      takes as many rounds as its longest suppression chain, plus one.
-//      Lane l keeps the removed-bits words l and l+32 in registers and
-//      folds the kept rows into them with independent loads. No
+//      Lane l keeps the removed-bits words l and l+32 (the instance for
+//      N <= 4096), or l, l+32, l+64 and l+96 (N <= 8192: RetinaNet's 5000
+//      merged candidates), in named registers, and folds the kept rows into
+//      them with independent loads. No
 //      __syncthreads: one warp, warp-uniform branches. With max_keep, the
 //      chunk where the count is reached keeps only its first boxes up to
 //      it, and the walk ends.
@@ -63,7 +65,7 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr int kBlock = 64;
-constexpr int kMaxWords = 64;  // 2 words a lane: at most 4096 boxes
+constexpr int kMaxWords = 128;  // at most 8192 boxes: 4 removed-bits words a lane
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float box_area(const float4 b, float offset) {
@@ -169,11 +171,15 @@ __device__ __forceinline__ void bar_wait(u64* bar, uint32_t parity) {
 }
 
 // Dynamic shared memory of one scan block: two chunk buffers of 64 rows of
-// `words` words, and one valid word a chunk.
+// `words` words, and one valid word a chunk (at kMaxWords: 129 KB).
 int scan_smem_bytes(int words) {
   return static_cast<int>((2 * kBlock * words + words) * sizeof(u64));
 }
 
+// LANE_WORDS: the removed-bits words a lane holds, 2 (words <= 64) or 4
+// (words <= 128). They are named registers, not an array: an array indexed
+// by the chunk went to the stack.
+template <int LANE_WORDS>
 __global__ void __launch_bounds__(32)
     nms_scan_kernel(const u64* __restrict__ mask,         // [G, 64 * W, W]
                     const uint8_t* __restrict__ valid,    // [G, N]
@@ -202,7 +208,7 @@ __global__ void __launch_bounds__(32)
     bulk_load(rows, gmask, chunk_bytes, &bars[0]);
   }
   // the valid flags, one word of bits a chunk, while chunk 0 is in flight:
-  // lane l packs chunks l and l + 32 with loads that are all issued together
+  // lane l packs chunks l, l + 32, ... with loads that are all issued together
   for (int c = lane; c < words; c += 32) {
     const uint8_t* v = gvalid + c * kBlock;
     const int m = min(kBlock, n - c * kBlock);
@@ -215,8 +221,9 @@ __global__ void __launch_bounds__(32)
   }
   __syncwarp();
 
-  // removed-bits words `lane` and `lane + 32`, in registers
-  u64 removed0 = 0ull, removed1 = 0ull;
+  // removed-bits words `lane`, `lane + 32` and (LANE_WORDS 4) `lane + 64`,
+  // `lane + 96`, in registers
+  u64 removed0 = 0ull, removed1 = 0ull, removed2 = 0ull, removed3 = 0ull;
   int kept = 0;
   bool done = kept >= max_keep;  // warp-uniform
   int rb = 0;
@@ -233,8 +240,13 @@ __global__ void __launch_bounds__(32)
     const int nrow = min(kBlock, n - i0);
 
     // the chunk's boxes that are valid and not removed by an earlier chunk
-    // (word rb of the removed bits, the same value in every lane)
-    const u64 alive = vwords[rb] & ~__shfl_sync(full, (rb >> 5) ? removed1 : removed0, rb & 31);
+    // (word rb of the removed bits, held by lane rb % 32, the same value in
+    // every lane after the shuffle)
+    const int hw = rb >> 5;
+    const u64 held = LANE_WORDS == 2 ? (hw ? removed1 : removed0)
+                                     : (hw == 0 ? removed0 : hw == 1 ? removed1
+                                                  : hw == 2 ? removed2 : removed3);
+    const u64 alive = vwords[rb] & ~__shfl_sync(full, held, rb & 31);
     // lane l holds the diagonal words of rows l and l + 32: the later boxes
     // of the chunk that each row suppresses
     const u64 d0 = lane < nrow ? buf[lane * words + rb] : 0ull;
@@ -269,18 +281,27 @@ __global__ void __launch_bounds__(32)
         order[__popcll(kept_bits & ((1ull << (lane + 32)) - 1))] = lane + 32;
       }
       __syncwarp();
+      // the later words this lane folds
       const bool own0 = lane > rb && lane < words;
       const bool own1 = lane + 32 > rb && lane + 32 < words;
+      const bool own2 = LANE_WORDS > 2 && lane + 64 > rb && lane + 64 < words;
+      const bool own3 = LANE_WORDS > 2 && lane + 96 > rb && lane + 96 < words;
       const int count = __popcll(kept_bits);
-      u64 a0 = 0ull, a1 = 0ull;
+      u64 a0 = 0ull, a1 = 0ull, a2 = 0ull, a3 = 0ull;
 #pragma unroll 4
       for (int j = 0; j < count; ++j) {
         const u64* row = buf + order[j] * words;
         if (own0) a0 |= row[lane];
         if (own1) a1 |= row[lane + 32];
+        if (LANE_WORDS > 2) {
+          if (own2) a2 |= row[lane + 64];
+          if (own3) a3 |= row[lane + 96];
+        }
       }
       removed0 |= a0;
       removed1 |= a1;
+      removed2 |= a2;
+      removed3 |= a3;
     }
     if (lane < nrow) gkeep[i0 + lane] = (kept_bits >> lane) & 1ull;
     if (lane + 32 < nrow) gkeep[i0 + 32 + lane] = (kept_bits >> (lane + 32)) & 1ull;
@@ -293,8 +314,8 @@ __global__ void __launch_bounds__(32)
 }
 
 // The scan needs more than the default 48 KB of dynamic shared memory at
-// large N; the attribute belongs to the kernel's instance on one device, so
-// it is set once per device.
+// large N; the attribute belongs to each of the kernel's instances on one
+// device, so it is set once per device.
 cudaError_t allow_scan_smem() {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
@@ -304,7 +325,12 @@ cudaError_t allow_scan_smem() {
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
   if (!done[dev]) {
-    err = cudaFuncSetAttribute(nms_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(nms_scan_kernel<2>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               scan_smem_bytes(64));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(nms_scan_kernel<4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                scan_smem_bytes(kMaxWords));
     if (err != cudaSuccess) return err;
     done[dev] = true;
@@ -343,7 +369,8 @@ extern "C" int nms_scan(const void* mask, const void* valid, void* keep, int g, 
   }
   cudaError_t err = allow_scan_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  nms_scan_kernel<<<g, 32, scan_smem_bytes(words), static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = words <= 64 ? nms_scan_kernel<2> : nms_scan_kernel<4>;
+  kernel<<<g, 32, scan_smem_bytes(words), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
       static_cast<uint8_t*>(keep), n, words, max_keep);
   return static_cast<int>(cudaGetLastError());

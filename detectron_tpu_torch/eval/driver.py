@@ -231,6 +231,9 @@ def run(cfg, dataset=None, limit: int = 0, restore: bool = True, device=None,
         t1 = time.perf_counter()
         host_ms["fetch"] += (t1 - t0) * 1e3
         if events is not None:
+            # a predict that left its outputs on the host queued no fetch to
+            # wait for: the span's end event may not have been reached yet
+            events[1].synchronize()
             device_ms.append(events[0].elapsed_time(events[1]))
         for i in range(len(ids)):
             if len(seen_ids) >= limit:

@@ -1,17 +1,18 @@
 """Model zoo / detector factory: the config-driven public API.
 
-The port of ``detectron_tpu/models/zoo.py`` for the two-stage detectors:
-``build_detector(cfg, device=None)`` returns a :class:`Detector` whose
-``predict_fn(params, batch)`` takes
+The port of ``detectron_tpu/models/zoo.py`` for Faster / Mask R-CNN and
+RetinaNet: ``build_detector(cfg, device=None)`` returns a :class:`Detector`
+whose ``predict_fn(params, batch)`` takes
 
     batch = {
       "image":    [B, H, W, 3] float32 (normalized, NHWC),
       "image_hw": [B, 2] float32 true (unpadded) sizes,
     }
 
-and returns ``(Detections, mask_probs [B, D, 28, 28] | None)``, and whose
-``loss_fn(params, batch, draws)`` takes the batch with ``gt_boxes``,
-``gt_classes`` and ``gt_masks`` added and returns ``(total, loss_dict)``.
+and returns ``(Detections, mask_probs [B, D, 28, 28] | None)`` (None for
+RetinaNet and Faster R-CNN), and whose ``loss_fn(params, batch, draws)``
+takes the batch with ``gt_boxes``, ``gt_classes`` and ``gt_masks`` added
+and returns ``(total, loss_dict)``.
 ``params`` is a state dict (``Detector.init`` or
 ``utils.weights.from_jax_params``), or None for the module's own weights.
 The default device is the card; without CUDA that default raises, it does
@@ -27,6 +28,7 @@ import torch
 from torch.func import functional_call
 
 from detectron_tpu_torch.models import faster_rcnn as frcnn
+from detectron_tpu_torch.models import retinanet as retina
 from detectron_tpu_torch.ops.roi_align import check_roi_align_contract
 
 MODEL_NAMES = ("faster_rcnn", "mask_rcnn", "retinanet", "rfcn")
@@ -45,7 +47,7 @@ def _init_std(name: str, shape) -> float:
     """Standard deviation of the random init of one weight, following the
     JAX modules' initializers (He fan-out for backbone and mask convs,
     small normals for the prediction layers, LeCun fan-in elsewhere)."""
-    if name.startswith("rpn_head."):
+    if name.startswith(("rpn_head.", "head.cls_score", "head.box_pred")):
         return 0.01
     if name.startswith("box_head.cls_score"):
         return 0.01
@@ -59,33 +61,37 @@ def _init_std(name: str, shape) -> float:
 
 
 class Detector:
-    """A two-stage detector module on a device, with the JAX Detector's
-    pure-function interface. ``dtype``: the compute dtype. On the card the
+    """A detector module on a device, with the JAX Detector's pure-function
+    interface. ``dtype``: the compute dtype. On the card a two-stage
     config is held to what the RoIAlign kernels take
-    (``check_roi_align_contract``) when the detector is built."""
+    (``check_roi_align_contract``) when the detector is built; RetinaNet
+    pools no RoIs and needs no such check."""
 
     def __init__(self, cfg, device=None):
         name = cfg.model.name
         if name not in MODEL_NAMES:
             raise ValueError(f"unknown model {name!r}; zoo: {MODEL_NAMES}")
-        if name in ("retinanet", "rfcn"):
+        if name == "rfcn":
             raise NotImplementedError(
-                f"model {name!r} is not ported yet: ROADMAP.md, Queue 1, "
-                + ("RetinaNet" if name == "retinanet" else "R-FCN"))
+                f"model {name!r} is not ported yet: ROADMAP.md, Queue 1, R-FCN")
         self.cfg = cfg
         self.name = name
         self.device = resolve_device(device)
         self.with_masks = name == "mask_rcnn"
-        self.module = frcnn.build_two_stage(cfg, include_mask=self.with_masks)
+        self.is_two_stage = name in ("faster_rcnn", "mask_rcnn")
+        if self.is_two_stage:
+            self.module = frcnn.build_two_stage(cfg, include_mask=self.with_masks)
+        else:
+            self.module = retina.RetinaNet(cfg)
         self.dtype = self.module.dtype
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.is_two_stage:
             check_roi_align_contract(cfg, self.dtype, len(frcnn.ROI_STRIDES))
         self.module.to(device=self.device).eval()
 
     def init(self, seed: int = 0) -> dict:
         """A random state dict on the device, drawn from a numpy seed:
-        normal weights with the JAX modules' scales, zero biases, identity
-        frozen BatchNorm."""
+        normal weights with the JAX modules' scales, zero biases (RetinaNet's
+        class logits: the prior's), identity frozen BatchNorm."""
         rng = np.random.RandomState(seed)
         params = {}
         for key, value in self.module.state_dict().items():
@@ -98,6 +104,9 @@ class Detector:
                 std = _init_std(key, tuple(value.shape))
                 arr = (rng.standard_normal(value.shape) * std).astype(np.float32)
             params[key] = torch.as_tensor(arr, device=self.device)
+        if not self.is_two_stage:
+            params["head.cls_score.bias"].fill_(
+                retina.prior_bias(self.cfg.retinanet.prior_prob))
         return params
 
     def batch_to_device(self, batch) -> dict:
@@ -124,7 +133,9 @@ class Detector:
         if self.with_masks:
             targets["gt_masks"] = batch["gt_masks"]
         args = (batch["image"], batch["image_hw"])
-        kwargs = {"targets": targets, "draws": draws, "mark": mark}
+        kwargs = {"targets": targets, "mark": mark}
+        if self.is_two_stage:
+            kwargs["draws"] = draws
         if params is None:
             loss_dict = self.module(*args, **kwargs)
         else:
@@ -137,12 +148,15 @@ class Detector:
         images = torch.as_tensor(batch["image"], dtype=torch.float32, device=self.device)
         image_hw = torch.as_tensor(batch["image_hw"], dtype=torch.float32,
                                    device=self.device)
+        kwargs = {"with_masks": self.with_masks} if self.is_two_stage else {}
         with torch.no_grad():
             if params is None:
-                return self.module(images, image_hw, with_masks=self.with_masks)
-            params = {k: v.to(self.device) for k, v in params.items()}
-            return functional_call(self.module, params, (images, image_hw),
-                                   {"with_masks": self.with_masks}, strict=True)
+                out = self.module(images, image_hw, **kwargs)
+            else:
+                params = {k: v.to(self.device) for k, v in params.items()}
+                out = functional_call(self.module, params, (images, image_hw), kwargs,
+                                      strict=True)
+        return out if self.is_two_stage else (out, None)
 
 
 def build_detector(cfg, device=None) -> Detector:

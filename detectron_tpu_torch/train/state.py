@@ -118,9 +118,9 @@ def train_step(state: TrainState, batch, draws=None, mark=None) -> dict:
     ``draws``: the ``TrainDraws`` to sample with, or None for a generator
     seeded from ``train.seed`` and the step. ``mark``: None, or a callable
     given each stage's name once its work is issued: the forward's stages
-    (``faster_rcnn_train_forward``), then ``"backward"`` and
-    ``"optimizer"``. Returns the loss dict with ``loss_total``, as
-    detached tensors on the device.
+    (``faster_rcnn_train_forward``, ``retinanet_train_forward``), then
+    ``"backward"`` and ``"optimizer"``. Returns the loss dict with
+    ``loss_total``, as detached tensors on the device.
     """
     det = state.detector
     cfg = det.cfg

@@ -1,9 +1,10 @@
 """Carry the JAX package's detector weights into the port.
 
 ``from_jax_params(variables)`` takes the variables tree of
-``detectron_tpu``'s ``TwoStageDetector`` as nested dicts of numpy arrays
-(``{"params": {"backbone": ..., "fpn": ..., "rpn": ..., "box_head": ...,
-"mask_head": ...}}``) and returns the port's ``state_dict``:
+``detectron_tpu``'s ``TwoStageDetector`` (``{"params": {"backbone": ...,
+"fpn": ..., "rpn": ..., "box_head": ..., "mask_head": ...}}``) or
+``RetinaNet`` (``{"params": {"backbone": ..., "fpn": ..., "head": ...}}``)
+as nested dicts of numpy arrays and returns the port's ``state_dict``:
 
 * conv kernels HWIO -> OIHW;
 * Dense kernels ``(in, out)`` -> ``(out, in)``; fc1 needs no permute,
@@ -12,7 +13,9 @@
   torch ``(in, out, kh, kw)`` with a spatial flip (flax computes a
   fractionally strided correlation, torch the adjoint of a convolution;
   the inverse of ``detectron_tpu/utils/torch_weights.py``'s import);
-* frozen BatchNorm ``weight/bias/running_mean/running_var`` as they are.
+* frozen BatchNorm ``weight/bias/running_mean/running_var`` as they are;
+* RetinaNet's ``fpn/lateral2`` and ``fpn/smooth2`` are dropped: the JAX
+  P3-P7 FPN makes them and never reads its P2, and the port's has neither.
 
 Every leaf must map by one of these rules, and with ``expected`` (the
 port's module or a state dict) the result must have exactly its keys and
@@ -27,7 +30,9 @@ import numpy as np
 import torch
 
 _MODULES = {"backbone": "backbone", "fpn": "fpn", "rpn": "rpn_head",
-            "box_head": "box_head", "mask_head": "mask_head"}
+            "box_head": "box_head", "mask_head": "mask_head", "head": "head"}
+# the JAX RetinaNet's parameters that only its unused P2 reads
+_RETINANET_UNREAD = (("fpn", "lateral2"), ("fpn", "smooth2"))
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
 
 
@@ -66,7 +71,10 @@ def from_jax_params(variables: dict, expected=None) -> dict:
     """JAX variables tree -> the port's state dict (CPU float32 tensors)."""
     params = variables["params"] if "params" in variables else variables
     out = {}
+    retinanet = "head" in params
     for path, value in _flatten(params):
+        if retinanet and tuple(path[:2]) in _RETINANET_UNREAD:
+            continue
         key, arr = _convert(tuple(str(p) for p in path), np.asarray(value))
         if key in out:
             raise KeyError(f"two JAX parameters map to {key!r}")

@@ -119,12 +119,15 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "NMS_EDGE_CASES", tuple(
         dict(case, n=min(case["n"], 300), n_invalid=min(case["n_invalid"], case["n"], 300))
         for case in cs.NMS_EDGE_CASES))
+    # the limit is the library's, which needs the card
+    monkeypatch.setattr(cs, "check_nms_limit", lambda: print("[K1 edge] limit not checked"))
     monkeypatch.setattr(ra, "RoIAlignFunction", _PlainFunction)
     get_config = detectron_tpu_torch.config.get_config
 
     def small_config(path=None, overrides=()):
         overrides = list(overrides)
         for small in ("model.fpn_channels=32", "model.backbone=resnet50",
+                      "retinanet.pre_nms_topk=50",
                       "data.image_size=[64, 128]", "rpn.pre_nms_topk_train=256",
                       "rpn.post_nms_topk_train=64", "roi.batch_per_image=64",
                       "data.short_side=48", "data.max_size=96",
@@ -206,8 +209,10 @@ def test_kernel_phase_k2_cases_stress_and_rerun(rehearsal, capsys):
 
 def test_kernel_phase_k1_cases_and_split(rehearsal, capsys):
     k1 = cs.phase_nms(rehearsal)
-    assert [c["case"] for c in k1] == ["rpn", "det", "rpn_train"]
-    assert [c["max_keep"] for c in k1] == [60, 20, 200]  # min(max_out, n), cut by 5
+    assert [c["case"] for c in k1] == ["rpn", "det", "rpn_train", "retinanet",
+                                       "retinanet_fast"]
+    assert [c["max_keep"] for c in k1] == [60, 20, 200, 20, 20]  # min(max_out, n), cut by 5
+    assert [c["path"] for c in k1][3:] == ["retinanet predict", "retinanet predict (fast)"]
     for c in k1:
         assert {"ms", "mask_ms", "scan_ms", "scan_full_ms", "plain_ms", "bound_ms"} <= set(c)
     out = capsys.readouterr().out
@@ -461,3 +466,107 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
         assert f"[K2 bench B=2 128x128 P={p} R={r}" in out
         assert f"[K3 bench B=2 128x128 P={p} R={r}" in out
     assert "summed finite" in out
+
+
+def test_k1_limit_cases_and_refusal_name_the_limit():
+    names = [c["name"] for c in cs.NMS_EDGE_CASES]
+    assert f"N={cs.NMS_LIMIT} (the limit)" in names and cs.NMS_LIMIT == 8192
+    assert any(c["n"] > 4096 and c["n"] % 64 and (c["n"] // 64) % 2 == 0
+               for c in cs.NMS_EDGE_CASES)  # W = 71: odd, above 64
+    assert any(c["max_keep"] == 1 and c["n"] == 5000 for c in cs.NMS_EDGE_CASES)
+    retina = [c for c in cs.NMS_CASES if c["name"] == "retinanet"][0]
+    assert (retina["g"], retina["n"], retina["classes"]) == (2, 5000, 81)
+
+
+def test_retinanet_predict_phase_launches_k1_once_a_call(rehearsal, monkeypatch, capsys):
+    """One K1 call a predict call, on float32 boxes, N = 5 x pre_nms_topk
+    (50 here) in each of the batch's 2 problems, in both dtypes."""
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+    for dtype in ("float32", "bfloat16"):
+        totals, times, summary = cs.phase_retinanet(calls=2, dtype=dtype)
+        assert totals == {"greedy_nms": 2, "multilevel_roi_align": 0,
+                          "multilevel_roi_align_bwd": 0}
+        assert len(times) == 2 and summary["candidates_valid"] > 0
+        assert set(summary["stages_ms"]) == {"backbone+fpn", "head",
+                                             "per-level top-k + decode", "NMS (K1) + gather"}
+    out = capsys.readouterr().out
+    assert out.count("K1 boxes [(2, 250, 4)] ['float32']") == 4
+    assert "[retinanet bfloat16] per-call ms" in out
+    assert "[retinanet stages bfloat16]" in out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_retinanet_phase(rehearsal, capsys, dtype):
+    cs.phase_cross_retinanet(dtype=dtype)
+    out = capsys.readouterr().out
+    for h, w in cs.RETINA_CROSS_CANVASES:
+        if dtype == "float32":
+            assert f"[cross retinanet] {h}x{w} FPN 32" in out
+        else:
+            assert f"[cross retinanet bfloat16] {h}x{w} FPN 32" in out
+    assert out.count("equal slots and classes True, max |box diff| 0.000e+00") == 2
+    assert out.count("levels ['0.00e+00'") == 2 and "class logits ['0.00e+00'" in out
+    assert out.count("the CPU's detections found on the card 1.000") == 2
+
+
+def test_retinanet_train_phase_launches_nothing_and_resumes_the_driver(rehearsal, capsys):
+    totals, times, summary = cs.phase_retinanet_train(warmup=1, steps=1)
+    assert totals == {"greedy_nms": 0, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0}
+    assert len(times) == 1 and summary["step_ms"] == times
+    out = capsys.readouterr().out
+    assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
+    stages = out.split("[retinanet train float32 stages]")[1].splitlines()[0]
+    for stage in ("backbone+fpn", "head", "anchor targets+loss", "backward", "optimizer"):
+        assert stage in stages
+    assert "model=retinanet" in out and "[driver] resumed" in out
+    cs.phase_retinanet_train(warmup=1, steps=1, dtype="bfloat16")
+    assert "[driver]" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_retinanet_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
+    monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
+    counts, img_s = cs.phase_retinanet_eval(dtype=dtype)
+    # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
+    assert counts == {"greedy_nms": 5, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0}
+    assert img_s > 0
+    out = capsys.readouterr().out
+    assert f"[retinanet eval {dtype}] 8 images in 5 batches" in out
+    assert f"[retinanet eval {dtype}] oracle predictor: AP 1.000000, AP50 1.000000" in out
+    assert not (tmp_path / "eval_smoke").exists()
+
+
+def test_retinanet_bench_phase(rehearsal, monkeypatch, capsys):
+    from detectron_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "resolve_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(cs, "RETINA_BENCH_ARGS", [
+        "--model", "retinanet", "--size", "128", "--batch", "2", "--train-batch", "2",
+        "--iters", "1", "--train-iters", "1", "--set", "model.num_classes=5",
+        "model.fpn_channels=32", "retinanet.pre_nms_topk=50", "test.detections_per_image=20"])
+    for dtype in (None, "float32"):
+        counts, line, case = cs.phase_retinanet_bench(dtype)
+        # 3 predict calls (two warm-ups), K1 once each; training launches nothing
+        assert counts == {"greedy_nms": 3, "multilevel_roi_align": 0,
+                          "multilevel_roi_align_bwd": 0}
+        assert line["metric"].startswith("retinanet R-50-FPN inference")
+        assert case["path"] == "retinanet bench" and case["max_keep"] == 20
+    out = capsys.readouterr().out
+    assert "[K1 retinanet bench bfloat16] G=2 N=250 t=0.5 max_keep=20" in out
+    assert "[K1 retinanet bench float32] G=2 N=250" in out
+
+
+def test_demo_phase_writes_two_images(rehearsal, monkeypatch, tmp_path, capsys):
+    out_dir = str(tmp_path / "demo")
+    monkeypatch.setattr(cs, "DEMO_OUT", out_dir)
+    monkeypatch.setattr(cs, "DEMO_ARGS", [
+        "--no-restore", "--device", "cpu", "--cfg", "model.name=retinanet",
+        "model.num_classes=4", "model.fpn_channels=32", "data.image_size=[128,128]",
+        "data.short_side=100", "data.max_size=128", "retinanet.pre_nms_topk=50",
+        f"output_dir={out_dir}"])
+    cs.phase_demo()
+    out = capsys.readouterr().out
+    assert "wrote ['synthetic_0.png', 'synthetic_1.png']" in out
+    assert not (tmp_path / "demo").exists()

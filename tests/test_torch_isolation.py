@@ -78,13 +78,26 @@ def test_build_detector_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name,item", [("retinanet", "RetinaNet"), ("rfcn", "R-FCN")])
+@pytest.mark.parametrize("name,item", [("rfcn", "R-FCN")])
 def test_unported_models_name_the_roadmap(name, item):
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.models.zoo import build_detector
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         build_detector(get_config(None, [f"model.name={name}"]), device="cpu")
+
+
+def test_retinanet_builds_and_defaults_to_cuda(monkeypatch):
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.retinanet import RetinaNet
+    from detectron_tpu_torch.models.zoo import build_detector
+
+    cfg = get_config(None, ["model.name=retinanet"])
+    det = build_detector(cfg, device="cpu")
+    assert isinstance(det.module, RetinaNet) and det.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_detector(cfg)
 
 
 @pytest.mark.parametrize("override", ["model.norm=gn", "model.dilate_c5=true"])

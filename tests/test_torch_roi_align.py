@@ -451,11 +451,18 @@ def test_contract_check_passes_what_the_kernels_take():
 @pytest.mark.parametrize("name", sorted(os.listdir(CONFIGS)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_contract_holds_for_every_config_the_port_builds(name, dtype):
-    """Every config whose model the port builds (Faster and Mask R-CNN)
-    passes the check in both dtypes; the others name their model."""
+    """Every config whose model pools RoIs (Faster and Mask R-CNN) passes
+    the check in both dtypes; RetinaNet pools none, builds and is not
+    checked; R-FCN is not ported."""
+    from detectron_tpu_torch.models import zoo
+
     cfg = get_config(os.path.join(CONFIGS, name), [f"model.dtype={dtype}"])
+    if cfg.model.name == "retinanet":
+        det = zoo.build_detector(cfg, device="cpu")
+        assert not det.is_two_stage and not hasattr(det.module, "box_head")
+        return
     if cfg.model.name not in ("faster_rcnn", "mask_rcnn"):
-        assert cfg.model.name in ("retinanet", "rfcn")
+        assert cfg.model.name == "rfcn"
         return
     tra.check_roi_align_contract(cfg, getattr(torch, dtype))
 
@@ -470,3 +477,19 @@ def test_detector_on_the_card_checks_the_contract(monkeypatch):
                             "model.fpn_channels=36"])
     with pytest.raises(ValueError, match="model.fpn_channels=36"):
         zoo.build_detector(cfg)
+
+
+def test_retinanet_on_the_card_needs_no_contract(monkeypatch):
+    """RetinaNet pools no RoIs: built for the card (faked, the check runs
+    before the module is moved), a width the RoIAlign kernels refuse does
+    not stop it."""
+    from detectron_tpu_torch.models import zoo
+
+    monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cuda"))
+    checked = []
+    monkeypatch.setattr(zoo, "check_roi_align_contract", lambda *a: checked.append(a))
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)
+    cfg = get_config(None, ["model.name=retinanet", "model.dtype=bfloat16",
+                            "model.fpn_channels=36"])
+    det = zoo.build_detector(cfg)
+    assert det.device.type == "cuda" and checked == []
