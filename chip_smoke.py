@@ -10,7 +10,8 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    RLE codec (native/rle.cpp) with g++;
 3. K1 (greedy NMS) against its plain PyTorch version on the card, at the
    inference (G=10, N=1000; G=2, N=1200), training (G=10, N=2000) and
-   RetinaNet (G=2, N=5000 and 2000, 81 classes shifted apart) shapes, with
+   RetinaNet (G=2, N=5000 and 2000, 81 classes shifted apart) and R-FCN
+   (G=2, N=1000 and 2000) shapes, with
    and without the main path's max_keep = min(max_out, N), and at edge
    cases (N=65, N=4096, N=8192 = the limit, odd W below and above 64,
    max_keep=1 at N=700 and 5000, max_keep above the kept count, an
@@ -126,7 +127,47 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
 18. demo: python -m detectron_tpu_torch.demo --no-restore with RetinaNet's
     config writes its two synthetic images.
 
-It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
+19. R-FCN predict: configs/rfcn_r50_coco.yaml at full width (trunk 1024, 81
+    classes, P=7, 1024x1024), batch 2, seeded weights with frozen BN set
+    from the batch and the ps_cls bias of five classes raised in every
+    group, float32 then bf16 (the config's): predict_fn three times, K1
+    twice a call on float32 boxes (proposals G=2, N=1000; detections G=2,
+    N=1200), K2 and K3 never; detections non-empty, scores in [0, 1]; one
+    call under the sync debug mode; the stage breakdown (backbone+trunk,
+    RPN, proposals, PS maps, PSRoIPool + vote, detections); PSRoIPool
+    (plain PyTorch) timed, forward and gradient; a profiled call;
+20. cross-device R-FCN at 256x256, trunk 32, dilate_c5 off and on, card
+    against CPU with the same weights: the trunk, the RPN outputs and the
+    votes on the same RoIs within CROSS_F32 (bf16: CROSS_BF16); PSRoIPool's
+    forward and its gradient (autograd) at the full-width shapes within
+    1e-5 of their magnitude;
+21. R-FCN train: full width, batch 2, base_lr 0.0025 (no gradient clip:
+    the calibrated statistics keep its SGD finite), 2 warm-up steps and 3,
+    float32 then bf16: losses finite, K1 once a step (G=2, N=2000), K2 and
+    K3 never, frozen parameters unchanged, trainable ones changed, float32
+    parameters and gradients; ms a step, peak memory, the breakdown,
+    PSRoIPool timed at 512 sampled RoIs an image; in float32 the train
+    driver for 2 steps;
+22. R-FCN eval (phase 11's split, images at most 1024 on a side to fit
+    the config's 1024x1024 canvas: every image once, K1 twice a call, box
+    metrics, a warm run's images/s, the oracle's box AP 1.0), bench
+    (--model rfcn --set model.fpn_channels=1024, batch 8 / 8, bf16 then
+    float32: K1 twice a predict call and once a step) and demo;
+23. RoIPool: multilevel_roi_pool (plain PyTorch) card against CPU at the
+    1024x1344 P2-P5 shapes (C=256; R=512, P=7 and R=128, P=14 an image):
+    float32 exactly equal, bf16 within one step, timed; then Faster R-CNN
+    R-50-FPN (configs/faster_rcnn_r50_fpn_coco.yaml) with
+    roi.pool_type=pool: 3 predict calls and 2 train steps, K1 twice a call
+    and once a step, K2 and K3 never;
+24. pretrained weights (model.weights): a torchvision-named R-50 backbone
+    dict into the train driver on R-FCN for one step (the weights it starts
+    from equal the dict), a full Mask R-CNN dict in the lineage's names
+    into the eval driver on Mask R-CNN over phase 11's split (the deconv
+    as it is, fc1 permuted, the RPN classifier fg - bg, the mask logits
+    without channel 0), both written as .pth under build/.
+
+After each group of phases it logs the host seconds the group took
+(``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
 of per-kernel results (float32 at top level; the bf16 cases in ``cases``
 with their ``dtype``), the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -270,9 +311,10 @@ def nms_problems(rng, g, n, canvas, n_invalid, classes=0):
 
 # the main path's NMS calls: RPN per (image, level) at inference and in
 # training (pre_nms_topk 1000 / 2000, post 300 / 1000), the class-shifted
-# detection candidates per image (1200 candidates, 100 detections), and
+# detection candidates per image (1200 candidates, 100 detections),
 # RetinaNet's merged candidates per image (5 levels x retinanet.pre_nms_topk
-# 1000, and the 2000 that configs/retinanet_fast.yaml keeps; 100 detections)
+# 1000, and the 2000 that configs/retinanet_fast.yaml keeps; 100 detections),
+# and R-FCN's one RPN level per image (its detections are the "det" case)
 NMS_CASES = (
     dict(name="rpn", g=10, n=1000, thresh=0.7, max_out=300, n_invalid=120, classes=0,
          path="predict"),
@@ -284,6 +326,10 @@ NMS_CASES = (
          classes=81, path="retinanet predict"),
     dict(name="retinanet_fast", g=2, n=2000, thresh=0.5, max_out=100, n_invalid=400,
          classes=81, path="retinanet predict (fast)"),
+    dict(name="rfcn_rpn", g=2, n=1000, thresh=0.7, max_out=300, n_invalid=120, classes=0,
+         path="rfcn predict"),
+    dict(name="rfcn_rpn_train", g=2, n=2000, thresh=0.7, max_out=1000, n_invalid=200,
+         classes=0, path="rfcn train"),
 )
 NMS_LIMIT = 8192  # the most boxes a K1 problem takes (csrc/nms.cu, kMaxWords x 64)
 # edge cases, each held exactly against the plain version; max_keep "above"
@@ -2203,7 +2249,7 @@ def phase_cross_retinanet(seed=3, dtype="float32"):
             raise AssertionError(f"cross-device RetinaNet {canvas}: launches {counts}, "
                                  f"{int(dets_c.valid.sum())} detections on the CPU")
         outs = {}
-        for name, det in (("card", gpu), ("cpu", cpu)):
+        for name, det in (("cpu", cpu), ("card", gpu)):  # the card pools the CPU's RoIs
             det.module.load_state_dict(params)
             with torch.no_grad():
                 levels = det.module.features(batch["image"].to(det.device))
@@ -2323,26 +2369,35 @@ def retina_oracle(params, batch):
 
 
 def phase_retinanet_eval(seed=0, dtype="float32"):
-    """The eval driver with RetinaNet R-50-FPN in ``dtype`` over phase 11's
-    in-memory COCO split (orientation buckets, batch 2, the raised-bias
-    weights restored from a checkpoint): every image consumed once, K1
-    once a predict call, box metrics only, finite or null; then a warm run
-    (images/s) and the oracle predictor (box AP 1.0). Returns the launches
-    over the first run and the warm run's images/s."""
+    """Phase 16: :func:`box_eval` with RetinaNet R-50-FPN, K1 once a call."""
+    return box_eval("retinanet", "RetinaNet", RETINA_R50, retina_params, 1, seed, dtype)
+
+
+def box_eval(name, label, config, make_params, k1_per_call, seed=0, dtype="float32"):
+    """The eval driver with the box-only model of ``config`` in ``dtype``
+    over phase 11's in-memory COCO split (orientation buckets, batch 2,
+    ``make_params``' raised-bias weights restored from a checkpoint; the
+    long side capped at the canvas', which R-FCN's 1024x1024 canvas needs:
+    the default 800/1333 resize makes a 4:3 image 800x1067): every image
+    consumed once, K1 ``k1_per_call`` times a predict call, box metrics
+    only, finite or null; then a warm run (images/s) and the oracle
+    predictor (box AP 1.0). Returns the launches over the first run and the
+    warm run's images/s."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.eval import driver
     from detectron_tpu_torch.models.zoo import build_detector
     from detectron_tpu_torch.train import checkpoint as ckpt
     from detectron_tpu_torch.train.state import create_train_state
 
-    cfg = get_config(RETINA_R50, ["train.batch_size=2", "data.orientation_buckets=true",
-                                  f"output_dir={EVAL_OUT}", f"model.dtype={dtype}"])
-    tag = f"retinanet eval {dtype}"
+    cfg = get_config(config, ["train.batch_size=2", "data.orientation_buckets=true",
+                              f"output_dir={EVAL_OUT}", f"model.dtype={dtype}"])
+    cfg.data.max_size = min(cfg.data.max_size, max(cfg.data.image_size))
+    tag = f"{name} eval {dtype}"
     ds = InMemoryCoco(seed, num_classes=cfg.model.num_classes)
     shutil.rmtree(EVAL_OUT, ignore_errors=True)
     det = build_detector(cfg)
     images = slice_inputs(cfg, seed, det.device)["image"]  # noise on the canvas
-    ckpt.save(EVAL_OUT, create_train_state(cfg, det, retina_params(det, images, seed)))
+    ckpt.save(EVAL_OUT, create_train_state(cfg, det, make_params(det, images, seed)))
     del det
     torch.cuda.synchronize()
     reset_counts()
@@ -2354,28 +2409,28 @@ def phase_retinanet_eval(seed=0, dtype="float32"):
         f"{counts}; {timing['detections']} detections")
     calls = timing["batches"]
     if timing["images"] != len(ds):
-        raise AssertionError(f"RetinaNet eval: {timing['images']} images, want {len(ds)}")
-    if counts != {"greedy_nms": calls, "multilevel_roi_align": 0,
+        raise AssertionError(f"{label} eval: {timing['images']} images, want {len(ds)}")
+    if counts != {"greedy_nms": k1_per_call * calls, "multilevel_roi_align": 0,
                   "multilevel_roi_align_bwd": 0}:
-        raise AssertionError(f"RetinaNet eval: launches {counts} over {calls} predict calls, "
-                             "want K1 once a call")
+        raise AssertionError(f"{label} eval: launches {counts} over {calls} predict calls, "
+                             f"want K1 {k1_per_call} times a call, K2 and K3 never")
     with open(os.path.join(EVAL_OUT, "eval_results.json")) as f:
         written = json.load(f)
     bad = {k: v for k, v in written.items() if not (v is None or np.isfinite(v))}
     if bad or "segm_AP" in written or not timing["detections"]:
-        raise AssertionError(f"RetinaNet eval: metrics not finite or null, segm present, or "
+        raise AssertionError(f"{label} eval: metrics not finite or null, segm present, or "
                              f"no detection: {written}")
     log(f"[{tag}] metrics (random weights): AP {written['AP']}, AP50 {written['AP50']}; "
         f"{sum(v is None for v in written.values())} of {len(written)} null")
-    log_eval_timing(f"retinanet {dtype} first run", timing)
+    log_eval_timing(f"{name} {dtype} first run", timing)
     warm = driver.run(cfg, dataset=ds)["timing"]
-    log_eval_timing(f"retinanet {dtype} warm, {len(ds)} images", warm)
+    log_eval_timing(f"{name} {dtype} warm, {len(ds)} images", warm)
     reset_counts()
     res_o = driver.run(cfg, dataset=ds, restore=False, predict=retina_oracle)
     reset_counts()
     log(f"[{tag}] oracle predictor: AP {res_o['AP']:.6f}, AP50 {res_o['AP50']:.6f}")
     if not abs(res_o["AP"] - 1.0) <= 1e-6 or "segm_AP" in res_o:
-        raise AssertionError("RetinaNet eval: the oracle predictor does not give box AP 1.0")
+        raise AssertionError(f"{label} eval: the oracle predictor does not give box AP 1.0")
     shutil.rmtree(EVAL_OUT, ignore_errors=True)
     return counts, warm["img_per_s"]
 
@@ -2387,18 +2442,17 @@ RETINA_BENCH_ARGS = ["--model", "retinanet", "--batch", "8", "--train-batch", "8
                      "--iters", "3", "--train-iters", "2", "--set", "train.grad_clip_norm=1.0"]
 
 
-def phase_retinanet_bench(dtype=None):
-    """``python -m detectron_tpu_torch.bench --model retinanet`` at 1024x1024,
-    batch 8 for both halves, iterations cut, at the bench's default dtype
-    (bf16) or ``--dtype dtype``, train.grad_clip_norm=1.0: its JSON line, K1 launched once a predict
-    call and never in training, then K1 against its plain version (and
-    timed) at the bench's shape: G = batch problems of 5 x pre_nms_topk
-    class-shifted boxes. Returns the launches, the line and K1's case."""
+def box_bench(name, label, base_args, k1_per_call, k1_per_step, dtype=None):
+    """``python -m detectron_tpu_torch.bench`` with ``base_args`` at the
+    bench's default dtype (bf16) or ``--dtype dtype``: its JSON line, K1
+    launched ``k1_per_call`` times a predict call and ``k1_per_step`` times
+    a train step, K2 and K3 never. Returns the launches, the line and the
+    parsed arguments."""
     from detectron_tpu_torch import bench
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    args = bench.parse_args(RETINA_BENCH_ARGS + ([] if dtype is None else ["--dtype", dtype]))
+    args = bench.parse_args(base_args + ([] if dtype is None else ["--dtype", dtype]))
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -2407,19 +2461,32 @@ def phase_retinanet_bench(dtype=None):
     counts = read_counts()
     reset_counts()
     calls, steps = bench.WARMUP + args.iters, bench.WARMUP + args.train_iters
-    log(f"[retinanet bench {args.dtype}] {time.perf_counter() - t0:.1f} s ({calls} predict "
+    want = k1_per_call * calls + k1_per_step * steps
+    log(f"[{name} bench {args.dtype}] {time.perf_counter() - t0:.1f} s ({calls} predict "
         f"calls at batch {args.batch}, {steps} train steps at batch {args.train_batch}); "
         f"launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if counts != {"greedy_nms": calls, "multilevel_roi_align": 0,
+    if counts != {"greedy_nms": want, "multilevel_roi_align": 0,
                   "multilevel_roi_align_bwd": 0}:
-        raise AssertionError(f"RetinaNet bench: launches {counts}, want K1 {calls} times")
-    if not out["metric"].startswith("retinanet ") or f", {args.dtype}, " not in out["metric"]:
-        raise AssertionError(f"RetinaNet bench: the line does not name the run: {out['metric']}")
+        raise AssertionError(f"{label} bench: launches {counts}, want K1 {want} times")
+    if not out["metric"].startswith(f"{name} ") or f", {args.dtype}, " not in out["metric"]:
+        raise AssertionError(f"{label} bench: the line does not name the run: {out['metric']}")
     for key in ("value", "train_img_s_chip", "train_step_ms"):
         if not (np.isfinite(out[key]) and out[key] > 0):
-            raise AssertionError(f"RetinaNet bench: {key} = {out[key]}")
+            raise AssertionError(f"{label} bench: {key} = {out[key]}")
     torch.cuda.empty_cache()
+    return counts, out, args
+
+
+def phase_retinanet_bench(dtype=None):
+    """Phase 17: :func:`box_bench` with ``--model retinanet`` (K1 once a
+    predict call, never in training), then K1 against its plain version
+    (and timed) at the bench's shape: G = batch problems of 5 x
+    pre_nms_topk class-shifted boxes. Returns the launches, the line and
+    K1's case."""
+    from detectron_tpu_torch import bench
+
+    counts, out, args = box_bench("retinanet", "RetinaNet", RETINA_BENCH_ARGS, 1, 0, dtype)
     cfg = bench.bench_config(args)
     case = nms_case(np.random.RandomState(8), dict(
         name=f"retinanet bench {args.dtype}", g=args.batch, n=5 * cfg.retinanet.pre_nms_topk,
@@ -2433,12 +2500,13 @@ DEMO_OUT = os.path.join(REPO, "build", "demo_smoke")
 DEMO_ARGS = ["--no-restore", "--config", RETINA_R50, "--cfg", f"output_dir={DEMO_OUT}"]
 
 
-def phase_demo():
-    """``python -m detectron_tpu_torch.demo --no-restore`` with RetinaNet's
-    config, as a user runs it, on the card: it writes its two synthetic
-    images (PNG)."""
+def phase_demo(args=None):
+    """``python -m detectron_tpu_torch.demo --no-restore`` with ``args``
+    (RetinaNet's config by default; R-FCN's in phase 22), as a user runs
+    it, on the card: it writes its two synthetic images (PNG)."""
     shutil.rmtree(DEMO_OUT, ignore_errors=True)
-    cmd = [sys.executable, "-m", "detectron_tpu_torch.demo", "--out", DEMO_OUT, *DEMO_ARGS]
+    cmd = [sys.executable, "-m", "detectron_tpu_torch.demo", "--out", DEMO_OUT,
+           *(DEMO_ARGS if args is None else args)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=REPO))
@@ -2461,6 +2529,665 @@ def phase_demo():
     shutil.rmtree(DEMO_OUT, ignore_errors=True)
 
 
+# --------------------------------------------------------- phases 19-22: R-FCN
+
+RFCN_R50 = os.path.join(REPO, "configs", "rfcn_r50_coco.yaml")
+RFCN_RAISED_BIAS = 6.0  # ps_cls bias of RAISED_CLASSES in every group
+
+
+def raise_rfcn_bias(params, classes, num_classes, value=RFCN_RAISED_BIAS):
+    """Random-init votes give every class ~1/K, under test.score_thresh:
+    raise ``classes`` in each of the P*P groups of ``num_classes`` channels
+    of ``ps_cls``, so that the vote, their mean, is raised by ``value``."""
+    bias = params["ps_cls.bias"].clone()
+    bias.view(-1, num_classes)[:, list(classes)] = value
+    params["ps_cls.bias"] = bias
+    return params
+
+
+def rfcn_params(det, images, seed, classes=RAISED_CLASSES):
+    """R-FCN weights from ``Detector.init(seed)``, the frozen BatchNorm
+    statistics set from ``images`` (:func:`retina_params`' reason: with
+    identity statistics the random backbone's activations grow at every
+    residual add), and ``classes``' ``ps_cls`` bias raised. A state dict of
+    copies, on the detector's device."""
+    from detectron_tpu_torch.bench import calibrate_frozen_bn
+
+    det.module.load_state_dict(det.init(seed))
+    calibrate_frozen_bn(det.module, torch.as_tensor(images, device=det.device))
+    params = {k: v.clone() for k, v in det.module.state_dict().items()}
+    return raise_rfcn_bias(params, classes, det.cfg.model.num_classes)
+
+
+def rfcn_stage_breakdown(det, batch, cfg, repeats=3):
+    """Device milliseconds of each stage of rfcn_eval_forward (median of
+    ``repeats`` after one warm-up), CUDA events between the stage calls;
+    returns them and the last repeat's proposals."""
+    from detectron_tpu_torch.models import faster_rcnn as fr
+
+    m = det.module
+    image_hw = batch["image_hw"]
+    anchors = m.anchors(batch["image"].shape[1:3], det.device)
+    names = ("backbone+trunk", "rpn head", "proposals (K1)", "ps maps", "psroipool + vote",
+             "detections (K1)")
+    samples = {n: [] for n in names}
+    with torch.no_grad():
+        for _ in range(repeats + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+            ev[0].record()
+            feat = m.features(batch["image"])
+            ev[1].record()
+            scores, deltas = m.rpn(feat)
+            ev[2].record()
+            props = fr.proposals_from_rpn(scores, deltas, anchors, image_hw, cfg)
+            ev[3].record()
+            table = m.ps_maps(feat)
+            ev[4].record()
+            cls_logits, reg = m.vote(table, props.boxes)
+            ev[5].record()
+            fr.fastrcnn_inference(cls_logits, reg, props.boxes, props.valid, image_hw, cfg)
+            ev[6].record()
+            torch.cuda.synchronize()
+            for i, n in enumerate(names):
+                samples[n].append(ev[i].elapsed_time(ev[i + 1]))
+    reset_counts()
+    parts = {n: float(np.median(v[1:])) for n, v in samples.items()}
+    total = sum(parts.values())
+    log(f"[rfcn stages {cfg.model.dtype}] median of {repeats}, device ms (share of "
+        f"{total:.2f} ms): " + "; ".join(f"{n} {v:.3f} ({100 * v / total:.1f}%)"
+                                         for n, v in parts.items()))
+    return parts, props, tuple(table.shape)
+
+
+def time_ps_roi_pool(table, rois, cfg, tag):
+    """PSRoIPool (plain PyTorch) on the card at the main path's shapes: the
+    forward, and the forward with its gradient (autograd), device ms."""
+    from detectron_tpu_torch.models.rfcn import RFCN_STRIDE
+    from detectron_tpu_torch.ops.ps_roi_pool import ps_roi_pool
+
+    p, s = cfg.roi.pool_size, cfg.roi.sampling_ratio
+    table = table.detach()
+    fwd = cuda_ms(lambda: ps_roi_pool(table, rois, RFCN_STRIDE, p, s), iters=10)
+    leaf = table.clone().requires_grad_(True)
+    g = torch.ones(rois.shape[:2] + (p, p, table.shape[-1] // (p * p)), device=table.device)
+
+    def fwd_bwd():
+        ps_roi_pool(leaf, rois, RFCN_STRIDE, p, s).backward(g)
+        leaf.grad = None
+
+    both = cuda_ms(fwd_bwd, iters=10)
+    log(f"[{tag} psroipool] table {tuple(table.shape)} float32, RoIs {tuple(rois.shape)}, "
+        f"P={p} S={s}: forward {fwd:.4f} ms, forward + gradient {both:.4f} ms (plain PyTorch, "
+        f"no kernel)")
+    return {"fwd_ms": fwd, "fwd_bwd_ms": both, "table": list(table.shape),
+            "rois": list(rois.shape)}
+
+
+def phase_rfcn(seed=0, calls=3, dtype="float32"):
+    """R-FCN R-50 predict_fn at full width (configs/rfcn_r50_coco.yaml:
+    trunk 1024, 81 classes, P=7, 1024x1024, batch 2) in ``dtype``, on
+    :func:`rfcn_params` weights: ``calls`` calls, each launching K1 twice on
+    float32 boxes (proposals: G=2, N=rpn.pre_nms_topk_test; detections:
+    G=2, N=4 x rpn.post_nms_topk_test) and K2, K3 never; detections
+    non-empty, scores in [0, 1]; one more call under the sync debug mode;
+    the stage breakdown; PSRoIPool timed; a profiled call. Returns
+    (launches over the calls, ms a call, a summary)."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+
+    cfg = get_config(RFCN_R50, [f"model.dtype={dtype}"])
+    torch.cuda.reset_peak_memory_stats()
+    det = build_detector(cfg)
+    batch = slice_inputs(cfg, seed, det.device)
+    params = rfcn_params(det, batch["image"], seed)
+    b = batch["image"].shape[0]
+    want_shapes = [(b, cfg.rpn.pre_nms_topk_test, 4), (b, 4 * cfg.rpn.post_nms_topk_test, 4)]
+    tag = f"rfcn {dtype}"
+    log(f"[{tag}] {cfg.model.name} {cfg.model.backbone} trunk {cfg.model.fpn_channels} "
+        f"(dilate_c5 {cfg.model.dilate_c5}) classes {cfg.model.num_classes} P "
+        f"{cfg.roi.pool_size} canvas {tuple(cfg.data.image_size)} batch {b}, frozen BN "
+        f"calibrated, raised classes {RAISED_CLASSES} (ps_cls bias {RFCN_RAISED_BIAS}), "
+        f"convolutions "
+        f"{'channels-last' if det.module.memory_format == torch.channels_last else 'NCHW'}")
+    totals = dict.fromkeys(counted_wrappers(), 0)
+    times = []
+    for call in range(calls):
+        torch.cuda.synchronize()
+        reset_counts()
+        shapes = {}
+        t0 = time.perf_counter()
+        with kernel_dtypes(shapes) as seen:
+            dets, masks = det.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, K1 boxes "
+            f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
+        if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0}:
+            raise AssertionError(f"R-FCN predict_fn call {call}: launches {counts}, want K1 "
+                                 "twice, K2 and K3 never")
+        if shapes != {"greedy_nms": want_shapes} or seen != {"greedy_nms": {"float32"}}:
+            raise AssertionError(f"R-FCN predict_fn call {call}: K1 handed {shapes} {seen}, "
+                                 f"want float32 boxes {want_shapes}")
+        for name, n in counts.items():
+            totals[name] += n
+    issue_ms, done_ms = check_no_host_sync(lambda: det.predict_fn(params, batch),
+                                           "R-FCN predict_fn", tag)
+    det.module.load_state_dict(params)
+    parts, props, table_shape = rfcn_stage_breakdown(det, batch, cfg)
+    with torch.no_grad():
+        table = det.module.ps_maps(det.module.features(batch["image"]))
+    pool_ms = time_ps_roi_pool(table, props.boxes.contiguous(), cfg, tag)
+    del table
+    n_props, n_dets = int(props.valid.sum()), int(dets.valid.sum())
+    log(f"[{tag}] PS table {table_shape}; proposals valid {n_props}; detections valid "
+        f"{n_dets}, classes {sorted(set(dets.classes[dets.valid].tolist()))}")
+    if masks is not None or not (n_props > 0 and n_dets > 0):
+        raise AssertionError("R-FCN: masks returned, or no proposal or detection")
+    if tuple(dets.boxes.shape) != (b, cfg.test.detections_per_image, 4):
+        raise AssertionError(f"R-FCN detections shape {tuple(dets.boxes.shape)}")
+    if (dets.boxes.dtype, dets.scores.dtype) != (torch.float32, torch.float32):
+        raise AssertionError(f"R-FCN output dtypes {dets.boxes.dtype} {dets.scores.dtype}: "
+                             "the vote is float32 in both dtypes")
+    scores = dets.scores[dets.valid]
+    if not (bool(torch.isfinite(dets.boxes).all()) and float(scores.min()) >= 0.0
+            and float(scores.max()) <= 1.0):
+        raise AssertionError("R-FCN: non-finite boxes or scores outside [0, 1]")
+    log(f"[{tag}] per-call ms {[round(t, 3) for t in times]}; scores in "
+        f"[{float(scores.min()):.4f}, {float(scores.max()):.4f}]; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_call(lambda: det.predict_fn(params, batch), f"one R-FCN predict_fn, {dtype}")
+    return totals, times, dict(call_ms=times, issue_ms=issue_ms, done_ms=done_ms,
+                               stages_ms=parts, psroipool=pool_ms)
+
+
+RFCN_CROSS_CANVAS = (256, 256)
+# PSRoIPool's full-width shapes in phase 20: R-FCN's table at 1024x1024
+# (stride 16, P*P x (81 + 4) channels) and rpn.post_nms_topk_test RoIs
+PS_TABLE = (2, 64, 64, 7 * 7 * 85)
+PS_ROIS = 300
+
+
+def phase_cross_rfcn(seed=4, dtype="float32"):
+    """R-FCN at 256x256 with small widths (trunk 32, 5 classes) on the card
+    and on the CPU (K1's plain version) with the same weights, with the C4
+    trunk and with ``model.dilate_c5``: the trunk, the RPN outputs and the
+    votes on the same RoIs (the CPU's proposals) within CROSS_F32 (bf16:
+    CROSS_BF16) of their magnitude; predict_fn on the card launches K1
+    twice. In float32 also PSRoIPool alone at R-FCN's full-width shapes
+    (PS_TABLE, PS_ROIS RoIs an image): its forward and its
+    gradient through autograd, card against CPU, within 1e-5 of their
+    magnitude. Identity frozen BatchNorm, as in phases 6 and 14."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models import faster_rcnn as fr
+    from detectron_tpu_torch.models.rfcn import RFCN_STRIDE
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.ops.ps_roi_pool import ps_roi_pool
+
+    limit = CROSS_F32 if dtype == "float32" else CROSS_BF16
+    tag = "cross rfcn" if dtype == "float32" else f"cross rfcn {dtype}"
+    for dilate in (False, True):
+        cfg = get_config(None, [
+            "model.name=rfcn", "model.num_classes=5", "model.fpn_channels=32",
+            f"data.image_size=[{RFCN_CROSS_CANVAS[0]}, {RFCN_CROSS_CANVAS[1]}]",
+            "rpn.pre_nms_topk_test=300", "rpn.post_nms_topk_test=100",
+            "test.detections_per_image=20", f"model.dilate_c5={str(dilate).lower()}",
+            f"model.dtype={dtype}"])
+        gpu, cpu = build_detector(cfg), build_detector(cfg, device="cpu")
+        batch = slice_inputs(cfg, seed, "cpu")
+        params = raise_rfcn_bias(cpu.init(seed), (1, 3), cfg.model.num_classes, value=1.0)
+        reset_counts()
+        gpu.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        reset_counts()
+        outs = {}
+        for name, det in (("cpu", cpu), ("card", gpu)):  # the card pools the CPU's RoIs
+            det.module.load_state_dict(params)
+            with torch.no_grad():
+                feat = det.module.features(batch["image"].to(det.device))
+                scores, deltas = det.module.rpn(feat)
+                if name == "cpu":
+                    rois = fr.proposals_from_rpn(
+                        scores, deltas, cpu.module.anchors(RFCN_CROSS_CANVAS, "cpu"),
+                        batch["image_hw"], cfg).boxes
+                cls_logits, reg = det.module.box(feat, rois.to(det.device))
+            outs[name] = {"trunk": feat, "objectness": scores[0], "deltas": deltas[0],
+                          "class votes": cls_logits, "box votes": reg}
+        reset_counts()
+        rel = {k: float((outs["card"][k].cpu().float() - v.float()).abs().max()
+                        / v.float().abs().max()) for k, v in outs["cpu"].items()}
+        worst = max(rel.values())
+        log(f"[{tag}] {RFCN_CROSS_CANVAS[0]}x{RFCN_CROSS_CANVAS[1]} trunk 32 dilate_c5 "
+            f"{dilate}: launches on the card {counts}; max |card - CPU| / max |CPU| (limit "
+            f"{limit:.0e}): " + "; ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0} or not worst <= limit:
+            raise AssertionError(f"cross-device R-FCN {dtype} dilate_c5={dilate}: launches "
+                                 f"{counts}, card and CPU differ by {worst:.3e}")
+    if dtype != "float32":
+        return
+    # PSRoIPool alone at the full-width shapes, forward and gradient
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
+    b, h, w, c = PS_TABLE
+    table = torch.randn(*PS_TABLE, generator=gen)
+    rois = torch.tensor(roi_cases(rng, b, PS_ROIS, (h * RFCN_STRIDE, w * RFCN_STRIDE)),
+                        dtype=torch.float32)
+    g = torch.randn(b, PS_ROIS, 7, 7, c // 49, generator=gen)
+    res = {}
+    for name, dev in (("card", DEVICE), ("cpu", "cpu")):
+        leaf = table.to(dev).requires_grad_(True)
+        out = ps_roi_pool(leaf, rois.to(dev), RFCN_STRIDE, 7, 2)
+        out.backward(g.to(dev))
+        res[name] = (out.detach().cpu(), leaf.grad.cpu())
+    fwd = float((res["card"][0] - res["cpu"][0]).abs().max() / res["cpu"][0].abs().max())
+    bwd = float((res["card"][1] - res["cpu"][1]).abs().max() / res["cpu"][1].abs().max())
+    log(f"[{tag}] PSRoIPool table {PS_TABLE}, {PS_ROIS} RoIs an image: card against CPU, "
+        f"forward {fwd:.2e}, gradient {bwd:.2e} of their magnitude (limit 1e-05)")
+    if not (fwd <= 1e-5 and bwd <= 1e-5):
+        raise AssertionError(f"PSRoIPool card against CPU: forward {fwd:.3e}, gradient "
+                             f"{bwd:.3e}")
+
+
+def phase_rfcn_train(seed=0, warmup=2, steps=3, dtype="float32"):
+    """R-FCN R-50 train_step at full width in ``dtype`` (1024x1024, batch
+    2): ``warmup`` + ``steps`` steps, each finite and launching K1 once
+    (the proposals, G=2, N=rpn.pre_nms_topk_train) and K2, K3 never; every
+    trainable parameter changed (res5 too, which the C4 trunk does not run:
+    weight decay and momentum move it) and float32, every frozen one
+    unchanged; ms a step, peak memory, the stage breakdown, PSRoIPool's
+    forward and gradient timed at the sampled RoIs; in float32 then the
+    train driver. Returns (launches over the timed steps, ms a step, a
+    summary)."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.train.state import train_step
+
+    cfg = get_config(RFCN_R50, TRAIN_OVERRIDES + [f"model.dtype={dtype}"])
+    state, data = seeded_train_state(cfg, None, seed)
+    det = state.detector
+    tag = f"rfcn train {dtype}"
+    log(f"[{tag}] {cfg.model.name} {cfg.model.backbone} trunk {cfg.model.fpn_channels} "
+        f"classes {cfg.model.num_classes} canvas {tuple(cfg.data.image_size)} batch "
+        f"{cfg.train.batch_size} base_lr {cfg.train.base_lr} grad_clip_norm "
+        f"{cfg.train.grad_clip_norm}")
+    named = dict(det.module.named_parameters())
+    trainable = [n for n, q in named.items() if q.requires_grad]
+    frozen = [n for n, q in named.items() if not q.requires_grad]
+    before = {n: q.detach().clone() for n, q in named.items()}
+    batches = [det.batch_to_device(next(data)) for _ in range(warmup + steps)]
+    totals = dict.fromkeys(counted_wrappers(), 0)
+    want_shapes = [(cfg.train.batch_size, cfg.rpn.pre_nms_topk_train, 4)]
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        reset_counts()
+        shapes = {}
+        t0 = time.perf_counter()
+        with kernel_dtypes(shapes) as seen:
+            metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        losses = {k: float(v) for k, v in metrics.items()}
+        log(f"[{tag}] {'warm-up' if i < warmup else 'step'} {i}: {ms:.1f} ms, launches "
+            f"{counts}, " + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"R-FCN train step {i}: a loss is not finite: {losses}")
+        if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0}:
+            raise AssertionError(f"R-FCN train step {i}: launches {counts}, want K1 once, K2 "
+                                 "and K3 never")
+        if shapes != {"greedy_nms": want_shapes} or seen != {"greedy_nms": {"float32"}}:
+            raise AssertionError(f"R-FCN train step {i}: K1 handed {shapes} {seen}")
+        if i >= warmup:
+            times.append(ms)
+            for name, n in counts.items():
+                totals[name] += n
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    unchanged = [n for n in trainable if torch.equal(named[n].detach(), before[n])]
+    moved = [n for n in frozen if not torch.equal(named[n].detach(), before[n])]
+    not_fp32 = [n for n, q in named.items()
+                if q.dtype != torch.float32 or (q.grad is not None and q.grad.dtype != q.dtype)]
+    log(f"[{tag}] {len(trainable)} trainable tensors, {len(unchanged)} unchanged; "
+        f"{len(frozen)} frozen, {len(moved)} changed; parameters or gradients not float32: "
+        f"{len(not_fp32)}")
+    if unchanged or moved or not frozen or not_fp32:
+        raise AssertionError(f"R-FCN train: trainable unchanged {unchanged[:5]}, frozen moved "
+                             f"{moved[:5]}, not float32 {not_fp32[:5]}")
+    del before
+    med = float(np.median(times))
+    log(f"[{tag}] per-step ms {[round(t, 3) for t in times]}; median {med:.2f} ms = "
+        f"{cfg.train.batch_size * 1e3 / med:.2f} img/s; peak device memory {peak:.2f} GiB")
+    parts = train_breakdown(state, batches[-1], tag=tag)
+    # PSRoIPool at the training shapes: the sampled RoIs of a step
+    with torch.no_grad():
+        table = det.module.ps_maps(det.module.features(batches[-1]["image"]))
+    r = cfg.roi.batch_per_image
+    rois = torch.tensor(roi_cases(np.random.RandomState(seed), cfg.train.batch_size, r,
+                                  cfg.data.image_size), dtype=torch.float32, device=det.device)
+    pool_ms = time_ps_roi_pool(table, rois, cfg, tag)
+    del table
+    if dtype == "float32":
+        phase_driver(state, RFCN_R50)
+    return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts,
+                               psroipool=pool_ms)
+
+
+def phase_rfcn_eval(seed=0, dtype="float32"):
+    """Phase 22's eval: :func:`box_eval` with R-FCN R-50, K1 twice a call."""
+    return box_eval("rfcn", "R-FCN", RFCN_R50, rfcn_params, 2, seed, dtype)
+
+
+# batch 8 for both halves, R-FCN's trunk of 1024 channels (the zoo config's)
+RFCN_BENCH_ARGS = ["--model", "rfcn", "--batch", "8", "--train-batch", "8", "--iters", "3",
+                   "--train-iters", "2", "--set", "model.fpn_channels=1024"]
+
+
+def phase_rfcn_bench(dtype=None):
+    """Phase 22's bench: :func:`box_bench` with ``--model rfcn --set
+    model.fpn_channels=1024`` at batch 8 / 8, K1 twice a predict call and
+    once a train step. Returns the launches and the line."""
+    counts, out, _ = box_bench("rfcn", "R-FCN", RFCN_BENCH_ARGS, 2, 1, dtype)
+    return counts, out
+
+
+RFCN_DEMO_ARGS = ["--no-restore", "--config", RFCN_R50, "--cfg", f"output_dir={DEMO_OUT}"]
+
+
+def rfcn_phases(k1) -> dict:
+    """Phases 19-22, each path in both dtypes (the config's bf16 and
+    float32). Returns ``{path: (launches, summary)}``."""
+    rfcn = {}
+    for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        counts, _, summary = phase_rfcn(dtype=dtype)
+        rfcn["rfcn_predict" + sfx] = (counts, summary)
+    phase_cross_rfcn()
+    phase_cross_rfcn(dtype="bfloat16")
+    for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        counts, _, summary = phase_rfcn_train(dtype=dtype)
+        rfcn["rfcn_train" + sfx] = (counts, summary)
+        counts, img_s = phase_rfcn_eval(dtype=dtype)
+        rfcn["rfcn_eval" + sfx] = (counts, img_s)
+    for dtype, sfx in ((None, "_bf16"), ("float32", "")):
+        counts, line = phase_rfcn_bench(dtype)
+        rfcn["rfcn_bench" + sfx] = (counts, line)
+    phase_demo(RFCN_DEMO_ARGS)
+    return rfcn
+
+
+# ------------------------------------------------------------ phase 23: RoIPool
+
+FASTER_R50 = os.path.join(REPO, "configs", "faster_rcnn_r50_fpn_coco.yaml")
+POOL_OVERRIDES = ["roi.pool_type=pool"]
+
+
+def check_roi_pool(name, feats, rois, p):
+    """multilevel_roi_pool on the card against the CPU, on the same float32
+    inputs: bit for bit (a max is exact); then on the features rounded to
+    bf16, within one bf16 step of the CPU's float32 result rounded to bf16
+    (rounding is monotone, so it commutes with a max: the two are equal).
+    Each timed on the card, forward and forward with its gradient. Returns
+    the two cases."""
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    want = ra.multilevel_roi_pool([f.cpu() for f in feats], rois.cpu(), STRIDES, p)
+    empty = int((want == 0).all(-1).sum())
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        levels = [f.to(dtype) for f in feats]
+        ref = want.to(dtype)
+        got = ra.multilevel_roi_pool(levels, rois, STRIDES, p).cpu()
+        steps = bf16_steps(got, ref) if dtype == torch.bfloat16 else 0
+        equal = torch.equal(got, ref)
+        ms = cuda_ms(lambda: ra.multilevel_roi_pool(levels, rois, STRIDES, p), iters=10)
+        leaves = [f.detach().clone().requires_grad_(True) for f in levels]
+        g = torch.ones(got.shape, dtype=dtype, device=rois.device)
+
+        def fwd_bwd():
+            ra.multilevel_roi_pool(leaves, rois, STRIDES, p).backward(g)
+            for leaf in leaves:
+                leaf.grad = None
+
+        both = cuda_ms(fwd_bwd, iters=5)
+        tag = name if dtype == torch.float32 else f"{name} bf16"
+        log(f"[RoIPool {tag}] card against CPU: max |diff| "
+            f"{float((got.float() - ref.float()).abs().max()):.3e}"
+            f"{f', {steps} bf16 steps' if dtype == torch.bfloat16 else ''} "
+            f"({'equal' if equal else 'not equal'}; {empty} empty bins); forward {ms:.4f} ms, "
+            f"forward + gradient {both:.4f} ms (plain PyTorch, no kernel)")
+        if not (equal if dtype == torch.float32 else steps <= 1):
+            raise AssertionError(f"RoIPool {tag}: the card differs from the CPU")
+        cases.append({"case": tag, "dtype": str(dtype).replace("torch.", ""), "ms": ms,
+                      "fwd_bwd_ms": both})
+    return cases
+
+
+def phase_roi_pool(seed=0, calls=3, steps=2):
+    """RoIPool: multilevel_roi_pool card against CPU at the 1024x1344 P2-P5
+    shapes (C=256; R=512, P=7 and R=128, P=14 an image, batch 2), in float32
+    and bf16; then Faster R-CNN R-50-FPN (configs/faster_rcnn_r50_fpn_coco
+    .yaml) with roi.pool_type=pool in float32: ``calls`` predict calls (K1
+    twice each) and ``steps`` train steps (K1 once each), K2 and K3 never.
+    Returns {path: launches} and the pool's timings."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.train.state import train_step
+
+    rng = np.random.RandomState(seed)
+    feats = level_features(rng)
+    cases = []
+    for p, r in ((7, 512), (14, 128)):
+        rois = torch.tensor(roi_cases(rng, 2, r, CANVAS), device=DEVICE)
+        cases += check_roi_pool(f"P={p} R={r}", feats, rois, p)
+    del feats
+    cfg = get_config(FASTER_R50, POOL_OVERRIDES)
+    det = build_detector(cfg)
+    params = raise_class_bias(det.init(seed), RAISED_CLASSES)
+    batch = slice_inputs(cfg, seed, det.device)
+    log(f"[roi_pool] {cfg.model.name} {cfg.model.backbone} FPN {cfg.model.fpn_channels} "
+        f"roi.pool_type={cfg.roi.pool_type} canvas {tuple(cfg.data.image_size)} batch 2")
+    launches = {"roi_pool_predict": dict.fromkeys(counted_wrappers(), 0),
+                "roi_pool_train": dict.fromkeys(counted_wrappers(), 0)}
+    times = []
+    for call in range(calls):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        dets, _ = det.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0} or not int(dets.valid.sum()):
+            raise AssertionError(f"RoIPool predict call {call}: launches {counts}, "
+                                 f"{int(dets.valid.sum())} detections")
+        for name, n in counts.items():
+            launches["roi_pool_predict"][name] += n
+    log(f"[roi_pool] predict ms {[round(t, 3) for t in times]}; detections valid "
+        f"{int(dets.valid.sum())}; launches {launches['roi_pool_predict']}")
+    tcfg = get_config(FASTER_R50, POOL_OVERRIDES + TRAIN_OVERRIDES)
+    state, data = seeded_train_state(tcfg, None, seed)
+    step_ms = []
+    for i in range(steps):
+        batch = state.detector.batch_to_device(next(data))
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        losses = {k: float(v) for k, v in metrics.items()}
+        log(f"[roi_pool train] step {i}: {step_ms[-1]:.1f} ms, launches {counts}, "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
+        if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0} or not all(
+                          np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"RoIPool train step {i}: launches {counts}, losses {losses}")
+        for name, n in counts.items():
+            launches["roi_pool_train"][name] += n
+    reset_counts()
+    return launches, dict(pool=cases, predict_ms=times, step_ms=step_ms)
+
+
+# --------------------------------------------------- phase 24: pretrained weights
+
+WEIGHTS_DIR = os.path.join(REPO, "build", "weights_smoke")
+
+
+def torchvision_backbone(seed, depth="resnet50"):
+    """A torchvision-named ResNet state dict with seeded values (frozen BN
+    statistics near the identity, fc and num_batches_tracked included)."""
+    from detectron_tpu_torch.models.resnet import ResNet
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, value in ResNet(depth).state_dict().items():
+        name = key.replace("downsample_conv", "downsample.0").replace("downsample_bn",
+                                                                      "downsample.1")
+        arr = rng.randn(*value.shape).astype(np.float32) * 0.02
+        if key.endswith(("running_var", "bn1.weight", "bn2.weight", "bn3.weight",
+                         "downsample_bn.weight")):
+            arr = 1.0 + np.abs(arr)
+        out[name] = torch.tensor(arr)
+        if key.endswith("running_var"):
+            out[name.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    out["fc.weight"] = torch.zeros(1000, 2048)
+    out["fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def lineage_detector(cfg, seed):
+    """A full Mask R-CNN state dict for ``cfg``'s widths in the lineage's
+    names: the backbone under ``resnet.``, ``fpn_inner``/``fpn_output``,
+    ``rpn_conv`` with a 2A softmax ``rpn_cls_score``, ``fc6``/``fc7``,
+    ``mask_fcn1..4``, ``conv5_mask`` (ConvTranspose2d) and K+1
+    ``mask_fcn_logits``."""
+    rng = np.random.RandomState(seed)
+    c, k = cfg.model.fpn_channels, cfg.model.num_classes
+    a = len(cfg.anchors.ratios) * len(cfg.anchors.rpn_scales)
+    p = cfg.roi.pool_size
+
+    def w(*shape):
+        return torch.tensor(rng.randn(*shape).astype(np.float32) * 0.01)
+
+    out = {f"resnet.{n}": v for n, v in torchvision_backbone(seed).items()}
+    for lvl, cin in zip(range(2, 6), (256, 512, 1024, 2048)):
+        out.update({f"fpn_inner{lvl}.weight": w(c, cin, 1, 1), f"fpn_inner{lvl}.bias": w(c),
+                    f"fpn_output{lvl}.weight": w(c, c, 3, 3), f"fpn_output{lvl}.bias": w(c)})
+    out.update({"rpn_conv.weight": w(c, c, 3, 3), "rpn_conv.bias": w(c),
+                "rpn_cls_score.weight": w(2 * a, c, 1, 1), "rpn_cls_score.bias": w(2 * a),
+                "rpn_bbox_pred.weight": w(4 * a, c, 1, 1), "rpn_bbox_pred.bias": w(4 * a),
+                "fc6.weight": w(1024, c * p * p), "fc6.bias": w(1024),
+                "fc7.weight": w(1024, 1024), "fc7.bias": w(1024),
+                "cls_score.weight": w(k, 1024), "cls_score.bias": w(k),
+                "bbox_pred.weight": w(4 * k, 1024), "bbox_pred.bias": w(4 * k),
+                "conv5_mask.weight": w(256, 256, 2, 2), "conv5_mask.bias": w(256),
+                "mask_fcn_logits.weight": w(k, 256, 1, 1), "mask_fcn_logits.bias": w(k)})
+    for i in range(1, 5):
+        out.update({f"mask_fcn{i}.weight": w(256, c if i == 1 else 256, 3, 3),
+                    f"mask_fcn{i}.bias": w(256)})
+    return out
+
+
+def phase_weights(seed=0):
+    """model.weights through both drivers on the card: a torchvision-named
+    R-50 backbone dict (``.pth``, ``module.``-prefixed, wrapped in
+    ``state_dict``) into the train driver on R-FCN for one step, the
+    weights it starts from equal to the dict under the layout maps; a full
+    Mask R-CNN dict in the lineage's names into the eval driver on Mask
+    R-CNN over phase 11's split: the weights it predicts with equal to the
+    dict (the deconv as it is, fc1 permuted CHW -> HWC, the RPN classifier
+    fg - bg, the mask logits without channel 0), K1 and K2 twice a call,
+    every image once."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.eval import driver as eval_driver
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.train import driver as train_driver
+    from detectron_tpu_torch.utils.torch_weights import torch_key_to_port_key
+
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    os.makedirs(WEIGHTS_DIR)
+    backbone_path = os.path.join(WEIGHTS_DIR, "r50_torchvision.pth")
+    src = torchvision_backbone(seed)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in src.items()}}, backbone_path)
+    seen = {}
+    real = train_driver.create_train_state
+
+    def spy(cfg, det, params=None):
+        seen["params"] = {k: v.detach().cpu().clone() for k, v in params.items()}
+        return real(cfg, det, params)
+
+    out = os.path.join(WEIGHTS_DIR, "train")
+    cfg = get_config(RFCN_R50, TRAIN_OVERRIDES + [
+        "model.dtype=float32", "train.max_steps=1", "train.log_every=1", f"output_dir={out}",
+        f"model.weights={backbone_path}"])
+    train_driver.create_train_state = spy
+    try:
+        reset_counts()
+        last = train_driver.run(cfg)
+        counts = read_counts()
+    finally:
+        train_driver.create_train_state = real
+    mismatched = [k for k, v in src.items() if torch_key_to_port_key(k) is not None
+                  and not torch.equal(seen["params"][f"backbone.{torch_key_to_port_key(k)}"],
+                                      v)]
+    n_loaded = sum(torch_key_to_port_key(k) is not None for k in src)
+    log(f"[weights] train driver, R-FCN, model.weights={os.path.relpath(backbone_path, REPO)}: "
+        f"{n_loaded} backbone tensors loaded, {len(mismatched)} differ from the dict; 1 step, "
+        f"losses {({k: round(v, 4) for k, v in last.items()})}, launches {counts}")
+    if mismatched or not last or not all(np.isfinite(v) for v in last.values()) or (
+            counts["greedy_nms"] != 1):
+        raise AssertionError(f"weights: train driver loaded {mismatched[:5]} wrong, or its step "
+                             f"failed: {last} {counts}")
+
+    cfg = get_config(MASK_R50, ["train.batch_size=2", "data.orientation_buckets=true",
+                                f"output_dir={os.path.join(WEIGHTS_DIR, 'eval')}"])
+    full = lineage_detector(cfg, seed + 1)
+    full_path = os.path.join(WEIGHTS_DIR, "mask_rcnn_lineage.pth")
+    torch.save({"model": {f"module.{k}": v for k, v in full.items()}}, full_path)
+    cfg.model.weights = full_path
+    ds = InMemoryCoco(seed, num_classes=cfg.model.num_classes)
+    det = build_detector(cfg)
+    used = {}
+
+    def predict(params, batch):
+        used.setdefault("params", params)
+        return det.predict_fn(params, batch)
+
+    reset_counts()
+    res = eval_driver.run(cfg, dataset=ds, restore=False, predict=predict)
+    counts = read_counts()
+    got = {k: v.cpu() for k, v in used["params"].items()}
+    p, c = cfg.roi.pool_size, cfg.model.fpn_channels
+    bg, fg = full["rpn_cls_score.weight"].chunk(2)
+    checks = {
+        "deconv as it is": torch.equal(got["mask_head.deconv.weight"],
+                                       full["conv5_mask.weight"]),
+        "fc1 CHW -> HWC": torch.equal(got["box_head.fc1.weight"], full["fc6.weight"].reshape(
+            1024, c, p, p).permute(0, 2, 3, 1).reshape(1024, -1)),
+        "rpn fg - bg": torch.equal(got["rpn_head.objectness.weight"], fg - bg),
+        "mask logits from channel 1": torch.equal(got["mask_head.mask_logits.weight"],
+                                                  full["mask_fcn_logits.weight"][1:]),
+        "fpn_output3 -> smooth3": torch.equal(got["fpn.smooth3.weight"],
+                                              full["fpn_output3.weight"]),
+        "backbone": torch.equal(got["backbone.layer4.2.conv3.weight"],
+                                full["resnet.layer4.2.conv3.weight"]),
+    }
+    calls = res["timing"]["batches"]
+    log(f"[weights] eval driver, Mask R-CNN, model.weights={os.path.relpath(full_path, REPO)}: "
+        f"{checks}; {res['timing']['images']} images, launches {counts}; AP {res['AP']}")
+    if not all(checks.values()) or res["timing"]["images"] != len(ds) or counts != {
+            "greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
+            "multilevel_roi_align_bwd": 0}:
+        raise AssertionError(f"weights: eval driver {checks}, launches {counts}")
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    reset_counts()
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -2475,8 +3202,8 @@ KERNELS = {
 
 def kernel_entry(name, cases, launches, max_abs_err):
     """One kernel's line entry. ``launches_by_path``: its launches on each
-    path's run (predict, train, eval, bench, and RetinaNet's: K1 alone, once
-    a predict call); ``launches`` the training
+    path's run (predict, train, eval, bench, and RetinaNet's, R-FCN's and
+    the RoIPool Faster R-CNN's: K1 alone); ``launches`` the training
     path's (phase 9's timed float32 steps), the one path that launches all
     three kernels, as in the line since K3 was ported. Times are summed
     over the float32 training step's cases (one launch of each case per
@@ -2524,12 +3251,23 @@ def main(argv=None) -> int:
                              "versions, and their times), print their cases and stop; no "
                              "result line")
     args = parser.parse_args(argv)
+    start = last = time.perf_counter()
+
+    def lap(phases):
+        """Logs the host seconds that ``phases`` took, and the total."""
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[time] {phases}: {now - last:.1f} s (total {now - start:.1f} s)")
+        last = now
+
     card = phase_device()
     phase_build()
+    lap("phases 1-2")
     rng = np.random.RandomState(0)
     k1 = phase_nms(rng)
     feats = level_features(rng)
     k2 = phase_roi_align(rng, feats)
+    lap("phases 3-4")
     if args.kernels:
         k3 = phase_roi_align_bwd(rng, feats)
         print(json.dumps({"kernel_cases": {"greedy_nms": k1, "multilevel_roi_align": k2,
@@ -2540,17 +3278,29 @@ def main(argv=None) -> int:
     predict16_launches, _, predict16 = phase_slice(dtype="bfloat16")
     phase_cross_device()
     phase_cross_device(dtype="bfloat16")
+    lap("phases 5-6")
     k3 = phase_roi_align_bwd(rng, feats)
     phase_function(rng, feats)
     del feats
+    lap("phases 7-8")
     train_launches, _, train32 = phase_train()
     train16_launches, _, train16 = phase_train(dtype="bfloat16")
     phase_cross_train()
+    lap("phases 9-10")
     eval_launches, eval32 = phase_eval()
     eval16_launches, eval16 = phase_eval(dtype="bfloat16")
+    lap("phase 11")
     bench16_launches, bench16 = phase_bench()  # the bench's default, bf16
     bench_launches, bench32 = phase_bench("float32")
+    lap("phase 12")
     retina = retinanet_phases(k1)
+    lap("phases 13-18")
+    rfcn = rfcn_phases(k1)
+    lap("phases 19-22")
+    pool_launches, pool_summary = phase_roi_pool()
+    lap("phase 23")
+    phase_weights()
+    lap("phase 24")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -2558,7 +3308,9 @@ def main(argv=None) -> int:
                 "predict_bf16": predict16_launches.get(name, 0),
                 "train_bf16": train16_launches[name], "eval_bf16": eval16_launches[name],
                 "bench_bf16": bench16_launches[name],
-                **{path: counts[name] for path, (counts, _) in retina.items()}}
+                **{path: counts[name] for path, (counts, _) in retina.items()},
+                **{path: counts[name] for path, (counts, _) in rfcn.items()},
+                **{path: counts[name] for path, counts in pool_launches.items()}}
 
     kernels = [
         kernel_entry("greedy_nms", k1, launches("greedy_nms"), 0.0),
@@ -2573,7 +3325,9 @@ def main(argv=None) -> int:
         "train": {"float32": train32, "bfloat16": train16},
         "eval_img_s": {"float32": eval32, "bfloat16": eval16},
         "bench": {"float32": bench32, "bfloat16": bench16},
-        "retinanet": {path: summary for path, (_, summary) in retina.items()}}}), flush=True)
+        "retinanet": {path: summary for path, (_, summary) in retina.items()},
+        "rfcn": {path: summary for path, (_, summary) in rfcn.items()},
+        "roi_pool": pool_summary}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
 """Benchmark: a detector's throughput on one card, inference and training.
 
     python -m detectron_tpu_torch.bench [--size 1024] [--batch 48] [--train-batch 16]
-        [--model mask_rcnn|faster_rcnn|retinanet] [--mode both|infer|train]
+        [--model mask_rcnn|faster_rcnn|retinanet|rfcn] [--mode both|infer|train]
         [--iters 20] [--train-iters 8] [--dtype bfloat16|float32] [--set key=value ...]
 
-The model is ``--model`` R-50-FPN in the default config (Mask R-CNN by
-default; ``--set model.backbone=resnet101`` for R-101). The port of
+The model is ``--model`` R-50 in the default config (Mask R-CNN by
+default; ``--set model.backbone=resnet101`` for R-101), with an FPN but for
+R-FCN (``--model rfcn``: the default config's widths, so that
+``--set model.fpn_channels=1024`` gives ``configs/rfcn_r50_coco.yaml``'s
+1024-channel trunk); the metric names ``R-50-FPN`` whatever the model, as
+``bench.py``'s does. The port of
 ``bench.py``. It prints ONE JSON line in that script's format:
 
     {"metric": "...", "value": N, "unit": "images/sec", "vs_baseline": null,
@@ -52,7 +56,7 @@ import torch
 from detectron_tpu_torch.config import cfg_from_list, get_config
 from detectron_tpu_torch.data.synthetic import make_batch
 from detectron_tpu_torch.models.resnet import FrozenBatchNorm
-from detectron_tpu_torch.models.zoo import build_detector, resolve_device
+from detectron_tpu_torch.models.zoo import MODEL_NAMES, build_detector, resolve_device
 from detectron_tpu_torch.train.state import create_train_state, train_step
 
 WARMUP = 2  # untimed calls (steps) before each timing: the first sets up cuDNN
@@ -98,7 +102,7 @@ def parse_args(argv=None):
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--train-iters", type=int, default=8)
-    ap.add_argument("--model", default="mask_rcnn")
+    ap.add_argument("--model", default="mask_rcnn", choices=MODEL_NAMES)
     ap.add_argument("--mode", default="both", choices=("both", "infer", "train"))
     ap.add_argument("--set", dest="overrides", nargs="*", default=[],
                     help="dotted cfg overrides, e.g. rpn.post_nms_topk_test=1000")

@@ -3,6 +3,8 @@
     python -m detectron_tpu_torch.demo --config configs/retinanet_r50_fpn_coco.yaml \\
         [--images a.jpg b.jpg] [--out build/demo] [--no-restore] [--cfg key=value ...]
 
+Any model of the zoo: Mask R-CNN draws boxes and masks; Faster R-CNN,
+RetinaNet and R-FCN (``configs/rfcn_r50_coco.yaml``) draw boxes.
 The port of the root ``demo.py``: weights from the latest checkpoint in
 ``output_dir`` (``train/checkpoint.py::restore_params``; ``--no-restore``:
 the random ones of ``Detector.init``), each image resized and normalized

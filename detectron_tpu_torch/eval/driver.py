@@ -4,10 +4,13 @@
         --config configs/mask_rcnn_r50_fpn_coco.yaml \\
         --cfg data.root=/data/coco output_dir=build/run [--limit 100] [--no-restore]
 
-weights (the latest checkpoint of ``output_dir``, params only) -> the
+weights (``model.weights``, a torchvision backbone or full-detector
+``.pth`` / ``.npz``, if set; then the latest checkpoint of ``output_dir``,
+params only) -> the
 threaded ``Loader`` over the val split -> ``predict_fn`` on the card ->
 detections mapped back to original image coordinates -> fused mask paste +
-RLE on the host -> the COCO (box and segm), VOC or MR^-2 metrics ->
+RLE on the host (Mask R-CNN) -> the COCO (box, and segm with masks), VOC or
+MR^-2 metrics ->
 ``output_dir/eval_results.json``. It runs on the card; the CPU is for
 tests (``run(cfg, device="cpu")``).
 
@@ -40,6 +43,7 @@ from detectron_tpu_torch.eval import evaluate_coco, evaluate_mr, evaluate_voc
 from detectron_tpu_torch.models.mask_rcnn import paste_masks_rle
 from detectron_tpu_torch.models.zoo import build_detector
 from detectron_tpu_torch.train import checkpoint as ckpt
+from detectron_tpu_torch.utils.torch_weights import maybe_load_pretrained
 
 # the loop's range in a torch.profiler trace (chip_smoke.py reads the
 # device's busy share over it)
@@ -197,13 +201,12 @@ def run(cfg, dataset=None, limit: int = 0, restore: bool = True, device=None,
     ``predict(params, batch) -> (Detections, masks | None)`` replaces the
     detector's ``predict_fn`` (the tests' oracle). Returns None on a process
     other than 0 of a ``torch.distributed`` group."""
-    if cfg.model.weights:
-        raise NotImplementedError(
-            "model.weights (a torchvision backbone checkpoint) is not ported yet: "
-            "ROADMAP.md, Open items")
     pidx, pcount = process_index_count()
     det = build_detector(cfg, device=device)
     params = det.init(0)
+    if cfg.model.weights:
+        params = maybe_load_pretrained(cfg, params)
+        print(f"initialized from {cfg.model.weights}", flush=True)
     if restore:
         params, step = ckpt.restore_params(cfg.output_dir, params, det.device)
         if step is not None:

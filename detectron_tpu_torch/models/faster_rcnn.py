@@ -3,7 +3,8 @@
 The port of ``detectron_tpu/models/faster_rcnn.py``. Eval: backbone + FPN
 -> RPN per level -> proposals -> 7x7 RoIAlign -> 2xFC box head -> softmax
 + per-class decode -> class-aware NMS -> (14x14 RoIAlign -> mask head ->
-own-class sigmoid). Train: the RPN losses on sampled anchors, proposals
+own-class sigmoid); with ``roi.pool_type=pool`` both heads pool with
+RoIPool's exact max instead of RoIAlign. Train: the RPN losses on sampled anchors, proposals
 from the detached RPN outputs, sampled RoIs, the box losses and the mask
 loss on the foreground slots. Every output has a fixed number of slots and
 a validity mask, as in the JAX package.
@@ -28,7 +29,8 @@ from detectron_tpu_torch.models.resnet import ResNet
 from detectron_tpu_torch.ops import boxes as box_ops
 from detectron_tpu_torch.ops.anchors import AnchorGenerator
 from detectron_tpu_torch.ops.nms import class_aware_nms
-from detectron_tpu_torch.ops.roi_align import multilevel_roi_align, roi_max_span
+from detectron_tpu_torch.ops.roi_align import (multilevel_roi_align, multilevel_roi_pool,
+                                               roi_max_span)
 
 RPN_STRIDES = (4, 8, 16, 32, 64)  # P2..P6
 ROI_STRIDES = (4, 8, 16, 32)  # box/mask heads pool from P2..P5
@@ -84,10 +86,11 @@ class TwoStageDetector(nn.Module):
         self.include_mask = include_mask
         self.dtype = dt = compute_dtype(cfg.model.dtype)
         ch = cfg.model.fpn_channels
+        # model.dilate_c5 is R-FCN's alone: the JAX two-stage detector does
+        # not read it (its FPN takes c5 at stride 32)
         self.backbone = ResNet(
             depth=cfg.model.backbone, frozen_stages=cfg.model.frozen_stages,
-            norm=cfg.model.norm, stem=cfg.model.stem,
-            dilate_c5=cfg.model.dilate_c5, remat=cfg.model.remat, dtype=dt)
+            norm=cfg.model.norm, stem=cfg.model.stem, remat=cfg.model.remat, dtype=dt)
         self.fpn = FPN(self.backbone.out_channels, ch, levels="p2p6", dtype=dt)
         self.rpn_head = RPNHead(ch, len(cfg.anchors.ratios) * len(cfg.anchors.rpn_scales),
                                 dtype=dt)
@@ -133,6 +136,11 @@ class TwoStageDetector(nn.Module):
 
     def _pool(self, levels, rois, size):
         pooled = levels[: len(ROI_STRIDES)]
+        if self.cfg.roi.pool_type == "pool":
+            # exact dynamic-bin max RoIPool (plain PyTorch, no kernel), with
+            # the JAX model's window of 32 cells whatever roi.window says
+            return multilevel_roi_pool(pooled, rois.contiguous(), ROI_STRIDES,
+                                       output_size=size)
         span = roi_max_span(self.cfg, pooled[-1].shape[1:3])
         return multilevel_roi_align(pooled, rois.contiguous(), ROI_STRIDES,
                                     output_size=size,

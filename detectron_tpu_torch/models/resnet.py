@@ -49,20 +49,21 @@ class FrozenBatchNorm(nn.Module):
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
-         dtype: torch.dtype = torch.float32) -> Conv2d:
-    return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False,
-                  compute_dtype=dtype)
+         dtype: torch.dtype = torch.float32, dilation: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, kernel, stride=stride, padding=dilation * (kernel - 1) // 2,
+                  dilation=dilation, bias=False, compute_dtype=dtype)
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (stride) -> 1x1, expansion 4."""
+    """1x1 -> 3x3 (stride, dilation) -> 1x1, expansion 4."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 downsample: bool = False, dtype: torch.dtype = torch.float32):
+                 downsample: bool = False, dtype: torch.dtype = torch.float32,
+                 dilation: int = 1):
         super().__init__()
         self.conv1 = conv(cin, features, 1, dtype=dtype)
         self.bn1 = FrozenBatchNorm(features, dtype=dtype)
-        self.conv2 = conv(features, features, 3, stride, dtype=dtype)
+        self.conv2 = conv(features, features, 3, stride, dtype=dtype, dilation=dilation)
         self.bn2 = FrozenBatchNorm(features, dtype=dtype)
         self.conv3 = conv(features, features * 4, 1, dtype=dtype)
         self.bn3 = FrozenBatchNorm(features * 4, dtype=dtype)
@@ -93,7 +94,8 @@ def resnet_param_is_frozen(name: str, frozen_stages: int = 1) -> bool:
 
 
 class ResNet(nn.Module):
-    """NCHW images -> ``{"c2", "c3", "c4", "c5"}`` (strides 4/8/16/32).
+    """NCHW images -> ``{"c2", "c3", "c4", "c5"}`` (strides 4/8/16/32; c5
+    at 16 with ``dilate_c5``).
 
     The parameters that :func:`resnet_param_is_frozen` names are made with
     ``requires_grad=False``: no gradient reaches them, as the JAX
@@ -101,6 +103,13 @@ class ResNet(nn.Module):
     mask give. ``remat`` is accepted and changes nothing; ``stem="s2d"``
     is an exact re-layout of the same 7x7/2 conv, so it runs as the plain
     stem.
+
+    ``dilate_c5`` is the a-trous res5 of R-FCN's paper trunk: stage 4
+    keeps stride 16 (its first block's 3x3 and downsample convs stride 1)
+    and dilates **every** one of its 3x3 convs by 2, the first block's
+    too, as the JAX package does (torchvision's
+    ``replace_stride_with_dilation`` leaves the first block at dilation
+    1). The weights' shapes are unchanged; c5 comes out at stride 16.
     """
 
     def __init__(self, depth: str = "resnet50", frozen_stages: int = 1,
@@ -112,10 +121,6 @@ class ResNet(nn.Module):
             raise NotImplementedError(
                 f"model.norm={norm!r} (GroupNorm backbone) is not ported yet: "
                 "ROADMAP.md, Queue 1, backbone variants")
-        if dilate_c5:
-            raise NotImplementedError(
-                "model.dilate_c5 (a-trous res5) is not ported yet: ROADMAP.md, "
-                "Queue 1, backbone variants")
         if stem not in ("conv", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
         self.conv1 = conv(3, 64, 7, stride=2, dtype=dtype)  # casts the images
@@ -123,10 +128,11 @@ class ResNet(nn.Module):
         cin, features = 64, 64
         for stage, num_blocks in enumerate(STAGE_BLOCKS[depth]):
             blocks = []
+            dilated = stage == 3 and dilate_c5
             for i in range(num_blocks):
-                stride = 2 if (stage > 0 and i == 0) else 1
+                stride = 2 if (stage > 0 and i == 0 and not dilated) else 1
                 blocks.append(Bottleneck(cin, features, stride, downsample=(i == 0),
-                                         dtype=dtype))
+                                         dtype=dtype, dilation=2 if dilated else 1))
                 cin = features * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             features *= 2
@@ -135,11 +141,13 @@ class ResNet(nn.Module):
             if resnet_param_is_frozen(name, frozen_stages):
                 param.requires_grad_(False)
 
-    def forward(self, x):
+    def forward(self, x, stages: int = 4):
+        """The outputs of the first ``stages`` stages (R-FCN's C4 trunk runs
+        three)."""
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
-        for stage in range(4):
+        for stage in range(stages):
             x = getattr(self, f"layer{stage + 1}")(x)
             feats[f"c{stage + 2}"] = x
         return feats

@@ -1,7 +1,8 @@
 """Model zoo / detector factory: the config-driven public API.
 
-The port of ``detectron_tpu/models/zoo.py`` for Faster / Mask R-CNN and
-RetinaNet: ``build_detector(cfg, device=None)`` returns a :class:`Detector`
+The port of ``detectron_tpu/models/zoo.py`` for Faster / Mask R-CNN,
+RetinaNet and R-FCN: ``build_detector(cfg, device=None)`` returns a
+:class:`Detector`
 whose ``predict_fn(params, batch)`` takes
 
     batch = {
@@ -10,7 +11,7 @@ whose ``predict_fn(params, batch)`` takes
     }
 
 and returns ``(Detections, mask_probs [B, D, 28, 28] | None)`` (None for
-RetinaNet and Faster R-CNN), and whose ``loss_fn(params, batch, draws)``
+RetinaNet, R-FCN and Faster R-CNN), and whose ``loss_fn(params, batch, draws)``
 takes the batch with ``gt_boxes``, ``gt_classes`` and ``gt_masks`` added
 and returns ``(total, loss_dict)``.
 ``params`` is a state dict (``Detector.init`` or
@@ -29,6 +30,7 @@ from torch.func import functional_call
 
 from detectron_tpu_torch.models import faster_rcnn as frcnn
 from detectron_tpu_torch.models import retinanet as retina
+from detectron_tpu_torch.models import rfcn as rfcn_mod
 from detectron_tpu_torch.ops.roi_align import check_roi_align_contract
 
 MODEL_NAMES = ("faster_rcnn", "mask_rcnn", "retinanet", "rfcn")
@@ -51,8 +53,10 @@ def _init_std(name: str, shape) -> float:
         return 0.01
     if name.startswith("box_head.cls_score"):
         return 0.01
-    if name.startswith(("box_head.bbox_pred", "mask_head.mask_logits")):
+    if name.startswith(("box_head.bbox_pred", "mask_head.mask_logits", "ps_box.")):
         return 0.001
+    if name.startswith("ps_cls."):
+        return 0.01
     receptive = int(np.prod(shape[2:])) if len(shape) > 2 else 1
     if name.startswith("backbone.") or (name.startswith("mask_head.conv")):
         return float(np.sqrt(2.0 / (shape[0] * receptive)))
@@ -63,28 +67,30 @@ def _init_std(name: str, shape) -> float:
 class Detector:
     """A detector module on a device, with the JAX Detector's pure-function
     interface. ``dtype``: the compute dtype. On the card a two-stage
-    config is held to what the RoIAlign kernels take
-    (``check_roi_align_contract``) when the detector is built; RetinaNet
-    pools no RoIs and needs no such check."""
+    config that pools with RoIAlign is held to what the RoIAlign kernels
+    take (``check_roi_align_contract``) when the detector is built;
+    RoIPool (``roi.pool_type=pool``), RetinaNet and R-FCN (PSRoIPool) run
+    no RoIAlign kernel and need no such check."""
 
     def __init__(self, cfg, device=None):
         name = cfg.model.name
         if name not in MODEL_NAMES:
             raise ValueError(f"unknown model {name!r}; zoo: {MODEL_NAMES}")
-        if name == "rfcn":
-            raise NotImplementedError(
-                f"model {name!r} is not ported yet: ROADMAP.md, Queue 1, R-FCN")
         self.cfg = cfg
         self.name = name
         self.device = resolve_device(device)
         self.with_masks = name == "mask_rcnn"
         self.is_two_stage = name in ("faster_rcnn", "mask_rcnn")
+        self.is_rfcn = name == "rfcn"
         if self.is_two_stage:
             self.module = frcnn.build_two_stage(cfg, include_mask=self.with_masks)
+        elif self.is_rfcn:
+            self.module = rfcn_mod.RFCN(cfg)
         else:
             self.module = retina.RetinaNet(cfg)
         self.dtype = self.module.dtype
-        if self.device.type == "cuda" and self.is_two_stage:
+        if (self.device.type == "cuda" and self.is_two_stage
+                and cfg.roi.pool_type != "pool"):
             check_roi_align_contract(cfg, self.dtype, len(frcnn.ROI_STRIDES))
         self.module.to(device=self.device).eval()
 
@@ -104,7 +110,7 @@ class Detector:
                 std = _init_std(key, tuple(value.shape))
                 arr = (rng.standard_normal(value.shape) * std).astype(np.float32)
             params[key] = torch.as_tensor(arr, device=self.device)
-        if not self.is_two_stage:
+        if self.name == "retinanet":
             params["head.cls_score.bias"].fill_(
                 retina.prior_bias(self.cfg.retinanet.prior_prob))
         return params
@@ -124,9 +130,9 @@ class Detector:
         predict batch. ``params``: a state dict, or None for the module's
         own weights (gradients then reach its trainable parameters).
         ``draws``: a ``torch.Generator`` on the device, or the
-        ``faster_rcnn.TrainDraws`` to sample with. ``mark``: None, or a
-        callable given each stage's name once it is issued
-        (``faster_rcnn.faster_rcnn_train_forward``).
+        ``faster_rcnn.TrainDraws`` to sample with (RetinaNet samples
+        nothing). ``mark``: None, or a callable given each stage's name
+        once it is issued (``faster_rcnn.faster_rcnn_train_forward``).
         """
         batch = self.batch_to_device(batch)
         targets = {k: batch[k] for k in ("gt_boxes", "gt_classes")}
@@ -134,7 +140,7 @@ class Detector:
             targets["gt_masks"] = batch["gt_masks"]
         args = (batch["image"], batch["image_hw"])
         kwargs = {"targets": targets, "mark": mark}
-        if self.is_two_stage:
+        if self.is_two_stage or self.is_rfcn:
             kwargs["draws"] = draws
         if params is None:
             loss_dict = self.module(*args, **kwargs)

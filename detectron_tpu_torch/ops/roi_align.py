@@ -83,6 +83,9 @@ def roi_max_span(cfg, top_hw) -> tuple[float, float]:
     """The routing span that the JAX package uses for ``cfg``, given the
     ``(H, W)`` of the coarsest pooled level.
 
+    ``roi.pool_type=pool`` (RoIPool) routes with its window's span,
+    ``(28, 36)`` (:func:`roi_pool_max_span` of the window 32 that the JAX
+    model always gives it).
     ``roi.align_impl=window`` (the default) routes with the window's span,
     ``(win_h - 4, win_w - 4)``; ``align_impl=gather`` and
     ``model.fused_roi_align=on`` route with ``DEFAULT_MAX_SPAN``.
@@ -90,9 +93,8 @@ def roi_max_span(cfg, top_hw) -> tuple[float, float]:
     TPU.
     """
     if cfg.roi.get("pool_type", "align") == "pool":
-        raise NotImplementedError(
-            "roi.pool_type=pool (RoIPool) is not ported yet: ROADMAP.md, "
-            "Queue 1, RoIPool")
+        # the JAX model passes RoIPool no window: 32, whatever roi.window says
+        return roi_pool_max_span(ROI_POOL_WINDOW)
     if cfg.model.get("fused_roi_align", "off") == "on":
         return DEFAULT_MAX_SPAN
     if cfg.roi.get("align_impl", "gather") == "window":
@@ -106,8 +108,11 @@ def _sample_coords(lo, size, pool: int, ratio: int):
     """Sample coordinates ``[..., pool*ratio]`` along one axis: sample j of
     bin p sits at ``lo + (p + (j + 0.5) / ratio) * size / pool``."""
     bin_size = true_div(size, pool)
-    pos = np.repeat(np.arange(pool), ratio) + np.tile((np.arange(ratio) + 0.5) / ratio, pool)
-    pos = torch.as_tensor(pos, dtype=torch.float32, device=lo.device)
+    # made on the device (a copy from the host would wait for it), in
+    # float64 as the JAX package's numpy, then rounded once
+    steps = torch.arange(pool, dtype=torch.float64, device=lo.device)
+    frac = true_div(torch.arange(ratio, dtype=torch.float64, device=lo.device) + 0.5, ratio)
+    pos = (steps[:, None] + frac[None, :]).reshape(-1).float()
     return lo[..., None] + pos * bin_size[..., None]
 
 
@@ -461,3 +466,165 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
     levels = assign_fpn_levels(rois, num_levels, min_level, max_span=max_span)
     return RoIAlignFunction.apply(rois, levels, tuple(strides), output_size,
                                   sampling_ratio, *features)
+
+
+# ----------------------------------------------------------------- RoIPool
+
+# The window of the JAX package's RoIPool (``multilevel_roi_pool(window=)``):
+# the JAX model never passes another.
+ROI_POOL_WINDOW = 32
+
+
+def roi_pool_max_span(window: int = ROI_POOL_WINDOW) -> tuple[float, float]:
+    """RoIPool's routing span, ``(window - 4, window + 4)`` cells."""
+    return float(window - 4), float(window + 4)
+
+
+def _pool_bins(start, extent, origin, win: int, limit, pool: int):
+    """Per RoI and bin along one axis, the cells ``[a, b)`` of RoIPool's
+    dynamic bin: ``[floor(p * e / pool), ceil((p + 1) * e / pool))`` from the
+    quantized start, clipped to the level ``[0, limit)`` and to the window
+    ``[origin, origin + win)`` (``detectron_tpu/ops/roi_align.py::
+    _pool_bin_masks``: its membership mask is this range). Returns ``(a, b)``,
+    int64 ``[..., pool]``; a bin is empty where ``b <= a``."""
+    bin_size = true_div(extent, pool)[..., None]
+    p = torch.arange(pool, dtype=torch.float32, device=start.device)
+    lo = torch.floor(p * bin_size).to(torch.int64) + start[..., None]
+    hi = torch.ceil((p + 1.0) * bin_size).to(torch.int64) + start[..., None]
+    lim = limit[..., None]
+    lo = torch.minimum(lo.clamp_min(0), lim)
+    hi = torch.minimum(hi.clamp_min(0), lim)
+    org = origin[..., None]
+    return torch.maximum(lo, org), torch.minimum(hi, org + win)
+
+
+def _floor_log2(n: torch.Tensor, k_max: int) -> torch.Tensor:
+    """``floor(log2(n))`` of positive int64 ``n``, at most ``k_max``."""
+    k = torch.zeros_like(n)
+    for j in range(1, k_max + 1):
+        k = k + (n >= (1 << j)).to(n.dtype)
+    return k
+
+
+def _range_max_tables(level: torch.Tensor, ky: int, kx: int) -> list[torch.Tensor]:
+    """The sparse tables of one level ``[B, H, W, C]``: entry ``(i, j)`` of
+    the list (``i * (kx + 1) + j``) holds at ``(y, x)`` the max over rows
+    ``[y, y + 2^i)`` and columns ``[x, x + 2^j)`` (past the level's edge the
+    last row or column repeats; no query reads there)."""
+    def doubled(t, k, dim):
+        n = t.shape[dim]
+        idx = (torch.arange(n, device=t.device) + (1 << (k - 1))).clamp_max(n - 1)
+        return torch.maximum(t, t.index_select(dim, idx))
+
+    rows = [level]
+    for i in range(1, ky + 1):
+        rows.append(doubled(rows[-1], i, 1))
+    tables = []
+    for row in rows:
+        tables.append(row)
+        for j in range(1, kx + 1):
+            tables.append(doubled(tables[-1], j, 2))
+    return tables
+
+
+def multilevel_roi_pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                        strides: Sequence[int], output_size: int = 7,
+                        min_level: int | None = None,
+                        window: int = ROI_POOL_WINDOW) -> torch.Tensor:
+    """Exact dynamic-bin max RoIPool over an FPN: the port of
+    ``detectron_tpu/ops/roi_align.py::multilevel_roi_pool``, bit for bit.
+
+    Each RoI is routed with the span ``(window - 4, window + 4)``, quantized
+    with ``round`` (half to even, as ``jnp.round``) at its level, given an
+    extent of ``end - start + 1`` cells (at least 1), and bin ``(i, j)``
+    takes the max over cells ``[floor(i * h / P), ceil((i + 1) * h / P))``
+    x the same along x, clipped to the level and to the RoI's window
+    (``window`` x ``window + 8`` cells, grown to hold the coarsest level
+    whole, placed at the RoI's start and kept inside the level); a bin
+    whose window holds none of its cells is 0.
+
+    Where the JAX function gathers every RoI's whole window (``[R, 32, 40,
+    C]`` an image), this one answers each bin from sparse tables of each
+    level (the max over every ``2^i x 2^j`` block): the max over four
+    overlapping blocks that cover the bin exactly. A level's table sizes
+    follow from the routing (a RoI routed below the coarsest level spans
+    at most ``span + 2`` cells there; at the coarsest, at most the level),
+    so they do not depend on the data. Max is exact, so the values are the
+    JAX function's; the gradient (autograd) goes to each bin's max cell,
+    split evenly among equal maxima as under ``jax.grad``.
+
+    features: per-level ``[B, Hl, Wl, C]`` (NHWC), finest first; rois
+    ``[B, R, 4]`` image coordinates. Returns ``[B, R, P, P, C]`` in the
+    features' dtype.
+    """
+    num_levels = len(features)
+    if min_level is None:
+        min_level = int(np.log2(strides[0]))
+    pool = output_size
+    b, r = rois.shape[:2]
+    c = features[0].shape[-1]
+    dev = rois.device
+    hs = [int(f.shape[1]) for f in features]
+    ws = [int(f.shape[2]) for f in features]
+    span = roi_pool_max_span(window)
+    win_h, win_w = max(window, hs[-1]), max(window + 8, ws[-1])
+    levels = assign_fpn_levels(rois, num_levels, min_level, max_span=span).long()
+
+    # the largest bin each level can hold, along each axis, and its tables
+    tables, ks = [], []
+    for i, f in enumerate(features):
+        if i == num_levels - 1:
+            ny, nx = hs[i], ws[i]
+        else:
+            ny = min(int((span[0] + 2) // pool) + 2, hs[i], win_h)
+            nx = min(int((span[1] + 2) // pool) + 2, ws[i], win_w)
+        ky, kx = int(np.log2(max(ny, 1))), int(np.log2(max(nx, 1)))
+        ks.append((ky, kx))
+        tables.extend(t.reshape(b, -1, c) for t in _range_max_tables(f, ky, kx))
+    flat = torch.cat(tables, dim=1)  # [B, sum of tables, C]
+    k_max = max(max(k) for k in ks)
+    # offset of table (ky, kx) of level l in ``flat``
+    offsets = np.zeros((num_levels, k_max + 1, k_max + 1), np.int64)
+    at = 0
+    for i, (ky, kx) in enumerate(ks):
+        for y in range(ky + 1):
+            for x in range(kx + 1):
+                offsets[i, y, x] = at
+                at += hs[i] * ws[i]
+
+    strides_t = torch.tensor([float(s) for s in strides], device=dev)
+    hl = torch.tensor(hs, device=dev)[levels]
+    wl = torch.tensor(ws, device=dev)[levels]
+    scale = 1.0 / strides_t[levels]
+    sx, sy, ex, ey = (torch.round(rois[..., i] * scale).to(torch.int64) for i in range(4))
+    rw = (ex - sx + 1).clamp_min(1).float()
+    rh = (ey - sy + 1).clamp_min(1).float()
+    y0 = torch.minimum(sy.clamp_min(0), (hl - win_h).clamp_min(0))
+    x0 = torch.minimum(sx.clamp_min(0), (wl - win_w).clamp_min(0))
+    ya, yb = _pool_bins(sy, rh, y0, win_h, hl, pool)  # [B, R, P]
+    xa, xb = _pool_bins(sx, rw, x0, win_w, wl, pool)
+    ney, nex = yb > ya, xb > xa
+    nonempty = (ney[..., :, None] & nex[..., None, :])[..., None]
+    # empty bins read cell (0, 0) of their level; their output is 0
+    ya, yb = torch.where(ney, ya, 0), torch.where(ney, yb, 1)
+    xa, xb = torch.where(nex, xa, 0), torch.where(nex, xb, 1)
+    lvl_k = torch.tensor(ks, device=dev)[levels]  # [B, R, 2]
+    ky = _floor_log2(yb - ya, k_max).minimum(lvl_k[..., 0:1])
+    kx = _floor_log2(xb - xa, k_max).minimum(lvl_k[..., 1:2])
+    off = torch.as_tensor(offsets, device=dev)[levels[..., None, None], ky[..., :, None],
+                                                 kx[..., None, :]]  # [B, R, P, P]
+    wrow = wl[..., None, None]
+    bidx = torch.arange(b, device=dev)[:, None, None, None]
+    corners = [flat[bidx, off + yy[..., :, None] * wrow + xx[..., None, :]]
+               for yy in (ya, yb - (1 << ky)) for xx in (xa, xb - (1 << kx))]
+    out = torch.stack(corners).amax(dim=0)  # [B, R, P, P, C]
+    return torch.where(nonempty, out, torch.zeros_like(out))
+
+
+def roi_pool(feature: torch.Tensor, rois: torch.Tensor, stride: int, output_size: int = 7,
+             window: int = ROI_POOL_WINDOW) -> torch.Tensor:
+    """Single-level exact dynamic-bin max RoIPool
+    (``detectron_tpu/ops/roi_align.py::roi_pool``): :func:`multilevel_roi_pool`
+    over one level."""
+    return multilevel_roi_pool([feature], rois, [stride], output_size=output_size,
+                               window=window)

@@ -8,8 +8,10 @@
 config -> batches (seeded synthetic ones, or the threaded ``Loader`` over
 ``data.dataset=coco|voc|citypersons``) -> detector on the card -> SGD with
 warmup and step decay -> step loop with logging (``metrics.jsonl``) and
-``torch.save`` checkpoints in ``output_dir``. It runs on the card; the CPU
-is for tests (``run(cfg, device="cpu")``).
+``torch.save`` checkpoints in ``output_dir``. ``model.weights`` (a
+torchvision backbone or a full-detector ``.pth`` / ``.npz``) initializes
+the weights before ``--restore``. It runs on the card; the CPU is for tests
+(``run(cfg, device="cpu")``).
 ``train.debug_nans=true`` (``jax_debug_nans`` in ``train.py``) stops the
 run with ``FloatingPointError`` at the first step whose loss is not finite.
 """
@@ -31,6 +33,7 @@ from detectron_tpu_torch.data.synthetic import make_batch
 from detectron_tpu_torch.models.zoo import build_detector
 from detectron_tpu_torch.train import checkpoint as ckpt
 from detectron_tpu_torch.train.state import create_train_state, train_step
+from detectron_tpu_torch.utils.torch_weights import maybe_load_pretrained
 
 
 def parse_args(argv=None):
@@ -82,14 +85,13 @@ class Timer:
 def run(cfg, restore: bool = False, profile: bool = False, device=None) -> dict:
     """Trains ``cfg.train.max_steps`` steps (from the latest checkpoint
     with ``restore``); returns the last logged metrics."""
-    if cfg.model.weights:
-        raise NotImplementedError(
-            "model.weights (a torchvision backbone checkpoint) is not ported yet: "
-            "ROADMAP.md, Open items")
     det = build_detector(cfg, device=device)
     print(f"model={cfg.model.name} backbone={cfg.model.backbone} "
           f"dataset={cfg.data.dataset} device={det.device}", flush=True)
-    state = create_train_state(cfg, det, det.init(cfg.train.seed))
+    params = maybe_load_pretrained(cfg, det.init(cfg.train.seed))
+    if cfg.model.weights:
+        print(f"initialized from {cfg.model.weights}", flush=True)
+    state = create_train_state(cfg, det, params)
     if restore:
         state = ckpt.restore(cfg.output_dir, state)
         print(f"restored checkpoint at step {state.step}", flush=True)

@@ -10,6 +10,9 @@ The port of ``detectron_tpu/train/state.py`` and of the train step of
   the momentum, as ``optax.add_decayed_weights`` does;
 * frozen parameters (``requires_grad=False``: the stem and the stages
   ``<= model.frozen_stages``) stay out of the optimizer;
+* a trainable parameter that the loss does not reach (R-FCN's res5 on the
+  C4 trunk) gets a zero gradient, as under optax, so that weight decay and
+  momentum still move it;
 * with ``train.grad_clip_norm > 0``, optax's ``clip_by_global_norm`` over
   the trainable gradients: ``g * max_norm / norm`` when ``norm >=
   max_norm``;
@@ -115,10 +118,12 @@ def train_step(state: TrainState, batch, draws=None, mark=None) -> dict:
     """One step: the loss and its gradient, the optimizer's update at the
     schedule's rate for ``state.step``, then ``state.step += 1``.
 
-    ``draws``: the ``TrainDraws`` to sample with, or None for a generator
-    seeded from ``train.seed`` and the step. ``mark``: None, or a callable
+    ``draws``: the ``TrainDraws`` to sample with (Faster / Mask R-CNN and
+    R-FCN; sized to their RPN's anchors), or None for a generator seeded
+    from ``train.seed`` and the step. ``mark``: None, or a callable
     given each stage's name once its work is issued: the forward's stages
-    (``faster_rcnn_train_forward``, ``retinanet_train_forward``), then
+    (``faster_rcnn_train_forward``, ``retinanet_train_forward``,
+    ``rfcn_train_forward``), then
     ``"backward"`` and ``"optimizer"``. Returns the loss dict with
     ``loss_total``, as detached tensors on the device.
     """
@@ -132,11 +137,14 @@ def train_step(state: TrainState, batch, draws=None, mark=None) -> dict:
     state.optimizer.zero_grad(set_to_none=True)
     total, loss_dict = det.loss_fn(None, batch, draws, mark=mark)
     total.backward()
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     if mark is not None:
         mark("backward")
     if cfg.train.grad_clip_norm > 0:
-        grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
+        grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]]
         clip_by_global_norm(grads, cfg.train.grad_clip_norm)
     state.optimizer.step()
     if mark is not None:

@@ -2,8 +2,10 @@
 
 ``from_jax_params(variables)`` takes the variables tree of
 ``detectron_tpu``'s ``TwoStageDetector`` (``{"params": {"backbone": ...,
-"fpn": ..., "rpn": ..., "box_head": ..., "mask_head": ...}}``) or
+"fpn": ..., "rpn": ..., "box_head": ..., "mask_head": ...}}``),
 ``RetinaNet`` (``{"params": {"backbone": ..., "fpn": ..., "head": ...}}``)
+or ``RFCN`` (``{"params": {"backbone": ..., "trunk": ..., "rpn": ...,
+"ps_cls": ..., "ps_box": ...}}``)
 as nested dicts of numpy arrays and returns the port's ``state_dict``:
 
 * conv kernels HWIO -> OIHW;
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 _MODULES = {"backbone": "backbone", "fpn": "fpn", "rpn": "rpn_head",
-            "box_head": "box_head", "mask_head": "mask_head", "head": "head"}
+            "box_head": "box_head", "mask_head": "mask_head", "head": "head",
+            "trunk": "trunk", "ps_cls": "ps_cls", "ps_box": "ps_box"}
 # the JAX RetinaNet's parameters that only its unused P2 reads
 _RETINANET_UNREAD = (("fpn", "lateral2"), ("fpn", "smooth2"))
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var")

@@ -210,9 +210,11 @@ def test_kernel_phase_k2_cases_stress_and_rerun(rehearsal, capsys):
 def test_kernel_phase_k1_cases_and_split(rehearsal, capsys):
     k1 = cs.phase_nms(rehearsal)
     assert [c["case"] for c in k1] == ["rpn", "det", "rpn_train", "retinanet",
-                                       "retinanet_fast"]
-    assert [c["max_keep"] for c in k1] == [60, 20, 200, 20, 20]  # min(max_out, n), cut by 5
-    assert [c["path"] for c in k1][3:] == ["retinanet predict", "retinanet predict (fast)"]
+                                       "retinanet_fast", "rfcn_rpn", "rfcn_rpn_train"]
+    # min(max_out, n), cut by 5
+    assert [c["max_keep"] for c in k1] == [60, 20, 200, 20, 20, 60, 200]
+    assert [c["path"] for c in k1][3:] == ["retinanet predict", "retinanet predict (fast)",
+                                           "rfcn predict", "rfcn train"]
     for c in k1:
         assert {"ms", "mask_ms", "scan_ms", "scan_full_ms", "plain_ms", "bound_ms"} <= set(c)
     out = capsys.readouterr().out
@@ -570,3 +572,125 @@ def test_demo_phase_writes_two_images(rehearsal, monkeypatch, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "wrote ['synthetic_0.png', 'synthetic_1.png']" in out
     assert not (tmp_path / "demo").exists()
+
+
+def _once(fn, iters=20, warmup=3):
+    """cuda_ms that runs ``fn`` once: the rehearsals of the plain pools'
+    timings exercise the code, not the CPU's speed."""
+    fn()
+    return 1.0
+
+
+def test_rfcn_predict_phase_launches_k1_twice_a_call(rehearsal, monkeypatch, capsys):
+    """K1 twice a predict call on float32 boxes (proposals: 2 x
+    rpn.pre_nms_topk_test; detections: 2 x 4 x rpn.post_nms_topk_test,
+    256 each here), K2 and K3 never, in both dtypes."""
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+    monkeypatch.setattr(cs, "cuda_ms", _once)
+    for dtype in ("float32", "bfloat16"):
+        totals, times, summary = cs.phase_rfcn(calls=2, dtype=dtype)
+        assert totals == {"greedy_nms": 4, "multilevel_roi_align": 0,
+                          "multilevel_roi_align_bwd": 0}
+        assert len(times) == 2 and summary["psroipool"]["fwd_ms"] > 0
+        assert set(summary["stages_ms"]) == {"backbone+trunk", "rpn head", "proposals (K1)",
+                                             "ps maps", "psroipool + vote", "detections (K1)"}
+    out = capsys.readouterr().out
+    assert out.count("K1 boxes [(2, 256, 4), (2, 256, 4)] ['float32']") == 4
+    assert "[rfcn bfloat16 psroipool] table (2, 4, 8, 4165)" in out
+    assert "[rfcn stages bfloat16]" in out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_rfcn_phase(rehearsal, monkeypatch, capsys, dtype):
+    monkeypatch.setattr(cs, "PS_TABLE", (2, 8, 10, 7 * 7 * 6))
+    monkeypatch.setattr(cs, "PS_ROIS", 40)
+    cs.phase_cross_rfcn(dtype=dtype)
+    out = capsys.readouterr().out
+    tag = "cross rfcn" if dtype == "float32" else f"cross rfcn {dtype}"
+    for dilate in (False, True):
+        assert f"[{tag}] 256x256 trunk 32 dilate_c5 {dilate}: launches on the card " \
+               "{'greedy_nms': 2, 'multilevel_roi_align': 0" in out
+    assert out.count("trunk 0.00e+00; objectness 0.00e+00") == 2
+    assert ("PSRoIPool table (2, 8, 10, 294), 40 RoIs an image: card against CPU, forward "
+            "0.00e+00, gradient 0.00e+00" in out) == (dtype == "float32")
+
+
+def test_rfcn_train_phase_launches_k1_once_and_resumes_the_driver(rehearsal, monkeypatch,
+                                                                  capsys):
+    monkeypatch.setattr(cs, "cuda_ms", _once)
+    totals, times, summary = cs.phase_rfcn_train(warmup=1, steps=1)
+    assert totals == {"greedy_nms": 1, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0}
+    assert len(times) == 1 and summary["psroipool"]["rois"] == [2, 64, 4]
+    out = capsys.readouterr().out
+    assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
+    stages = out.split("[rfcn train float32 stages]")[1].splitlines()[0]
+    for stage in ("backbone+trunk", "proposals (K1)", "ps maps", "psroipool + vote + loss",
+                  "backward", "optimizer"):
+        assert stage in stages
+    assert "model=rfcn" in out and "[driver] resumed" in out
+    cs.phase_rfcn_train(warmup=1, steps=1, dtype="bfloat16")
+    assert "[driver]" not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rfcn_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
+    monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
+    counts, img_s = cs.phase_rfcn_eval(dtype=dtype)
+    # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls, K1 twice each
+    assert counts == {"greedy_nms": 10, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0}
+    assert img_s > 0
+    out = capsys.readouterr().out
+    assert f"[rfcn eval {dtype}] 8 images in 5 batches" in out
+    assert f"[rfcn eval {dtype}] oracle predictor: AP 1.000000, AP50 1.000000" in out
+
+
+def test_rfcn_bench_and_demo_phases(rehearsal, monkeypatch, tmp_path, capsys):
+    from detectron_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "resolve_device", lambda device=None: torch.device("cpu"))
+    monkeypatch.setattr(cs, "RFCN_BENCH_ARGS", [
+        "--model", "rfcn", "--size", "128", "--batch", "2", "--train-batch", "2",
+        "--iters", "1", "--train-iters", "1", "--set", "model.num_classes=5",
+        "model.fpn_channels=32", "rpn.pre_nms_topk_test=128", "rpn.post_nms_topk_test=32"])
+    for dtype in (None, "float32"):
+        counts, line = cs.phase_rfcn_bench(dtype)
+        # 3 predict calls (two warm-ups), K1 twice each; 3 train steps, K1 once each
+        assert counts == {"greedy_nms": 9, "multilevel_roi_align": 0,
+                          "multilevel_roi_align_bwd": 0}
+        assert line["metric"].startswith("rfcn R-50-FPN inference")
+    out_dir = str(tmp_path / "demo")
+    monkeypatch.setattr(cs, "DEMO_OUT", out_dir)
+    cs.phase_demo(["--no-restore", "--device", "cpu", "--cfg", "model.name=rfcn",
+                   "model.num_classes=4", "model.fpn_channels=32", "data.image_size=[128,128]",
+                   "data.short_side=100", "data.max_size=128", "rpn.pre_nms_topk_test=128",
+                   "rpn.post_nms_topk_test=32", f"output_dir={out_dir}"])
+    out = capsys.readouterr().out
+    assert "wrote ['synthetic_0.png', 'synthetic_1.png']" in out
+
+
+def test_roi_pool_phase(rehearsal, monkeypatch, capsys):
+    monkeypatch.setattr(cs, "cuda_ms", _once)
+    launches, summary = cs.phase_roi_pool(calls=2, steps=1)
+    assert launches == {
+        "roi_pool_predict": {"greedy_nms": 4, "multilevel_roi_align": 0,
+                             "multilevel_roi_align_bwd": 0},
+        "roi_pool_train": {"greedy_nms": 1, "multilevel_roi_align": 0,
+                           "multilevel_roi_align_bwd": 0}}
+    assert [c["case"] for c in summary["pool"]] == ["P=7 R=512", "P=7 R=512 bf16",
+                                                    "P=14 R=128", "P=14 R=128 bf16"]
+    out = capsys.readouterr().out
+    assert out.count("card against CPU: max |diff| 0.000e+00") == 4
+    assert "roi.pool_type=pool" in out
+
+
+def test_weights_phase(rehearsal, monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(cs, "WEIGHTS_DIR", str(tmp_path / "weights"))
+    cs.phase_weights()
+    out = capsys.readouterr().out
+    assert "[weights] train driver, R-FCN" in out and "0 differ from the dict" in out
+    assert "initialized from" in out
+    line = out.split("[weights] eval driver, Mask R-CNN")[1].splitlines()[0]
+    assert "False" not in line and "8 images" in line
+    assert not (tmp_path / "weights").exists()

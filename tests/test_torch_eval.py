@@ -262,8 +262,27 @@ def test_driver_defaults_to_the_card_and_restores_params(coco_root, tmp_path, mo
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         driver.run(cfg, restore=False, predict=oracle)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.run(get_config(None, FIXTURE_CFG + ["model.weights=r50.pth"]), device="cpu")
+    # model.weights is read: a torchvision-named backbone dict is loaded
+    rng = np.random.RandomState(3)
+    src = {k.removeprefix("backbone.").replace("downsample_conv", "downsample.0")
+           .replace("downsample_bn", "downsample.1"): torch.tensor(
+               rng.randn(*v.shape).astype(np.float32))
+           for k, v in build_detector(cfg, device="cpu").init(0).items()
+           if k.startswith("backbone.")}
+    torch.save(src, str(tmp_path / "r50.pth"))
+    loaded = {}
+
+    def grab(params, batch):
+        loaded.setdefault("conv", params["backbone.layer4.2.conv3.weight"])
+        loaded.setdefault("ds", params["backbone.layer2.0.downsample_bn.running_var"])
+        return oracle(params, batch)
+
+    driver.run(get_config(None, FIXTURE_CFG + [f"data.root={coco_root}",
+                                               f"model.weights={tmp_path / 'r50.pth'}",
+                                               f"output_dir={tmp_path / 'weights'}"]),
+               restore=False, device="cpu", predict=grab)
+    assert torch.equal(loaded["conv"], src["layer4.2.conv3.weight"])
+    assert torch.equal(loaded["ds"], src["layer2.0.downsample.1.running_var"])
     # a checkpoint in output_dir is restored (params only), and used
     from detectron_tpu_torch.train import checkpoint as ckpt
     from detectron_tpu_torch.train.state import create_train_state

@@ -78,13 +78,18 @@ def test_build_detector_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name,item", [("rfcn", "R-FCN")])
-def test_unported_models_name_the_roadmap(name, item):
+def test_rfcn_builds_and_defaults_to_cuda(monkeypatch):
     from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.rfcn import RFCN
     from detectron_tpu_torch.models.zoo import build_detector
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        build_detector(get_config(None, [f"model.name={name}"]), device="cpu")
+    cfg = get_config(None, ["model.name=rfcn"])
+    det = build_detector(cfg, device="cpu")
+    assert isinstance(det.module, RFCN) and det.device == torch.device("cpu")
+    assert det.is_rfcn and not det.is_two_stage
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_detector(cfg)
 
 
 def test_retinanet_builds_and_defaults_to_cuda(monkeypatch):
@@ -100,13 +105,30 @@ def test_retinanet_builds_and_defaults_to_cuda(monkeypatch):
         build_detector(cfg)
 
 
-@pytest.mark.parametrize("override", ["model.norm=gn", "model.dilate_c5=true"])
+@pytest.mark.parametrize("override", ["model.norm=gn"])
 def test_unported_variants_raise(override):
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.models.zoo import build_detector
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_detector(get_config(None, ["model.name=mask_rcnn", override]), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["rfcn", "mask_rcnn"])
+def test_dilate_c5_builds(name):
+    """``model.dilate_c5=true`` builds: R-FCN's res5 keeps stride 16 with
+    every 3x3 dilated by 2; the FPN detectors do not read the key (as in
+    the JAX package), so their res5 keeps stride 2."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+
+    det = build_detector(get_config(None, [f"model.name={name}", "model.dilate_c5=true"]),
+                         device="cpu")
+    layer4 = det.module.backbone.layer4
+    dilated = name == "rfcn"
+    assert [b.conv2.dilation for b in layer4] == [(2, 2) if dilated else (1, 1)] * 3
+    assert layer4[0].conv2.stride == layer4[0].downsample_conv.stride == (
+        (1, 1) if dilated else (2, 2))
 
 
 def test_wrappers_take_plain_path_on_cpu_and_count_nothing():

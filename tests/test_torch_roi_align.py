@@ -139,9 +139,12 @@ def test_model_pooling_path_matches_jax(overrides):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)
 
 
-def test_roi_pool_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tra.roi_max_span(get_config(None, ["roi.pool_type=pool"]), (32, 32))
+def test_roi_pool_routes_with_its_window():
+    """RoIPool routes with ``(window - 4, window + 4)`` of the window 32 that
+    the JAX model always gives it, whatever ``roi.window`` says."""
+    for extra in ([], ["roi.align_impl=window", "roi.window=16"]):
+        cfg = get_config(None, ["roi.pool_type=pool", *extra])
+        assert tra.roi_max_span(cfg, (32, 32)) == (28.0, 36.0)
 
 
 # ---------------------------------------------------------------------------
@@ -451,19 +454,18 @@ def test_contract_check_passes_what_the_kernels_take():
 @pytest.mark.parametrize("name", sorted(os.listdir(CONFIGS)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_contract_holds_for_every_config_the_port_builds(name, dtype):
-    """Every config whose model pools RoIs (Faster and Mask R-CNN) passes
-    the check in both dtypes; RetinaNet pools none, builds and is not
-    checked; R-FCN is not ported."""
+    """Every config whose model pools RoIs with RoIAlign (Faster and Mask
+    R-CNN) passes the check in both dtypes; RetinaNet pools none and R-FCN
+    pools with PSRoIPool: both build and are not checked."""
     from detectron_tpu_torch.models import zoo
 
     cfg = get_config(os.path.join(CONFIGS, name), [f"model.dtype={dtype}"])
-    if cfg.model.name == "retinanet":
+    if cfg.model.name in ("retinanet", "rfcn"):
         det = zoo.build_detector(cfg, device="cpu")
         assert not det.is_two_stage and not hasattr(det.module, "box_head")
+        assert det.is_rfcn == (cfg.model.name == "rfcn")
         return
-    if cfg.model.name not in ("faster_rcnn", "mask_rcnn"):
-        assert cfg.model.name == "rfcn"
-        return
+    assert cfg.model.name in ("faster_rcnn", "mask_rcnn")
     tra.check_roi_align_contract(cfg, getattr(torch, dtype))
 
 
@@ -492,4 +494,20 @@ def test_retinanet_on_the_card_needs_no_contract(monkeypatch):
     cfg = get_config(None, ["model.name=retinanet", "model.dtype=bfloat16",
                             "model.fpn_channels=36"])
     det = zoo.build_detector(cfg)
+    assert det.device.type == "cuda" and checked == []
+
+
+@pytest.mark.parametrize("overrides", [["model.name=rfcn"],
+                                       ["model.name=mask_rcnn", "roi.pool_type=pool"]],
+                         ids=["rfcn", "roi_pool"])
+def test_no_roi_align_no_contract_on_the_card(monkeypatch, overrides):
+    """R-FCN (PSRoIPool) and ``roi.pool_type=pool`` (RoIPool) launch no
+    RoIAlign kernel: built for the card (faked), they are not checked."""
+    from detectron_tpu_torch.models import zoo
+
+    monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cuda"))
+    checked = []
+    monkeypatch.setattr(zoo, "check_roi_align_contract", lambda *a: checked.append(a))
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)
+    det = zoo.build_detector(get_config(None, overrides + ["model.fpn_channels=36"]))
     assert det.device.type == "cuda" and checked == []
