@@ -164,7 +164,27 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     from equal the dict), a full Mask R-CNN dict in the lineage's names
     into the eval driver on Mask R-CNN over phase 11's split (the deconv
     as it is, fc1 permuted, the RPN classifier fg - bg, the mask logits
-    without channel 0), both written as .pth under build/.
+    without channel 0), both written as .pth under build/;
+25. GroupNorm: Mask R-CNN R-50-FPN (configs/mask_rcnn_r50_fpn_coco.yaml +
+    model.norm=gn) at full width, 1024x1344, batch 2, float32 then bf16: 3
+    predict calls (K1 and K2 twice each) and 3 train steps (K1 once, K2 and
+    K3 twice each; losses finite; the stem's GroupNorm unchanged, a trainable
+    stage's changed), stage breakdowns and peak memory; then phase 6's
+    cross-device check with GroupNorm (bf16: within CROSS_BF16_GN, and as
+    close to float32 as the CPU's bf16, within CROSS_BF16_AS_GOOD);
+26. remat: config 5's model (configs/mask_rcnn_r101_fpn_coco_train.yaml),
+    1024x1344, batch 2, float32: train_step without and with model.remat
+    from the same weights, batch and draws, in turns: losses equal within
+    1e-4, gradients within REMAT_GRAD_RTOL, each step's ms and peak memory;
+27. data parallelism on config 5's model: (a) initialize_distributed over
+    NCCL at world size 1, the DP step against train_step (loss within 1e-4,
+    parameters within 2e-5; the two timed in turns), the train driver for 2
+    steps under the group (metrics.jsonl through MetricsWriter), the eval
+    driver over phase 11's split; (b) two ranks on the one card over gloo,
+    batch 1 each: one DP step against train_step on the batch of 2, within
+    the same limits. In phases 25-27 every kernel launch of one call or
+    step of each path is also held against its plain version on that
+    path's own inputs (``hold_path``).
 
 After each group of phases it logs the host seconds the group took
 (``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
@@ -787,6 +807,78 @@ def kernel_dtypes(shapes=None):
             setattr(module, attr, fn)
 
 
+def _copy(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_copy(v) for v in x)
+    return x
+
+
+def hold_path(fn, tag) -> dict:
+    """Runs ``fn()`` (one call of a model path) with each kernel wrapper's
+    inputs and output copied at every launch, then holds each launch's
+    output against its plain version on the same inputs: K1 exactly; K2
+    within 1e-5 x max |feature|, K3 within 1e-5 x max |plain gradient|
+    (bf16: one bf16 step beyond those). No kernel is launched again for the
+    comparison. Returns ``{name: (launches held, worst |diff|)}``."""
+    from detectron_tpu_torch.ops import nms, roi_align
+
+    sites = ((nms, "greedy_keep_cuda", "greedy_nms", nms.greedy_keep_plain),
+             (roi_align, "multilevel_roi_align_cuda", "multilevel_roi_align",
+              roi_align.multilevel_roi_align_plain),
+             (roi_align, "multilevel_roi_align_bwd_cuda", "multilevel_roi_align_bwd",
+              roi_align.multilevel_roi_align_bwd_plain))
+    calls = {name: [] for _, _, name, _ in sites}
+    real = {}
+    for module, attr, name, _ in sites:
+        wrapper = real[(module, attr)] = getattr(module, attr)
+
+        def recorder(*args, _fn=wrapper, _name=name, **kwargs):
+            out = _fn(*args, **kwargs)
+            calls[_name].append((_copy(args), kwargs, _copy(out)))
+            return out
+
+        recorder.launches = wrapper.launches
+        setattr(module, attr, recorder)
+    try:
+        fn()
+        if torch.cuda.is_initialized():  # not in a rehearsal's CPU-only rank
+            torch.cuda.synchronize()
+    finally:
+        for (module, attr), wrapper in real.items():
+            wrapper.launches = getattr(module, attr).launches
+            setattr(module, attr, wrapper)
+        reset_counts()
+    held = {}
+    for _, _, name, plain in sites:
+        worst = 0.0
+        for args, kwargs, got in calls[name]:
+            want = plain(*args, **kwargs)
+            if name == "greedy_nms":
+                ok = torch.equal(got, want)
+                diff = float((got != want).sum())
+            else:
+                if name == "multilevel_roi_align":
+                    got, want = [got], [want]
+                    floor = 1e-5 * max(float(f.float().abs().max()) for f in args[0])
+                else:
+                    floor = 1e-5 * max(float(w.float().abs().max()) for w in want)
+                checks = [within_bf16(x, w, floor) if x.dtype == torch.bfloat16
+                          else (float((x - w).abs().max()), float((x - w).abs().max()) <= floor)
+                          for x, w in zip(got, want)]
+                ok = all(c[1] for c in checks)
+                diff = max(c[0] for c in checks)
+            if not ok:
+                raise AssertionError(f"{tag}: {name} disagrees with its plain version on the "
+                                     f"path's own inputs (max |diff| {diff:.3e})")
+            worst = max(worst, diff)
+        held[name] = (len(calls[name]), worst)
+    log(f"[{tag}] each launch held against its plain version on the path's inputs: "
+        + "; ".join(f"{k} {n} launches, max |diff| {d:.3e}" for k, (n, d) in held.items()))
+    return held
+
+
 MASK_R50 = os.path.join(REPO, "configs", "mask_rcnn_r50_fpn_coco.yaml")
 
 
@@ -1042,19 +1134,25 @@ def match_rate(dets_a, dets_b, iou=0.5) -> float:
     return found / total if total else 1.0
 
 
-def phase_cross_device(seed=1, dtype="float32"):
+def phase_cross_device(seed=1, dtype="float32", overrides=(), bf16_limit=CROSS_BF16,
+                       as_good_as_cpu=False):
     """The port at 256x256 with small widths on the card and on the CPU
-    (plain versions) with the same weights. float32: equal valid slots and
-    classes, boxes within 1e-3. bf16: the FPN levels, the RPN outputs and
-    both heads' outputs on the same RoIs within ``CROSS_BF16``."""
+    (plain versions) with the same weights (``overrides`` added to the
+    config). float32: equal valid slots and classes, boxes within 1e-3.
+    bf16: the FPN levels, the RPN outputs and both heads' outputs on the
+    same RoIs within ``bf16_limit``; with ``as_good_as_cpu``, besides, each
+    no farther from the CPU's float32 output than CROSS_BF16_AS_GOOD x the
+    CPU's bf16 one is."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.models.zoo import build_detector
 
-    cfg = get_config(None, [
+    cfg_overrides = [
         "model.name=mask_rcnn", "model.num_classes=5", "model.fpn_channels=32",
         "data.image_size=[256, 256]", "rpn.pre_nms_topk_test=256",
         "rpn.post_nms_topk_test=64", "test.detections_per_image=20",
-        f"model.dtype={dtype}"])
+        f"model.dtype={dtype}", *overrides]
+    cfg = get_config(None, cfg_overrides)
+    label = " ".join(["cross", *overrides])
     gpu, cpu = build_detector(cfg), build_detector(cfg, device="cpu")
     params = raise_class_bias(cpu.init(seed), (1, 3), value=4.0)
     batch = slice_inputs(cfg, seed, "cpu")
@@ -1071,7 +1169,7 @@ def phase_cross_device(seed=1, dtype="float32"):
     if dtype == "float32":
         box_diff = float((dets_g.boxes.cpu() - dets_c.boxes).abs().max())
         mask_diff = float((masks_g.cpu() - masks_c).abs().max())
-        log(f"[cross] 256x256 FPN 32: launches on the card {counts}; valid "
+        log(f"[{label}] 256x256 FPN 32: launches on the card {counts}; valid "
             f"{int(valid_c.sum())} on the CPU, equal slots {bool(torch.equal(valid_g, valid_c))}; "
             f"max |box diff| {box_diff:.3e}, max |mask diff| {mask_diff:.3e}")
         if not (torch.equal(valid_g, valid_c)
@@ -1096,16 +1194,34 @@ def phase_cross_device(seed=1, dtype="float32"):
     rel = {k: [float((g.cpu().float() - c.float()).abs().max() / c.float().abs().max())
                for g, c in zip(on_card[k], on_cpu[k])] for k in on_cpu}
     rate, back = match_rate(dets_c, dets_g), match_rate(dets_g, dets_c)
-    log(f"[cross {dtype}] 256x256 FPN 32: launches on the card {counts}; level dtypes "
+    log(f"[{label} {dtype}] 256x256 FPN 32: launches on the card {counts}; level dtypes "
         f"{on_card['levels'][0].dtype} / {on_cpu['levels'][0].dtype}; max |card - CPU| / "
-        f"max |CPU| (limit {CROSS_BF16:.0e}): "
+        f"max |CPU| (limit {bf16_limit:.0e}): "
         + "; ".join(f"{k} {[f'{r:.2e}' for r in v]}" for k, v in rel.items())
         + f"; valid {int(valid_c.sum())} on the CPU, {int(valid_g.sum())} on the card; the "
         f"CPU's detections found on the card {rate:.3f}, the card's on the CPU {back:.3f}")
     worst = max(max(v) for v in rel.values())
-    if not (on_card["levels"][0].dtype == getattr(torch, dtype) and worst <= CROSS_BF16):
+    if not (on_card["levels"][0].dtype == getattr(torch, dtype) and worst <= bf16_limit):
         raise AssertionError(f"cross-device {dtype} run: card and CPU differ by {worst:.3e} "
-                             f"of an output's magnitude, beyond {CROSS_BF16}")
+                             f"of an output's magnitude, beyond {bf16_limit}")
+    if as_good_as_cpu:
+        # each output's distance from the CPU's float32 one, card bf16 against CPU bf16
+        f32 = build_detector(get_config(None, [o for o in cfg_overrides
+                                               if not o.startswith("model.dtype")]),
+                             device="cpu")
+        f32.module.load_state_dict(params)
+        on_f32 = stages(f32, dets_c.boxes)
+
+        def dist(side):
+            return [float((a.cpu().float() - c.float()).abs().max() / c.float().abs().max())
+                    for k in on_f32 for a, c in zip(side[k], on_f32[k])]
+
+        ratio = max(c / max(b, 1e-30) for c, b in zip(dist(on_card), dist(on_cpu)))
+        log(f"[{label} {dtype}] distance from the CPU's float32 outputs, the card's bf16 "
+            f"against the CPU's bf16: at most x{ratio:.3f} (limit x{CROSS_BF16_AS_GOOD})")
+        if not ratio <= CROSS_BF16_AS_GOOD:
+            raise AssertionError(f"cross-device {dtype} run: the card's bf16 lies x{ratio:.3f} "
+                                 "as far from float32 as the CPU's bf16")
 
 
 # ----------------------------------------------------------------- phase 7
@@ -3188,6 +3304,482 @@ def phase_weights(seed=0):
     reset_counts()
 
 
+# ------------------------------------------ phases 25-27: GroupNorm, remat, data parallelism
+
+GN_OVERRIDES = ["model.norm=gn"]
+# phase 25's bf16 check, card against CPU. GroupNorm rescales each group of
+# the bf16 convolutions' rounding: on the CPU the port's bf16 GN levels lie
+# 2.2-4.1% from the JAX package's bf16 ones, which lie 3.3-6.7% from JAX's
+# float32 ones (tests/test_torch_gn.py; frozen BN: 0.9-1.4%). So each bf16
+# output must lie within CROSS_BF16_GN of the CPU's and no farther than
+# CROSS_BF16_AS_GOOD x the CPU's bf16 output from the CPU's float32 one
+# (the criterion tests/test_torch_gn.py holds the port to against JAX)
+CROSS_BF16_GN = 1e-1
+CROSS_BF16_AS_GOOD = 1.5
+
+
+def predict_calls(det, params, batch, calls, tag, want):
+    """``calls`` predict_fn calls, each launching the kernels ``want`` times
+    (``{name: n}``); returns (launches over the calls, ms a call, the last
+    detections)."""
+    totals = dict.fromkeys(counted_wrappers(), 0)
+    times = []
+    for call in range(calls):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        dets, masks = det.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, detections "
+            f"{int(dets.valid.sum())}")
+        if counts != want or not int(dets.valid.sum()) or not (
+                bool(torch.isfinite(dets.boxes).all()) and float(masks.min()) >= 0.0
+                and float(masks.max()) <= 1.0):
+            raise AssertionError(f"{tag} call {call}: launches {counts} (want {want}), "
+                                 f"{int(dets.valid.sum())} detections, or outputs out of range")
+        for name, n in counts.items():
+            totals[name] += n
+    reset_counts()
+    return totals, times, dets
+
+
+def train_steps(state, batches, tag, want):
+    """``train_step`` on each batch, each finite and launching the kernels
+    ``want`` times; returns (launches, ms a step, peak GiB over the steps)."""
+    from detectron_tpu_torch.train.state import train_step
+
+    totals = dict.fromkeys(counted_wrappers(), 0)
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        losses = {k: float(v) for k, v in metrics.items()}
+        log(f"[{tag}] step {i}: {times[-1]:.1f} ms, launches {counts}, "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
+        if counts != want or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{tag} step {i}: launches {counts} (want {want}), losses "
+                                 f"{losses}")
+        for name, n in counts.items():
+            totals[name] += n
+    reset_counts()
+    return totals, times, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
+    """Mask R-CNN R-50-FPN with GroupNorm-32 (configs/mask_rcnn_r50_fpn_coco
+    .yaml + model.norm=gn) at full width, 1024x1344, batch 2, in ``dtype``:
+    ``calls`` predict calls (K1 and K2 twice each), the stage breakdown, peak
+    memory; ``steps`` train steps from the same weights (K1 once, K2 and K3
+    twice each, every loss finite), the stem's GroupNorm unchanged and the
+    trainable stages' changed, the step's stage breakdown and peak memory;
+    one call and one step with every kernel launch held against its plain
+    version (``hold_path``); then the same steps with frozen BatchNorm
+    (calibrated) for the time ratio. Returns ({path: launches}, a summary
+    of the numbers)."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.train.driver import batch_iterator
+    from detectron_tpu_torch.train.state import create_train_state, train_step
+
+    cfg = get_config(MASK_R50, GN_OVERRIDES + TRAIN_OVERRIDES + [f"model.dtype={dtype}"])
+    sfx = "" if dtype == "float32" else "_bf16"
+    tag = "gn" if dtype == "float32" else f"gn {dtype}"
+    det = build_detector(cfg)
+    params = raise_class_bias(det.init(seed), RAISED_CLASSES)
+    batch = slice_inputs(cfg, seed, det.device)
+    log(f"[{tag}] {cfg.model.name} {cfg.model.backbone} norm={cfg.model.norm} FPN "
+        f"{cfg.model.fpn_channels} classes {cfg.model.num_classes} canvas "
+        f"{tuple(cfg.data.image_size)} {cfg.model.dtype} batch 2")
+    torch.cuda.reset_peak_memory_stats()
+    predict, call_ms, _ = predict_calls(det, params, batch, calls, tag, {
+        "greedy_nms": 2, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 0})
+    predict_peak = torch.cuda.max_memory_allocated() / 2**30
+    held = {"predict": hold_path(lambda: det.predict_fn(params, batch), f"{tag} predict")}
+    det.module.load_state_dict(params)
+    stages, _ = stage_breakdown(det, batch, cfg)
+    reset_counts()
+    log(f"[{tag}] predict ms {[round(t, 3) for t in call_ms]}; peak device memory "
+        f"{predict_peak:.2f} GiB")
+    state = create_train_state(cfg, det)
+    named = dict(det.module.named_parameters())
+    before = {n: named[n].detach().clone() for n in ("backbone.gn1.weight", "backbone.gn1.bias",
+                                                     "backbone.layer2.0.gn1.weight")}
+    data = batch_iterator(cfg)
+    batches = [det.batch_to_device(next(data)) for _ in range(steps)]
+    train, step_ms, train_peak = train_steps(state, batches, f"{tag} train", {
+        "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2})
+    moved = {n: not torch.equal(named[n].detach(), v) for n, v in before.items()}
+    log(f"[{tag} train] per-step ms {[round(t, 3) for t in step_ms]}; peak device memory "
+        f"{train_peak:.2f} GiB; changed by the steps: {moved}")
+    if moved != {"backbone.gn1.weight": False, "backbone.gn1.bias": False,
+                 "backbone.layer2.0.gn1.weight": True}:
+        raise AssertionError(f"{tag} train: the stem GroupNorm moved or a trainable one did "
+                             f"not: {moved}")
+    held["train"] = hold_path(lambda: train_step(state, batches[-1]), f"{tag} train")
+    train_stages = train_breakdown(state, batches[-1], tag=f"{tag} train")
+    del state, det
+    # the same steps with frozen BatchNorm (calibrated), for the ratio
+    ref_cfg = get_config(MASK_R50, TRAIN_OVERRIDES + [f"model.dtype={dtype}"])
+    ref_state, ref_data = seeded_train_state(ref_cfg, None, seed)
+    ref_batches = [ref_state.detector.batch_to_device(next(ref_data)) for _ in range(steps)]
+    _, ref_ms, ref_peak = train_steps(ref_state, ref_batches, f"{tag} frozen-BN reference", {
+        "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2})
+    ratio = float(np.median(step_ms[1:]) / np.median(ref_ms[1:]))
+    log(f"[{tag} train] GroupNorm / frozen-BN step time, steps after the first: x{ratio:.3f} "
+        f"({[round(t, 1) for t in step_ms[1:]]} against {[round(t, 1) for t in ref_ms[1:]]} "
+        f"ms); peak {train_peak:.2f} against {ref_peak:.2f} GiB")
+    return ({"gn_predict" + sfx: predict, "gn_train" + sfx: train},
+            dict(call_ms=call_ms, predict_peak_gib=predict_peak, stages_ms=stages,
+                 step_ms=step_ms, train_peak_gib=train_peak, train_stages_ms=train_stages,
+                 frozen_bn_step_ms=ref_ms, frozen_bn_peak_gib=ref_peak, held=held))
+
+
+# phase 26's limit on each gradient with remat against without, in relative
+# norm: cuDNN's backward convolutions and K3 add in a varying order, so two
+# float32 steps without remat differ too (logged beside it)
+REMAT_GRAD_RTOL = 1e-3
+
+
+def phase_remat(seed=0):
+    """model.remat on config 5's model (Mask R-CNN R-101-FPN, 1024x1344,
+    batch 2, float32): one train_step without remat and one with, from the
+    same (calibrated) weights with the same batch and draws, in turns after
+    a warm-up of each: losses within 1e-4 relative, every gradient within
+    REMAT_GRAD_RTOL of the step without remat (relative norm), the state
+    dict unchanged; each step's ms and torch.cuda.max_memory_allocated;
+    one more remat step with every kernel launch held against its plain
+    version. Returns ({path: launches}, a summary)."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models import faster_rcnn as fr
+    from detectron_tpu_torch.train.state import create_train_state, step_generator, train_step
+
+    cfg = get_config(TRAIN_R101, TRAIN_OVERRIDES)
+    state, data = seeded_train_state(cfg, None, seed)
+    det = state.detector
+    start = {k: v.clone() for k, v in det.module.state_dict().items()}
+    batch = det.batch_to_device(next(data))
+    n_anchors = sum(a.shape[0] for a in det.module.anchors(tuple(cfg.data.image_size),
+                                                           det.device))
+    draws = fr.make_train_draws(step_generator(cfg, 0, det.device), 2, n_anchors,
+                                cfg.rpn.post_nms_topk_train + cfg.train.max_gt_boxes)
+    runs = {}
+    launches = dict.fromkeys(counted_wrappers(), 0)
+    for i, remat in enumerate((False, True, False, True, False)):
+        det.module.backbone.remat = remat
+        state = create_train_state(cfg, det, start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = read_counts()
+        losses = {k: float(v) for k, v in metrics.items()}
+        log(f"[remat] {'remat' if remat else 'plain'} step ({'warm-up' if i < 2 else 'timed'})"
+            f": {ms:.1f} ms, peak device memory {peak:.2f} GiB, launches {counts}, loss_total "
+            f"{losses['loss_total']:.5f}")
+        if counts != {"greedy_nms": 1, "multilevel_roi_align": 2,
+                      "multilevel_roi_align_bwd": 2}:
+            raise AssertionError(f"remat step: launches {counts}")
+        if i >= 2:
+            if remat:
+                for name in counts:
+                    launches[name] += counts[name]
+            grads = {n: p.grad.detach().to("cpu") for n, p in det.module.named_parameters()
+                     if p.requires_grad}
+            runs.setdefault(remat, []).append(dict(ms=ms, peak=peak, losses=losses,
+                                                   grads=grads))
+    held = hold_path(lambda: train_step(create_train_state(cfg, det, start), batch, draws),
+                     "remat")
+    det.module.backbone.remat = False
+    reset_counts()
+
+    def worst(a, b):
+        rel = {n: float(torch.linalg.vector_norm(a[n] - b[n]) / torch.linalg.vector_norm(b[n]))
+               for n in b}
+        n = max(rel, key=rel.get)
+        return rel[n], n
+
+    plain, rem = runs[False][0], runs[True][0]
+    loss_rel = max(abs(rem["losses"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in plain["losses"].items())
+    grad_rel, grad_name = worst(rem["grads"], plain["grads"])
+    noise, noise_name = worst(runs[False][1]["grads"], plain["grads"])
+    log(f"[remat] R-101 1024x1344 batch 2 float32: plain {plain['ms']:.1f} / "
+        f"{runs[False][1]['ms']:.1f} ms, peak {plain['peak']:.2f} GiB; remat {rem['ms']:.1f} ms, "
+        f"peak {rem['peak']:.2f} GiB (x{rem['peak'] / plain['peak']:.3f} memory, "
+        f"x{rem['ms'] / plain['ms']:.3f} time); max relative loss diff {loss_rel:.2e}; worst "
+        f"gradient relative diff {grad_rel:.2e} ({grad_name}; limit {REMAT_GRAD_RTOL:.0e}), two "
+        f"plain steps {noise:.2e} ({noise_name})")
+    if not (loss_rel <= 1e-4 and grad_rel <= REMAT_GRAD_RTOL
+            and set(det.module.state_dict()) == set(start)):
+        raise AssertionError(f"remat: losses differ by {loss_rel:.3e}, gradients by "
+                             f"{grad_rel:.3e} in {grad_name}")
+    return {"remat_train": launches}, dict(
+        plain_ms=plain["ms"], plain_peak_gib=plain["peak"], remat_ms=rem["ms"],
+        remat_peak_gib=rem["peak"], loss_rel=loss_rel, grad_rel=grad_rel, plain_noise=noise,
+        held=held)
+
+
+DP_OUT = os.path.join(REPO, "build", "dp_smoke")  # phase 27's files: weights, batch, results
+DP_LOSS_ATOL, DP_PARAM_ATOL = 1e-4, 2e-5  # tests/test_parallel.py's criterion
+DP_TIMED_PAIRS = 4  # phase 27 (a): train_step and the DP step timed in turns
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def get_dp_config(overrides=()):
+    """Config 5's (configs/mask_rcnn_r101_fpn_coco_train.yaml) with phase 9's
+    overrides and ``overrides``."""
+    from detectron_tpu_torch.config import get_config
+
+    return get_config(TRAIN_R101, TRAIN_OVERRIDES + list(overrides))
+
+
+def dp_inputs(seed):
+    """Config 5's model with calibrated weights, a global batch of 2 and the
+    step's draws, on the card."""
+    from detectron_tpu_torch.models import faster_rcnn as fr
+    from detectron_tpu_torch.train.state import step_generator
+
+    cfg = get_dp_config()
+    state, data = seeded_train_state(cfg, None, seed)
+    det = state.detector
+    batch = det.batch_to_device(next(data))
+    n_anchors = sum(a.shape[0] for a in det.module.anchors(tuple(cfg.data.image_size),
+                                                           det.device))
+    draws = fr.make_train_draws(step_generator(cfg, 0, det.device), 2, n_anchors,
+                                cfg.rpn.post_nms_topk_train + cfg.train.max_gt_boxes)
+    return cfg, state, batch, draws
+
+
+def dp_worker(rank: int, port: int, device: str, out_dir: str):
+    """One of phase 27 (b)'s two ranks: gloo, both on the one card, batch 1
+    each: the data-parallel step from the config, weights, batch and draws
+    in ``out_dir``, every kernel launch held against its plain version (on the
+    card each kernel of the path must launch); rank 0 saves its losses,
+    parameters and launches there."""
+    from detectron_tpu_torch.models import faster_rcnn as fr
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.parallel import (broadcast_state, initialize_distributed,
+                                              make_mesh, make_train_step, shard_batch)
+    from detectron_tpu_torch.train.state import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase 1 sets it
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, device=device, backend="gloo")
+    try:
+        mesh = make_mesh(device)
+        inputs = torch.load(os.path.join(out_dir, "inputs.pt"), map_location=mesh.device,
+                            weights_only=False)
+        cfg = inputs["cfg"]
+        det = build_detector(cfg, device=mesh.device)
+        state = create_train_state(cfg, det, inputs["params"])
+        broadcast_state(det.module, mesh)
+        step = make_train_step(det, mesh)
+        out = {}
+
+        def run():
+            out["metrics"] = step(state, shard_batch(inputs["batch"], mesh),
+                                  fr.TrainDraws(*inputs["draws"]))
+
+        held = hold_path(run, f"dp (b) rank {rank}")
+        counts = {name: n for name, (n, _) in held.items()}
+        if mesh.device.type == "cuda" and min(counts.values()) == 0:
+            raise AssertionError(f"dp (b) rank {rank}: a kernel was not launched: {counts}")
+        if rank == 0:
+            torch.save({"losses": {k: float(v) for k, v in out["metrics"].items()},
+                        "params": {k: v.cpu() for k, v in state.params.items()},
+                        "launches": counts, "held": held,
+                        "backend": torch.distributed.get_backend()},
+                       os.path.join(out_dir, "rank0.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_dp(seed=0):
+    """Data parallelism on config 5's model (Mask R-CNN R-101-FPN, 1024x1344).
+    (a) initialize_distributed over NCCL at world size 1: the DP step at
+    batch 2 against train_step on the same state, batch and draws (loss
+    within 1e-4, parameters within 2e-5, as tests/test_parallel.py), the
+    two timed in turns, and one DP step with every kernel launch held
+    against its plain version; the train driver for 2 steps under the group
+    (metrics.jsonl through MetricsWriter); the eval driver over phase 11's
+    in-memory split.
+    (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), batch 1 each: one DP step against one process's train_step on
+    the batch of 2, within the same limits. Returns ({path: launches}, a
+    summary)."""
+    import subprocess
+
+    from detectron_tpu_torch.eval import driver as eval_driver
+    from detectron_tpu_torch.models import faster_rcnn as fr
+    from detectron_tpu_torch.parallel import initialize_distributed, make_mesh, make_train_step
+    from detectron_tpu_torch.train import checkpoint as ckpt
+    from detectron_tpu_torch.train import driver as train_driver
+    from detectron_tpu_torch.train.state import create_train_state, train_step
+
+    cfg, state, batch, draws = dp_inputs(seed)
+    det = state.detector
+    start = {k: v.clone() for k, v in det.module.state_dict().items()}
+
+    def reference():
+        """train_step on the batch of 2 from ``start``: losses, parameters, ms."""
+        ref = create_train_state(cfg, det, start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(ref, batch, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: v.clone() for k, v in ref.params.items()}, ms)
+
+    def compare(tag, got_losses, got_params, want_losses, want_params):
+        loss_diff = abs(got_losses["loss_total"] - want_losses["loss_total"])
+        diffs = {k: float((got_params[k].to(v.device) - v).abs().max())
+                 for k, v in want_params.items()}
+        worst = max(diffs, key=diffs.get)
+        param_diff = diffs[worst]
+        log(f"[{tag}] |loss_total diff| {loss_diff:.3e} (limit {DP_LOSS_ATOL:.0e}), max "
+            f"|parameter diff| {param_diff:.3e} ({worst}; limit {DP_PARAM_ATOL:.0e}); losses "
+            + " ".join(f"{k}={v:.5f}" for k, v in sorted(got_losses.items())))
+        if not (loss_diff <= DP_LOSS_ATOL and param_diff <= DP_PARAM_ATOL):
+            raise AssertionError(f"{tag}: the data-parallel step differs from train_step")
+        return loss_diff, param_diff
+
+    launches = {}
+    summary = {}
+    reference()  # warm-up
+    want_losses, want_params, ref_ms = reference()
+    rank, world = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=DEVICE)
+    try:
+        mesh = make_mesh(DEVICE)
+        backend = "nccl" if mesh.device.type == "cuda" else "gloo"
+        log(f"[dp] (a) process group: backend {torch.distributed.get_backend()}, rank {rank} "
+            f"of {world}, device {mesh.device}")
+        if torch.distributed.get_backend() != backend or (rank, world) != (0, 1):
+            raise AssertionError(f"phase 27 (a) wants {backend} at world size 1")
+        step = make_train_step(det, mesh)
+        step(create_train_state(cfg, det, start), batch, draws)  # warm-up
+        dp_state = create_train_state(cfg, det, start)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = step(dp_state, batch, draws)
+        torch.cuda.synchronize()
+        dp_times = [(time.perf_counter() - t0) * 1e3]
+        launches["dp_train"] = read_counts()
+        summary["a"] = dict(diffs=compare(
+            "dp (a)", {k: float(v) for k, v in metrics.items()}, dp_state.params,
+            want_losses, want_params))
+        ref_times = [ref_ms]
+        for _ in range(DP_TIMED_PAIRS - 1):  # the two steps in turns
+            ref_times.append(reference()[2])
+            dp_state = create_train_state(cfg, det, start)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(dp_state, batch, draws)
+            torch.cuda.synchronize()
+            dp_times.append((time.perf_counter() - t0) * 1e3)
+        reset_counts()
+        dp_ms, ref_ms = float(np.median(dp_times)), float(np.median(ref_times))
+        log(f"[dp] (a) DP step {[round(t, 1) for t in dp_times]} ms against train_step "
+            f"{[round(t, 1) for t in ref_times]} ms in turns, medians x{dp_ms / ref_ms:.3f}; "
+            f"launches {launches['dp_train']}")
+        summary["a"].update(dp_ms=dp_times, train_step_ms=ref_times)
+        if launches["dp_train"] != {"greedy_nms": 1, "multilevel_roi_align": 2,
+                                    "multilevel_roi_align_bwd": 2}:
+            raise AssertionError(f"dp (a) step: launches {launches['dp_train']}")
+        summary["a"]["held"] = hold_path(
+            lambda: step(create_train_state(cfg, det, start), batch, draws), "dp (a)")
+        # the train driver under the group, resuming from a checkpoint
+        shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+        ckpt.save(TRAIN_OUT, create_train_state(cfg, det, start))
+        dcfg = get_dp_config(["train.max_steps=2", "train.log_every=1",
+                              f"output_dir={TRAIN_OUT}"])
+        reset_counts()
+        last = train_driver.run(dcfg, restore=True)
+        launches["dp_driver"] = read_counts()
+        with open(os.path.join(TRAIN_OUT, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        log(f"[dp] (a) train driver under the group: metrics.jsonl records "
+            f"{[r['step'] for r in records]}, keys {sorted(records[-1])}; launches "
+            f"{launches['dp_driver']}")
+        if not ([r["step"] for r in records] == [1, 2] and all(
+                np.isfinite(v) for v in last.values()) and launches["dp_driver"][
+                    "multilevel_roi_align_bwd"] == 4):
+            raise AssertionError(f"dp (a) driver: records {records}, last {last}")
+        shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+        ecfg = get_dp_config(["data.orientation_buckets=true", f"output_dir={EVAL_OUT}"])
+        ds = InMemoryCoco(seed, num_classes=ecfg.model.num_classes)
+        reset_counts()
+        res = eval_driver.run(ecfg, dataset=ds, restore=False)
+        launches["dp_eval"] = read_counts()
+        calls = res["timing"]["batches"]
+        log(f"[dp] (a) eval driver under the group: {res['timing']['images']} images in "
+            f"{calls} batches, launches {launches['dp_eval']}, AP {res['AP']}")
+        if res["timing"]["images"] != len(ds) or launches["dp_eval"] != {
+                "greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
+                "multilevel_roi_align_bwd": 0}:
+            raise AssertionError(f"dp (a) eval: {res['timing']}, {launches['dp_eval']}")
+    finally:
+        torch.distributed.destroy_process_group()
+    reset_counts()
+
+    # (b) two ranks on the one card over gloo
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    os.makedirs(DP_OUT)
+    torch.save({"cfg": cfg, "params": {k: v.cpu() for k, v in start.items()},
+                "batch": {k: v.cpu() for k, v in batch.items()},
+                "draws": [d.cpu() for d in draws]}, os.path.join(DP_OUT, "inputs.pt"))
+    port = free_port()
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.dp_worker(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(port), DEVICE, DP_OUT],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=300)[0])
+        finally:
+            proc.kill()
+    worker_s = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError("dp (b) rank failed:\n" + "\n".join(o[-3000:] for o in outs))
+    for line in "\n".join(outs).splitlines():
+        if line.startswith("[dp (b)"):
+            log(line)
+    got = torch.load(os.path.join(DP_OUT, "rank0.pt"), weights_only=False)
+    log(f"[dp] (b) two ranks on one card over {got['backend']} (NCCL refuses two ranks on one "
+        f"device), batch 1 each, {worker_s:.1f} s with start-up; rank 0 launches "
+        f"{got['launches']}")
+    if got["backend"] != "gloo":
+        raise AssertionError(f"dp (b) ran over {got['backend']}")
+    summary["b"] = dict(diffs=compare("dp (b)", got["losses"], got["params"], want_losses,
+                                      want_params), worker_s=worker_s)
+    shutil.rmtree(DP_OUT, ignore_errors=True)
+    return launches, summary
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -3301,6 +3893,18 @@ def main(argv=None) -> int:
     lap("phase 23")
     phase_weights()
     lap("phase 24")
+    gn_launches, gn_summary = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        counts, gn_summary[dtype] = phase_gn(dtype=dtype)
+        gn_launches.update(counts)
+    phase_cross_device(overrides=GN_OVERRIDES)
+    phase_cross_device(dtype="bfloat16", overrides=GN_OVERRIDES, bf16_limit=CROSS_BF16_GN,
+                       as_good_as_cpu=True)
+    lap("phase 25")
+    remat_launches, remat_summary = phase_remat()
+    lap("phase 26")
+    dp_launches, dp_summary = phase_dp()
+    lap("phase 27")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -3310,7 +3914,10 @@ def main(argv=None) -> int:
                 "bench_bf16": bench16_launches[name],
                 **{path: counts[name] for path, (counts, _) in retina.items()},
                 **{path: counts[name] for path, (counts, _) in rfcn.items()},
-                **{path: counts[name] for path, counts in pool_launches.items()}}
+                **{path: counts[name] for path, counts in pool_launches.items()},
+                **{path: counts[name] for path, counts in gn_launches.items()},
+                **{path: counts[name] for path, counts in remat_launches.items()},
+                **{path: counts[name] for path, counts in dp_launches.items()}}
 
     kernels = [
         kernel_entry("greedy_nms", k1, launches("greedy_nms"), 0.0),
@@ -3327,7 +3934,8 @@ def main(argv=None) -> int:
         "bench": {"float32": bench32, "bfloat16": bench16},
         "retinanet": {path: summary for path, (_, summary) in retina.items()},
         "rfcn": {path: summary for path, (_, summary) in rfcn.items()},
-        "roi_pool": pool_summary}}), flush=True)
+        "roi_pool": pool_summary, "gn": gn_summary, "remat": remat_summary,
+        "dp": dp_summary}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

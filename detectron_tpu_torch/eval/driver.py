@@ -21,7 +21,10 @@ right behind it (``start_fetch``), and ``consume`` waits for those alone,
 so the host's paste + RLE of batch k runs while the device computes batch
 k+1. With a ``torch.distributed`` process group, each process evaluates a
 disjoint stride of the split and process 0 gathers the records
-(``merge_across_processes``) and writes the metrics.
+(``merge_across_processes``) and writes the metrics. ``main`` joins the
+group that the ``parallel.*`` keys or torchrun's environment describe
+(``parallel.initialize_distributed``), as ``eval.py`` does, and runs each
+process on its own card.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from detectron_tpu_torch.data.loader import Loader, get_dataset
 from detectron_tpu_torch.eval import evaluate_coco, evaluate_mr, evaluate_voc
 from detectron_tpu_torch.models.mask_rcnn import paste_masks_rle
 from detectron_tpu_torch.models.zoo import build_detector
+from detectron_tpu_torch.parallel import join_group, make_mesh
 from detectron_tpu_torch.train import checkpoint as ckpt
 from detectron_tpu_torch.utils.torch_weights import maybe_load_pretrained
 
@@ -345,7 +349,13 @@ def run(cfg, dataset=None, limit: int = 0, restore: bool = True, device=None,
 
 def main(argv=None):
     args = parse_args(argv)
-    run(get_config(args.config, args.cfg), limit=args.limit, restore=not args.no_restore)
+    cfg = get_config(args.config, args.cfg)
+    join_group(cfg)
+    try:
+        run(cfg, limit=args.limit, restore=not args.no_restore, device=make_mesh().device)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ from detectron_tpu_torch.ops.anchors import AnchorGenerator
 from detectron_tpu_torch.ops.nms import class_aware_nms
 from detectron_tpu_torch.ops.roi_align import (multilevel_roi_align, multilevel_roi_pool,
                                                roi_max_span)
+from detectron_tpu_torch.parallel.mesh import global_sum, rank_rows
 
 RPN_STRIDES = (4, 8, 16, 32, 64)  # P2..P6
 ROI_STRIDES = (4, 8, 16, 32)  # box/mask heads pool from P2..P5
@@ -243,9 +244,13 @@ class TrainDraws(NamedTuple):
 
 def make_train_draws(generator: torch.Generator, batch: int, num_anchors: int,
                      num_candidates: int) -> TrainDraws:
-    """Draws for one step from ``generator``, on its device."""
+    """Draws for one step from ``generator``, on its device. Under a
+    data-parallel group (``parallel.data_parallel``) ``batch`` is the
+    rank's: the global batch's draws are made and the rank's rows kept."""
+    total, rows = rank_rows(batch)
+
     def draw(n):
-        return torch.rand((batch, n), generator=generator, device=generator.device)
+        return torch.rand((total, n), generator=generator, device=generator.device)[rows]
 
     return TrainDraws(draw(num_anchors), draw(num_anchors), draw(num_candidates),
                       draw(num_candidates))
@@ -253,7 +258,8 @@ def make_train_draws(generator: torch.Generator, batch: int, num_anchors: int,
 
 def rpn_losses(scores_pl, deltas_pl, anchors, gt_boxes, gt_classes, draws: TrainDraws, cfg):
     """RPN objectness and box losses on a ``rpn.batch_per_image`` anchor
-    sample per image."""
+    sample per image; normalized by the sampled anchors of the global
+    batch (``global_sum``: this process's under no data-parallel group)."""
     scores = torch.cat(scores_pl, dim=1)  # [B, N]
     deltas = torch.cat(deltas_pl, dim=1)  # [B, N, 4]
     tgt = anchor_target(
@@ -263,7 +269,7 @@ def rpn_losses(scores_pl, deltas_pl, anchors, gt_boxes, gt_classes, draws: Train
         pos_fraction=cfg.rpn.positive_fraction)
     labels = (tgt.labels > 0).to(scores.dtype)
     ce = losses.optax_sigmoid_ce(scores, labels)
-    norm = tgt.cls_weights.sum().clamp_min(1.0)
+    norm = global_sum(tgt.cls_weights.sum()).clamp_min(1.0)
     cls_loss = (ce * tgt.cls_weights).sum() / norm
     box_l = losses.smooth_l1(deltas, tgt.box_targets, sigma=cfg.rpn.smooth_l1_sigma)
     box_loss = (box_l.sum(-1) * tgt.box_weights).sum() / norm
@@ -271,9 +277,10 @@ def rpn_losses(scores_pl, deltas_pl, anchors, gt_boxes, gt_classes, draws: Train
 
 
 def frcnn_box_losses(cls_logits, reg, roi_targets: RoiTargets, cfg):
-    """Softmax cross-entropy and class-aware smooth-L1 over the sampled RoIs."""
+    """Softmax cross-entropy and class-aware smooth-L1 over the sampled RoIs,
+    normalized by the RoI weights of the global batch."""
     b, s = cls_logits.shape[:2]
-    norm = roi_targets.weights.sum().clamp_min(1.0)
+    norm = global_sum(roi_targets.weights.sum()).clamp_min(1.0)
     cls_loss = losses.softmax_cross_entropy(
         cls_logits.reshape(b * s, -1), roi_targets.labels.reshape(-1),
         weights=roi_targets.weights.reshape(-1), normalizer=norm)
@@ -343,10 +350,12 @@ def faster_rcnn_train_forward(model: TwoStageDetector, images, image_hw, gt_boxe
                                              tgt.matched_idx[:, :cap],
                                              resolution=cfg.mask.resolution)
         b, s = tgt.labels[:, :cap].shape
+        mask_weights = tgt.box_weights[:, :cap].reshape(-1)
         loss_dict["loss_mask"] = losses.mask_bce_loss(
             mask_logits.reshape(b * s, *mask_logits.shape[2:]),
             mask_targets.reshape(b * s, *mask_targets.shape[2:]),
-            tgt.labels[:, :cap].reshape(-1), tgt.box_weights[:, :cap].reshape(-1))
+            tgt.labels[:, :cap].reshape(-1), mask_weights,
+            normalizer=global_sum(mask_weights.sum()).clamp_min(1.0))
         mark("mask: targets + align (K2) + head + loss")
     return loss_dict
 

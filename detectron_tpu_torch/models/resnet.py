@@ -1,4 +1,4 @@
-"""ResNet-50/101 backbone with frozen BatchNorm.
+"""ResNet-50/101 backbone with frozen BatchNorm or trainable GroupNorm-32.
 
 The port of ``detectron_tpu/models/resnet.py``: torchvision v1.5
 bottlenecks (stride on the 3x3, downsample on block 0), a 7x7/2 stem with
@@ -6,13 +6,16 @@ symmetric padding 3 and a 3x3/2 max-pool with padding 1. Modules run
 NCHW.
 
 Module names follow the JAX parameter tree (``conv1``, ``bn1``,
-``layer{s}.{i}.conv1..3 / bn1..3 / downsample_conv / downsample_bn``), so
-``utils.weights.from_jax_params`` is a name map.
+``layer{s}.{i}.conv1..3 / bn1..3 / downsample_conv / downsample_bn``; with
+``norm="gn"`` the norms are ``gn1..3`` / ``downsample_gn`` and the stem's
+``gn1``, as ``make_norm`` names them), so ``utils.weights.from_jax_params``
+is a name map.
 
 ``dtype`` is the compute dtype (``model.dtype``): the stem casts the
 images to it, every convolution computes in it and frozen BatchNorm
-applies its float32 scale and bias cast to it; parameters and statistics
-stay float32 (``models/precision.py``).
+applies its float32 scale and bias cast to it; GroupNorm normalizes in
+float32 and rounds its output to it once; parameters and statistics stay
+float32 (``models/precision.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from detectron_tpu_torch.models.precision import Conv2d
 
@@ -48,6 +52,42 @@ class FrozenBatchNorm(nn.Module):
         return x * scale.to(dt)[None, :, None, None] + bias.to(dt)[None, :, None, None]
 
 
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm(num_groups=32)`` as the JAX package builds it:
+    epsilon 1e-6 (``torch.nn.GroupNorm``'s default is 1e-5), float32
+    statistics, scale and bias whatever the compute dtype (flax's
+    ``force_float32_reductions``), the output rounded to ``dtype`` once.
+    flax's variance is ``E[x^2] - E[x]^2`` clipped at 0 and torch's the
+    centred mean square: the same value up to rounding (the tests state
+    the tolerance). ``memory_format`` is the layout the output is written
+    in, with the cast, in one pass."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(32, features, eps=1e-6)
+        self.compute_dtype = dtype
+        self.memory_format = torch.contiguous_format
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype, memory_format=self.memory_format)
+
+
+NORMS = ("frozen_bn", "gn")
+
+
+def make_norm(kind: str, features: int, dtype: torch.dtype) -> nn.Module:
+    """``"frozen_bn"`` (the reference's fine-tune semantics) or ``"gn"``
+    (trainable GroupNorm-32)."""
+    if kind == "gn":
+        return GroupNorm(features, dtype=dtype)
+    return FrozenBatchNorm(features, dtype=dtype)
+
+
+def norm_name(kind: str, name: str) -> str:
+    """The JAX module's name of a norm: ``bn*`` becomes ``gn*`` for GroupNorm."""
+    return name.replace("bn", "gn") if kind == "gn" else name
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
          dtype: torch.dtype = torch.float32, dilation: int = 1) -> Conv2d:
     return Conv2d(cin, cout, kernel, stride=stride, padding=dilation * (kernel - 1) // 2,
@@ -59,27 +99,30 @@ class Bottleneck(nn.Module):
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  downsample: bool = False, dtype: torch.dtype = torch.float32,
-                 dilation: int = 1):
+                 dilation: int = 1, norm: str = "frozen_bn"):
         super().__init__()
+        self.norm_names = [norm_name(norm, f"bn{i}") for i in (1, 2, 3)]
         self.conv1 = conv(cin, features, 1, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(features, dtype=dtype)
+        self.add_module(self.norm_names[0], make_norm(norm, features, dtype))
         self.conv2 = conv(features, features, 3, stride, dtype=dtype, dilation=dilation)
-        self.bn2 = FrozenBatchNorm(features, dtype=dtype)
+        self.add_module(self.norm_names[1], make_norm(norm, features, dtype))
         self.conv3 = conv(features, features * 4, 1, dtype=dtype)
-        self.bn3 = FrozenBatchNorm(features * 4, dtype=dtype)
+        self.add_module(self.norm_names[2], make_norm(norm, features * 4, dtype))
+        self.downsample_name = norm_name(norm, "downsample_bn")
         if downsample:
             self.downsample_conv = conv(cin, features * 4, 1, stride, dtype=dtype)
-            self.downsample_bn = FrozenBatchNorm(features * 4, dtype=dtype)
+            self.add_module(self.downsample_name, make_norm(norm, features * 4, dtype))
         else:
             self.downsample_conv = None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        n1, n2, n3 = (getattr(self, n) for n in self.norm_names)
+        out = F.relu(n1(self.conv1(x)))
+        out = F.relu(n2(self.conv2(out)))
+        out = n3(self.conv3(out))
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = getattr(self, self.downsample_name)(self.downsample_conv(x))
         return F.relu(out + residual)
 
 
@@ -87,7 +130,10 @@ def resnet_param_is_frozen(name: str, frozen_stages: int = 1) -> bool:
     """True for a backbone parameter that training keeps fixed: the stem
     ``conv1`` and every parameter of the stages ``<= frozen_stages``
     (``detectron_tpu/models/resnet.py::resnet_param_is_frozen``; the frozen
-    BatchNorm statistics are buffers here, never parameters)."""
+    BatchNorm statistics are buffers here, never parameters). The stem's
+    GroupNorm ``gn1`` is trainable, as under the JAX rule, which freezes
+    "bn" names only; with ``frozen_stages >= 1`` no gradient reaches it
+    (:class:`ResNet` detaches the last frozen stage's output)."""
     if name.startswith("conv1."):
         return True
     return any(name.startswith(f"layer{s}.") for s in range(1, frozen_stages + 1))
@@ -98,11 +144,19 @@ class ResNet(nn.Module):
     at 16 with ``dilate_c5``).
 
     The parameters that :func:`resnet_param_is_frozen` names are made with
-    ``requires_grad=False``: no gradient reaches them, as the JAX
-    package's ``stop_gradient`` after the frozen stages and its optimizer
-    mask give. ``remat`` is accepted and changes nothing; ``stem="s2d"``
-    is an exact re-layout of the same 7x7/2 conv, so it runs as the plain
-    stem.
+    ``requires_grad=False``, and the output of the last frozen stage is
+    detached, as the JAX package's ``stop_gradient`` there and its
+    optimizer mask give: no gradient reaches the frozen stages or the
+    stem (its trainable GroupNorm included). ``stem="s2d"`` is an exact
+    re-layout of the same 7x7/2 conv, so it runs as the plain stem.
+
+    ``norm``: ``"frozen_bn"`` or ``"gn"`` (:class:`GroupNorm`, trainable
+    outside the frozen stages). ``remat``: while grad is enabled, each
+    bottleneck of a stage above ``frozen_stages`` runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps its input and
+    recomputes its inner activations in the backward pass, as
+    ``nn.remat`` does in the JAX package; frozen stages are never wrapped.
+    The state dict is the same either way.
 
     ``dilate_c5`` is the a-trous res5 of R-FCN's paper trunk: stage 4
     keeps stride 16 (its first block's 3x3 and downsample convs stride 1)
@@ -117,14 +171,15 @@ class ResNet(nn.Module):
                  dilate_c5: bool = False, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if norm != "frozen_bn":
-            raise NotImplementedError(
-                f"model.norm={norm!r} (GroupNorm backbone) is not ported yet: "
-                "ROADMAP.md, Queue 1, backbone variants")
+        if norm not in NORMS:
+            raise ValueError(f"model.norm={norm!r}: want one of {NORMS}")
         if stem not in ("conv", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
+        self.frozen_stages = frozen_stages
+        self.remat = remat
         self.conv1 = conv(3, 64, 7, stride=2, dtype=dtype)  # casts the images
-        self.bn1 = FrozenBatchNorm(64, dtype=dtype)
+        self.stem_norm = norm_name(norm, "bn1")
+        self.add_module(self.stem_norm, make_norm(norm, 64, dtype))
         cin, features = 64, 64
         for stage, num_blocks in enumerate(STAGE_BLOCKS[depth]):
             blocks = []
@@ -132,7 +187,8 @@ class ResNet(nn.Module):
             for i in range(num_blocks):
                 stride = 2 if (stage > 0 and i == 0 and not dilated) else 1
                 blocks.append(Bottleneck(cin, features, stride, downsample=(i == 0),
-                                         dtype=dtype, dilation=2 if dilated else 1))
+                                         dtype=dtype, dilation=2 if dilated else 1,
+                                         norm=norm))
                 cin = features * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             features *= 2
@@ -144,10 +200,18 @@ class ResNet(nn.Module):
     def forward(self, x, stages: int = 4):
         """The outputs of the first ``stages`` stages (R-FCN's C4 trunk runs
         three)."""
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(getattr(self, self.stem_norm)(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
         for stage in range(stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            layer = getattr(self, f"layer{stage + 1}")
+            if self.remat and stage + 1 > self.frozen_stages and torch.is_grad_enabled():
+                for block in layer:
+                    # no block draws random numbers: no RNG state to keep
+                    x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x)
+            if stage + 1 <= self.frozen_stages:
+                x = x.detach()
             feats[f"c{stage + 2}"] = x
         return feats

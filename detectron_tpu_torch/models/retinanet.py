@@ -38,6 +38,7 @@ from detectron_tpu_torch.models.resnet import ResNet
 from detectron_tpu_torch.ops import boxes as box_ops
 from detectron_tpu_torch.ops.anchors import AnchorGenerator
 from detectron_tpu_torch.ops.nms import class_aware_nms
+from detectron_tpu_torch.parallel.mesh import global_sum
 
 RETINA_STRIDES = (8, 16, 32, 64, 128)  # P3..P7
 
@@ -157,7 +158,8 @@ def flatten_outputs(outputs, num_classes: int):
 
 def retinanet_loss(outputs, anchors, gt_boxes, gt_classes, cfg) -> dict:
     """Focal loss over every anchor and class, smooth-L1 (beta) over the
-    positives, both divided by the batch's positive count (at least 1).
+    positives, both divided by the batch's positive count (at least 1;
+    the global batch's under a data-parallel group, ``global_sum``).
     ``anchors``: ``[N, 4]``, all levels."""
     k = cfg.model.num_classes - 1
     rc = cfg.retinanet
@@ -170,7 +172,7 @@ def retinanet_loss(outputs, anchors, gt_boxes, gt_classes, cfg) -> dict:
     # input's range on the host)
     classes = torch.arange(1, k + 1, dtype=tgt.labels.dtype, device=tgt.labels.device)
     onehot = (tgt.labels[..., None] == classes).to(cls_logits.dtype)
-    total_pos = tgt.num_pos.sum().clamp_min(1.0)
+    total_pos = global_sum(tgt.num_pos.sum()).clamp_min(1.0)
     cls_loss = losses.sigmoid_focal_loss(cls_logits, onehot, alpha=rc.focal_alpha,
                                          gamma=rc.focal_gamma, weights=tgt.cls_weights,
                                          normalizer=total_pos)

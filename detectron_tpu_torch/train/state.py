@@ -56,13 +56,25 @@ def warmup_step_decay_schedule(cfg):
     return schedule
 
 
+DECAYED_LAYERS = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)
+
+
+def decayed_parameters(module: torch.nn.Module) -> set[str]:
+    """Names of the weights that weight decay takes: the conv, deconv and
+    linear weights (the flax ``kernel`` leaves of JAX's
+    ``weight_decay_mask``), not biases or GroupNorm's scale."""
+    return {f"{name}.weight" if name else "weight" for name, m in module.named_modules()
+            if isinstance(m, DECAYED_LAYERS)}
+
+
 def make_optimizer(cfg, module: torch.nn.Module) -> torch.optim.SGD:
     """SGD over the trainable parameters of ``module``: one group of
-    weights with decay, one of biases without."""
+    :func:`decayed_parameters` with decay, one of the rest without."""
+    decayed = decayed_parameters(module)
     decay, no_decay = [], []
     for name, param in module.named_parameters():
         if param.requires_grad:
-            (decay if name.endswith(".weight") else no_decay).append(param)
+            (decay if name in decayed else no_decay).append(param)
     return torch.optim.SGD(
         [{"params": decay, "weight_decay": cfg.train.weight_decay},
          {"params": no_decay, "weight_decay": 0.0}],
@@ -114,7 +126,7 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Ten
     return norm
 
 
-def train_step(state: TrainState, batch, draws=None, mark=None) -> dict:
+def train_step(state: TrainState, batch, draws=None, mark=None, reduce_grads=None) -> dict:
     """One step: the loss and its gradient, the optimizer's update at the
     schedule's rate for ``state.step``, then ``state.step += 1``.
 
@@ -124,7 +136,11 @@ def train_step(state: TrainState, batch, draws=None, mark=None) -> dict:
     given each stage's name once its work is issued: the forward's stages
     (``faster_rcnn_train_forward``, ``retinanet_train_forward``,
     ``rfcn_train_forward``), then
-    ``"backward"`` and ``"optimizer"``. Returns the loss dict with
+    ``"backward"`` (with ``reduce_grads``, ``"gradient all-reduce"``) and
+    ``"optimizer"``. ``reduce_grads``: None, or a
+    callable given the list of trainable gradients (every one filled)
+    before the clip; the data-parallel step sums them across ranks there
+    (``parallel.make_train_step``). Returns the loss dict with
     ``loss_total``, as detached tensors on the device.
     """
     det = state.detector
@@ -137,15 +153,18 @@ def train_step(state: TrainState, batch, draws=None, mark=None) -> dict:
     state.optimizer.zero_grad(set_to_none=True)
     total, loss_dict = det.loss_fn(None, batch, draws, mark=mark)
     total.backward()
-    for group in state.optimizer.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    params = [p for group in state.optimizer.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     if mark is not None:
         mark("backward")
+    if reduce_grads is not None:
+        reduce_grads([p.grad for p in params])
+        if mark is not None:
+            mark("gradient all-reduce")
     if cfg.train.grad_clip_norm > 0:
-        grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]]
-        clip_by_global_norm(grads, cfg.train.grad_clip_norm)
+        clip_by_global_norm([p.grad for p in params], cfg.train.grad_clip_norm)
     state.optimizer.step()
     if mark is not None:
         mark("optimizer")

@@ -1,1 +1,3 @@
-"""Weight conversion from the JAX package."""
+"""Utilities: timing, metrics logging, visualization, weight conversion."""
+
+from detectron_tpu_torch.utils.timer import Timer  # noqa: F401

@@ -16,6 +16,8 @@ as nested dicts of numpy arrays and returns the port's ``state_dict``:
   fractionally strided correlation, torch the adjoint of a convolution;
   the inverse of ``detectron_tpu/utils/torch_weights.py``'s import);
 * frozen BatchNorm ``weight/bias/running_mean/running_var`` as they are;
+* GroupNorm (``model.norm=gn``): flax's ``scale`` -> ``weight``, ``bias``
+  as it is;
 * RetinaNet's ``fpn/lateral2`` and ``fpn/smooth2`` are dropped: the JAX
   P3-P7 FPN makes them and never reads its P2, and the port's has neither.
 
@@ -64,6 +66,8 @@ def _convert(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
             arr = arr.T
         else:
             raise ValueError(f"JAX parameter {'/'.join(path)}: kernel of rank {arr.ndim}")
+        leaf = "weight"
+    elif leaf == "scale":
         leaf = "weight"
     elif leaf not in _BN_LEAVES:
         raise KeyError(f"JAX parameter {'/'.join(path)}: unknown leaf {leaf!r}")

@@ -694,3 +694,60 @@ def test_weights_phase(rehearsal, monkeypatch, tmp_path, capsys):
     line = out.split("[weights] eval driver, Mask R-CNN")[1].splitlines()[0]
     assert "False" not in line and "8 images" in line
     assert not (tmp_path / "weights").exists()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_phase(rehearsal, capsys, dtype):
+    """Phase 25: GroupNorm predict calls and train steps, each kernel launch
+    held against its plain version, the stem's GroupNorm fixed; then phase
+    6's check with GroupNorm (both sides on the CPU here: equal)."""
+    launches, summary = cs.phase_gn(calls=2, steps=2, dtype=dtype)
+    sfx = "" if dtype == "float32" else "_bf16"
+    assert launches == {
+        "gn_predict" + sfx: {"greedy_nms": 4, "multilevel_roi_align": 4,
+                             "multilevel_roi_align_bwd": 0},
+        "gn_train" + sfx: {"greedy_nms": 2, "multilevel_roi_align": 4,
+                           "multilevel_roi_align_bwd": 4}}
+    assert summary["held"]["predict"] == {"greedy_nms": (2, 0.0),
+                                          "multilevel_roi_align": (2, 0.0),
+                                          "multilevel_roi_align_bwd": (0, 0.0)}
+    assert summary["held"]["train"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
+                                        "multilevel_roi_align_bwd": (2, 0.0)}
+    assert len(summary["step_ms"]) == 2 and "backbone+fpn" in summary["stages_ms"]
+    cs.phase_cross_device(dtype=dtype, overrides=cs.GN_OVERRIDES, bf16_limit=cs.CROSS_BF16_GN,
+                          as_good_as_cpu=dtype == "bfloat16")
+    out = capsys.readouterr().out
+    assert "norm=gn" in out and "'backbone.gn1.weight': False" in out
+    assert "[cross model.norm=gn" in out
+    if dtype == "bfloat16":
+        assert "the card's bf16 against the CPU's bf16: at most x1.000" in out
+
+
+def test_remat_phase(rehearsal, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 2**30)
+    launches, summary = cs.phase_remat()
+    assert launches == {"remat_train": {"greedy_nms": 1, "multilevel_roi_align": 2,
+                                        "multilevel_roi_align_bwd": 2}}
+    assert summary["loss_rel"] == 0.0 and summary["grad_rel"] <= cs.REMAT_GRAD_RTOL
+    assert summary["held"]["multilevel_roi_align_bwd"] == (2, 0.0)
+    assert "[remat] remat step (timed)" in capsys.readouterr().out
+
+
+def test_dp_phase(rehearsal, monkeypatch, tmp_path, capsys):
+    """Phase 27 on the CPU: (a) over gloo at world size 1 (NCCL on the card),
+    the train and eval drivers under the group; (b) two gloo processes."""
+    monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval"))
+    monkeypatch.setattr(cs, "DP_OUT", str(tmp_path / "dp"))
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    launches, summary = cs.phase_dp()
+    assert not torch.distributed.is_initialized()
+    assert launches["dp_train"] == {"greedy_nms": 1, "multilevel_roi_align": 2,
+                                    "multilevel_roi_align_bwd": 2}
+    assert launches["dp_driver"]["multilevel_roi_align_bwd"] == 4
+    assert launches["dp_eval"]["multilevel_roi_align"] > 0
+    assert summary["a"]["diffs"][0] <= cs.DP_LOSS_ATOL and summary["b"]["diffs"][1] <= (
+        cs.DP_PARAM_ATOL)
+    out = capsys.readouterr().out
+    assert "backend gloo, rank 0 of 1" in out and "metrics.jsonl records [1, 2]" in out
+    assert "two ranks on one card over gloo" in out and "[dp (b) rank 0]" in out

@@ -47,6 +47,16 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", ["parallel/__init__.py", "parallel/mesh.py",
+                                    "utils/metrics.py", "utils/timer.py"])
+def test_parallel_and_logging_modules_are_checked(module):
+    """The data-parallel and logging modules are among the files checked
+    above, and import nothing forbidden."""
+    path = os.path.join(REPO, "detectron_tpu_torch", module)
+    assert path in port_files()
+    assert not [n for n in imported_names(path) if n.split(".")[0] in FORBIDDEN]
+
+
 def test_import_leaves_jax_out():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -107,11 +117,20 @@ def test_retinanet_builds_and_defaults_to_cuda(monkeypatch):
 
 @pytest.mark.parametrize("override", ["model.norm=gn"])
 def test_unported_variants_raise(override):
+    """The last variant that raised, GroupNorm, is ported: it builds, and no
+    module of the port raises ``NotImplementedError``; a norm that neither
+    package has raises."""
     from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.resnet import GroupNorm
     from detectron_tpu_torch.models.zoo import build_detector
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_detector(get_config(None, ["model.name=mask_rcnn", override]), device="cpu")
+    det = build_detector(get_config(None, ["model.name=mask_rcnn", override]), device="cpu")
+    assert isinstance(det.module.backbone.gn1, GroupNorm)
+    for path in port_files():
+        assert "NotImplementedError" not in open(path).read(), path
+    with pytest.raises(ValueError, match="model.norm"):
+        build_detector(get_config(None, ["model.name=mask_rcnn", "model.norm=sync_bn"]),
+                       device="cpu")
 
 
 @pytest.mark.parametrize("name", ["rfcn", "mask_rcnn"])

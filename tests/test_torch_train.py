@@ -306,15 +306,16 @@ def test_driver_runs_two_steps_on_cpu_and_resumes(tmp_path, capsys):
 def test_driver_debug_nans_stops_at_a_non_finite_loss(tmp_path, monkeypatch, debug_nans):
     """train.debug_nans (jax_debug_nans in train.py) raises at the first
     step whose loss is not finite; without it the run logs the NaN."""
-    real_step = driver.train_step
+    real_step = tstate.train_step
 
-    def nan_step(state, batch):
-        metrics = real_step(state, batch)
+    def nan_step(state, batch, *args, **kwargs):
+        metrics = real_step(state, batch, *args, **kwargs)
         if state.step >= 2:
             metrics["loss_mask"] = torch.tensor(float("nan"))
         return metrics
 
-    monkeypatch.setattr(driver, "train_step", nan_step)
+    # the driver's step is parallel.make_train_step's, which calls train_step
+    monkeypatch.setattr(tstate, "train_step", nan_step)
     cfg = get_config(None, OVERRIDES + [
         "data.dataset=synthetic", "train.max_steps=3", "train.log_every=1",
         f"train.debug_nans={str(debug_nans).lower()}", f"output_dir={tmp_path}"])
