@@ -49,11 +49,16 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    sub-cell, all identical, P5 RoIs covering the whole level, past the
    border): max |diff| <= 1e-5 * max |plain gradient|; two K3 runs are
    compared too (overlapping RoIs add in a varying order); the zero fill
-   and the kernel are timed apart. The bf16 instance (a bf16 gradient
-   added into the fp32 buffers, each level rounded to bf16 once) at the
-   same cases: within one bf16 step plus the fp32 limit of its bf16 plain
-   version and of the fp32 kernel on the upcast gradient cast once; timed
-   (fill, kernel, cast), its bound at 2 bytes a value;
+   and the kernel are timed apart. The bf16 route (a pre-pass of each
+   RoI's tap cell range, then one tile kernel that writes each bf16 level
+   gradient once, each level rounded to bf16 once) at the same cases:
+   within one bf16 step plus the fp32 limit of its bf16 plain version and
+   of the fp32 kernel on the upcast gradient cast once, two runs bitwise
+   equal, the pre-pass's bounds equal to roi_tap_cell_bounds; one call
+   under the profiler runs the pre-pass and the tile kernel and nothing
+   else; timed whole, pre-pass and kernel apart, its bound at 2 bytes a
+   value, beside the fp32 fill and cast passes of the earlier bf16 route;
+   the stress cases timed too (recorded, not gated);
 8. the autograd Function (K2 forward, K3 backward) on the card: the
    gradient of a weighted sum of its output equals autograd through the
    plain forward within the same bound;
@@ -1312,19 +1317,37 @@ def check_k3(name, g, level_hw, rois, levels):
     return diff, rerun
 
 
+def tile_visits(bounds, tile) -> int:
+    """From the pre-pass's bounds [B, R, 4]: the (RoI, tile) pairs of
+    ``tile`` x ``tile`` cells that K3's bf16 kernel contracts (each once a
+    channel slice), a count from the inputs. Its tiles are 8 x 8 cells (256
+    channels a block) or 16 x 16 (32), as the block's shared memory allows
+    (csrc/roi_align.cu, kWideTile and kTile)."""
+    first, last = bounds[..., 0::2].long(), bounds[..., 1::2].long()
+    tiles = (torch.div(last, tile, rounding_mode="floor")
+             - torch.div(first, tile, rounding_mode="floor") + 1).clamp_min(0)
+    return int((tiles[..., 0] * tiles[..., 1] * (last >= 0).all(-1)).sum())
+
+
 def check_k3_bf16(name, g, level_hw, rois, levels):
-    """K3 with a bf16 ``g`` (bf16 level gradients), its bf16 plain version
-    and the fp32 kernel on the upcast ``g`` cast once, on the same inputs:
-    each within one bf16 step plus the fp32 limit (1e-5 x max |plain
-    gradient|: other summation orders, atomics in a varying order, then one
-    rounding). Returns (max |diff| against the plain version, bf16 steps
-    from the fp32 kernel)."""
+    """K3 with a bf16 ``g`` (bf16 level gradients) twice, its bf16 plain
+    version, the fp32 kernel on the upcast ``g`` cast once, and K3's bf16
+    pre-pass alone, on the same inputs: within one bf16 step plus the fp32
+    limit of the plain version and of the fp32 kernel (1e-5 x max |plain
+    gradient|: other summation orders, then one rounding); the two runs
+    bitwise equal (no atomics); the pre-pass's bounds equal to
+    ``roi_tap_cell_bounds``. Returns (max |diff| against the plain version,
+    bf16 steps from the fp32 kernel)."""
     from detectron_tpu_torch.ops import roi_align as ra
 
+    p = g.shape[2]
     got = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
+    again = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
     want = ra.multilevel_roi_align_bwd_plain(g, level_hw, rois, levels, STRIDES, 2)
     f32 = [x.to(torch.bfloat16) for x in ra.multilevel_roi_align_bwd_cuda(
         g.float(), level_hw, rois, levels, STRIDES, 2)]
+    bounds = ra.roi_tap_bounds_cuda(level_hw, rois, levels, STRIDES, p, 2)
+    want_bounds = ra.roi_tap_cell_bounds(level_hw, rois, levels, STRIDES, p, 2)
     torch.cuda.synchronize()
     if any(x.dtype != torch.bfloat16 for x in got):
         raise AssertionError(f"K3 bf16 {name}: level gradients {[x.dtype for x in got]}")
@@ -1334,13 +1357,59 @@ def check_k3_bf16(name, g, level_hw, rois, levels):
     diff, ok = max(d for d, _ in plain), all(o for _, o in plain)
     ok32 = all(o for _, o in fp32)
     steps = max(bf16_steps(x, w) for x, w in zip(got, f32))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    off = int((bounds != want_bounds).any(-1).sum())
     log(f"[K3 bf16 {name}] max |diff| {diff:.3e} from the bf16 plain version (limit: one bf16 "
         f"step + {floor:.3e}): {ok}; from the fp32 kernel on the upcast g cast once: max "
         f"|diff| {max(d for d, _ in fp32):.3e}, within the same limit: {ok32} ({steps} bf16 "
-        f"steps at most)")
+        f"steps at most); two runs bitwise equal: {same}; pre-pass bounds equal to "
+        f"roi_tap_cell_bounds: {off == 0} ({off} of {bounds.shape[0] * bounds.shape[1]} RoIs "
+        f"differ); (RoI, tile) visits {tile_visits(want_bounds, 8)} of 8x8 tiles, "
+        f"{tile_visits(want_bounds, 16)} of 16x16")
     if not (floor > 0.0 and ok and ok32):
         raise AssertionError(f"K3 bf16 {name}: beyond its limit")
+    if not same:
+        raise AssertionError(f"K3 bf16 {name}: two runs differ")
+    if off:
+        raise AssertionError(f"K3 bf16 {name}: the pre-pass's bounds differ from "
+                             f"roi_tap_cell_bounds for {off} RoIs")
     return diff, steps
+
+
+def device_kernels(fn) -> list:
+    """``(name, launches, device ms)`` of every kernel that one call of
+    ``fn()`` runs on the card, from torch.profiler: the call is made twice,
+    the first as the profiler's warm-up step (a first traced step can miss
+    its first kernel), the second recorded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the step's own range is listed with the device time inside it
+    return [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep")]
+
+
+# the kernels of one bf16 K3 call: the pre-pass and the tile kernel, nothing
+# else (no fill, no cast pass)
+K3_BF16_KERNELS = ("roi_tap_bounds_kernel", "roi_align_backward_tiles_kernel")
+
+
+def check_k3_bf16_launches(fn, name):
+    """Lists the kernels of one bf16 K3 call (``fn``) under the profiler:
+    each of K3_BF16_KERNELS once, and nothing else."""
+    listing = device_kernels(fn)
+    for key, count, ms in listing:
+        log(f"[K3 bf16 {name}] profiler: {ms:.4f} ms x{count} {key[:100]}")
+    found = sorted(next((k for k in K3_BF16_KERNELS if k in key), key) for key, _, _ in listing)
+    if found != sorted(K3_BF16_KERNELS) or any(count != 1 for _, count, _ in listing):
+        raise AssertionError(f"K3 bf16 {name}: one call ran {listing}, not the pre-pass and "
+                             "the tile kernel once each")
 
 
 def phase_roi_align_bwd(rng, feats):
@@ -1384,31 +1453,46 @@ def phase_roi_align_bwd(rng, feats):
                             fill_ms=fill_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                             bound_ms=b_ms, bound_by=b_by, max_abs_err=diff,
                             rerun_max_abs_diff=rerun))
-        # the bf16 instance on the same RoIs and gradient, rounded to bf16
+        # the bf16 route on the same RoIs and gradient, rounded to bf16: the
+        # pre-pass and the tile kernel, timed whole and apart
         g16 = g.bfloat16()
-        del g
-        diff16, steps = check_k3_bf16(f"P={p} R={r} span={span}", g16, level_hw, rois, levels)
+        del g, bufs
+        label = f"P={p} R={r} span={span}"
+        diff16, steps = check_k3_bf16(label, g16, level_hw, rois, levels)
+        check_k3_bf16_launches(lambda: ra.multilevel_roi_align_bwd_cuda(
+            g16, level_hw, rois, levels, STRIDES, 2), label)
         ms16 = cuda_ms(lambda: ra.multilevel_roi_align_bwd_cuda(g16, level_hw, rois, levels,
                                                                 STRIDES, 2))
-        kernel16_ms = cuda_ms(lambda: ra.roi_align_bwd_accumulate_cuda(
-            bufs, g16, rois, levels, STRIDES, 2))
+        prepass_ms = cuda_ms(lambda: ra.roi_tap_bounds_cuda(level_hw, rois, levels, STRIDES,
+                                                            p, 2))
+        bounds = ra.roi_tap_bounds_cuda(level_hw, rois, levels, STRIDES, p, 2)
+        views = ra.level_views(torch.empty(out_bytes // 4, dtype=torch.bfloat16, device=dev),
+                               b, c, level_hw)
+        kernel16_ms = cuda_ms(lambda: ra.roi_align_bwd_tiles_cuda(views, bounds, g16, rois,
+                                                                  levels, STRIDES, 2))
+        # the passes of the earlier bf16 route besides its kernel: the fp32
+        # fill (timed above) and the cast of every level to bf16
         flat = ra.level_grad_buffer(b, c, level_hw, dev)
         cast_ms = cuda_ms(lambda: flat.to(torch.bfloat16))
-        del flat
+        del flat, views
         plain16_ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_plain(
             g16, level_hw, rois, levels, STRIDES, 2), iters=5, warmup=1)
         # g read once and every level's gradient written once, at 2 bytes a
         # value, RoIs and routing read once
         nbytes16 = g16.numel() * 2 + out_bytes // 2 + b * r * (16 + 4)
         b16_ms, b16_by = bound_ms(nbytes16, ops=b * r * p * p * c * (4 * 4 * 3 + 1))
-        log(f"[K3 P={p} R={r} bfloat16] {ms16:.4f} ms (fill {fill_ms:.4f} + kernel "
-            f"{kernel16_ms:.4f} + cast to bf16 {cast_ms:.4f}), plain {plain16_ms:.3f} ms, bound "
-            f"{b16_ms:.4f} ms ({b16_by}, {nbytes16 / 1e6:.1f} MB)")
+        log(f"[K3 P={p} R={r} bfloat16] {ms16:.4f} ms (pre-pass {prepass_ms:.4f} + kernel "
+            f"{kernel16_ms:.4f}), plain {plain16_ms:.3f} ms, bound {b16_ms:.4f} ms ({b16_by}, "
+            f"{nbytes16 / 1e6:.1f} MB: level gradients {out_bytes / 2e6:.1f}, g "
+            f"{g16.numel() * 2 / 1e6:.1f}); (RoI, tile) visits {tile_visits(bounds, 8)} of 8x8 "
+            f"tiles, {tile_visits(bounds, 16)} of 16x16; "
+            f"the earlier route's passes besides its kernel: fp32 fill {fill_ms:.4f} + cast "
+            f"to bf16 {cast_ms:.4f} ms")
         results.append(dict(case=f"P{p} R{r}", path="train", dtype="bfloat16", ms=ms16,
-                            fill_ms=fill_ms, kernel_ms=kernel16_ms, cast_ms=cast_ms,
-                            plain_ms=plain16_ms, bound_ms=b16_ms, bound_by=b16_by,
-                            max_abs_err=diff16, fp32_kernel_bf16_steps=steps))
-        del g16, bufs
+                            prepass_ms=prepass_ms, kernel_ms=kernel16_ms, plain_ms=plain16_ms,
+                            bound_ms=b16_ms, bound_by=b16_by, max_abs_err=diff16,
+                            fp32_kernel_bf16_steps=steps))
+        del g16, bounds
     for kind in K3_STRESS:
         for p in (7, 14):
             rois, levels = k3_stress_rois(rng, kind, b, 128)
@@ -1417,7 +1501,12 @@ def phase_roi_align_bwd(rng, feats):
                       if levels is None else torch.tensor(levels, device=dev))
             g = torch.tensor(rng.randn(b, 128, p, p, c).astype(np.float32), device=dev)
             check_k3(f"stress: {kind}, P={p} R=128", g, level_hw, rois, levels)
-            check_k3_bf16(f"stress: {kind}, P={p} R=128", g.bfloat16(), level_hw, rois, levels)
+            g16 = g.bfloat16()
+            check_k3_bf16(f"stress: {kind}, P={p} R=128", g16, level_hw, rois, levels)
+            # many RoIs on a few tiles: recorded, not gated
+            ms16 = cuda_ms(lambda: ra.multilevel_roi_align_bwd_cuda(g16, level_hw, rois,
+                                                                    levels, STRIDES, 2))
+            log(f"[K3 bf16 stress: {kind}, P={p} R=128] {ms16:.4f} ms")
     return results
 
 

@@ -11,18 +11,21 @@
 // computed by the caller (the port's assign_fpn_levels), so this kernel
 // and its plain PyTorch version route identically by construction.
 //
-// K3, roi_align_backward, replaces the Pallas TPU kernel
+// K3 replaces the Pallas TPU kernel
 // detectron_tpu/ops/roi_align_pallas.py::multilevel_roi_align_pallas_bwd
 // (_make_bwd_kernel, _bwd_windows, _precompute_dwin): the gradient of K2
 // with respect to each level, given the upstream gradient g [B, R, P, P, C]
-// and the routing the forward used, added into zero-filled fp32
-// [B, Hl, Wl, C] buffers (the caller's fill). The RoIs get no gradient.
+// and the routing the forward used. The RoIs get no gradient. It has two
+// routes: roi_align_backward (fp32 g) adds into zero-filled fp32
+// [B, Hl, Wl, C] buffers (the caller's fill); for a bf16 g, roi_tap_bounds
+// (a pre-pass) and roi_align_backward_tiles_bf16 write every bf16 level
+// gradient once, whole, with no fill.
 //
 // What bounds them on the H100: memory, not arithmetic. K2 must read the
 // feature cells its samples touch and write its output. K3 must read g and
-// write every level's gradient once (the zero fill, 234 MB for 2 images of
-// 1024x1344 at C=256, is most of it); their arithmetic is a few fp32
-// operations a sample.
+// write every level's gradient once (234 MB in fp32 for 2 images of
+// 1024x1344 at C=256, 117 MB in bf16: most of it); their arithmetic is a
+// few fp32 operations a sample.
 //
 // Both kernels share a block's set-up: warp 0 computes the block's RoI's
 // P*S x samples and warp 1 its P*S y samples (roi_frame, sample_coord,
@@ -75,14 +78,15 @@
 // all of them shares the set-up, but the set-up is a small part of a
 // block's time and too few blocks are left.
 
-// K3 design. What the TPU kernel kept out of device memory was the traffic
-// of the samples: it built each RoI's window gradient on chip (Wy^T g Wx)
-// and added the window into the level once. Adding every sample's four
-// corners into device memory with scalar fp32 atomics instead costs
-// 4 S^2 P^2 L2 atomics a RoI and channel, mostly onto the same few cells,
-// and those, not the bytes, would be the time. So, after the shared set-up
-// (during which the other six warps stage g / S^2 of the RoI's slice in
-// shared memory, so the fold hides under that load):
+// K3 design, fp32 g. What the TPU kernel kept out of device memory was the
+// traffic of the samples: it built each RoI's window gradient on chip
+// (Wy^T g Wx) and added the window into the level once. Adding every
+// sample's four corners into device memory with scalar fp32 atomics instead
+// costs 4 S^2 P^2 L2 atomics a RoI and channel, mostly onto the same few
+// cells, and those, not the bytes, would be the time. So one block takes a
+// RoI and a channel slice and, after the shared set-up (during which the
+// other six warps stage g / S^2 of the RoI's slice in shared memory, so the
+// fold hides under that load):
 //   1. pass 1 contracts x: t[p, xcell, c] = sum over the x taps on xcell of
 //      wx * g[p, q, c]; pass 2 contracts y: d[ycell, xcell, c] = sum over
 //      the y taps on ycell of wy * t[p, xcell, c]. Each thread owns whole
@@ -92,32 +96,76 @@
 //      per 4 channels: a mask RoI of ~14 cells on its level issues ~15x15
 //      of them per 4 channels instead of 3136 scalar adds per channel.
 // Only the adds of different RoIs onto the same cell remain unordered, so
-// K3 is not bitwise deterministic across RoIs: the last bits of a cell that
-// overlapping RoIs touch may differ between two runs. Sums are fp32.
+// the fp32 route is not bitwise deterministic across RoIs: the last bits of
+// a cell that overlapping RoIs touch may differ between two runs. Sums are
+// fp32.
+//
+// K3 design, bf16 g. Here the level gradients are bf16, each rounded once
+// after every RoI's window is summed in fp32 (the TPU kernel rounds the
+// level gradient to the features' dtype after every RoI's window: the
+// port's single rounding is the more accurate of the two). Adding into fp32
+// buffers, as the fp32 route does, would need a fill of 234 MB and a cast
+// pass that reads it and writes 117 MB: 4x the bytes the function moves.
+// So ownership is inverted, and each output cell is written once:
+//   1. a pre-pass (roi_tap_bounds, one warp a RoI) runs the shared set-up
+//      (roi_axis) and writes, per RoI and axis, the first and last of the
+//      folded cells: the inclusive cell range of its nonzero taps (empty if
+//      none). The range comes from the taps, not the box: the border rule
+//      clamps a sample in [-1, 0) to cell 0 and one in (size - 1, size] to
+//      cell size - 1, outside a box-based range;
+//   2. one block takes a square tile of one level of one image and one
+//      channel slice (8 x 8 cells and 256 channels, or 16 x 16 cells and 32
+//      where a wide block's shared memory would not hold a RoI: P=14), and
+//      holds the tile's gradient in fp32 registers, one row and kCols cells
+//      of 8 channels a thread. It walks the RoIs of its image in ascending
+//      index and lists (ballots into shared memory, in chunks) those routed
+//      to its level whose ranges meet the tile, with each one's frame on
+//      the level (roi_frame). It redoes the set-up of the listed RoIs for
+//      the tile's columns and rows (sample_coord, bilinear: K2's own
+//      arithmetic, so K3 stays K2's exact transpose), a group of RoIs side
+//      by side, one warp an axis, into lists of the taps on each column or
+//      row in the fold's order (i0 taps, then i1 taps, by sample). g of
+//      each RoI's slice is copied in as it is by cp.async,
+//      the next RoI's copy in flight while this one is contracted: pass x
+//      over the tile's columns (bf16 converted as read; the x weights carry
+//      the exact 1 / S^2 where S^2 is a power of two), pass y over the
+//      tile's rows into the RoI's window at each owned cell, which is then
+//      added to the cell's sum. Two barriers a RoI;
+//   3. the tile is rounded to bf16 (nearest even) once and written with
+//      16-byte stores; a tile that no RoI touches writes zeros.
+// No fill, no atomics, no cast pass; each cell is summed in a fixed order,
+// so the result is bitwise deterministic. A cell's window from one RoI is
+// the fp32 route's, bit for bit; only the order in which RoIs add differs.
+// The grid takes the coarsest level first: its few tiles gather the most
+// RoIs (P5's RoIs span most of the level), and they start before the rest.
+// What limits it on the H100 is not the bytes (PERF.md): a RoI on a tile is
+// a chain of set-up, copy, two passes and two barriers, each a few hundred
+// cycles of latency, with 16 warps an SM (128 registers a thread), and a
+// RoI is taken once for every tile it meets and every channel slice; a
+// block also lists its tile's RoIs before any of them, and a tile that no
+// RoI meets still costs that listing.
 //
 // `slice` is, for each kernel, the first of its widths that divides C and
 // whose shared memory lets blocks share an SM: K2 64, 32 or 4 (64 at C=256,
 // P=7 and 14; 32 at the small configs' C=32; 4 divides any C the wrapper
-// takes), K3 32, 16, 8 or 4 (32 at P=7, 16 at P=14, with S=2).
+// takes), K3 fp32 32, 16, 8 or 4 (32 at P=7, 16 at P=14, with S=2), K3
+// bf16 narrow 32, 16 or 8 (32 at P=14).
 //
-// bf16. Each kernel has an instance for fp32 and one for bf16 features
-// (K2) or upstream gradient (K3), as the TPU kernels read either and
-// compute in fp32 (roi_align_pallas.py: the window's .astype(float32), the
-// fp32 matmuls, the output's .astype(out_dtype)). Only the outside of a
-// kernel changes with the element type: a thread still takes 4 channels at
-// a time (a float4, or 4 bf16 in 8 bytes) and converts them to fp32 where it
-// reads them; every tap, fold, contraction and division is the fp32
-// instance's, in the same order, so a bf16 output is the fp32 kernel's on
-// the upcast inputs, rounded to nearest even once. K2 stages the bf16 cells
-// as they are (a 16-byte cp.async carries 8 channels; cp.async cannot
-// convert) and converts them as pass x reads them: the staging buffers keep
-// their bytes, so a chunk holds twice the cells; the ring stays fp32. Its
-// bf16 slices are 64, 32 or 8 channels (whole 16-byte copies), so the
-// wrapper takes C a multiple of 8. K3 reads bf16 g into its fp32 tile and
-// adds into the same fp32 buffers with the same atomics; the caller rounds
-// each level's gradient to bf16 once, after the kernel (the TPU kernel
-// rounds the level gradient to the features' dtype after every RoI's
-// window: the port's single rounding is the more accurate of the two).
+// bf16 K2. K2 has an instance for fp32 and one for bf16 features, as the
+// TPU kernel reads either and computes in fp32 (roi_align_pallas.py: the
+// window's .astype(float32), the fp32 matmuls, the output's
+// .astype(out_dtype)). Only the outside of the kernel changes with the
+// element type: a thread still takes 4 channels at a time (a float4, or 4
+// bf16 in 8 bytes) and converts them to fp32 where it reads them; every
+// tap, fold, contraction and division is the fp32 instance's, in the same
+// order, so a bf16 output is the fp32 kernel's on the upcast inputs,
+// rounded to nearest even once. K2 stages the bf16 cells as they are (a
+// 16-byte cp.async carries 8 channels; cp.async cannot convert) and
+// converts them as pass x reads them: the staging buffers keep their bytes,
+// so a chunk holds twice the cells; the ring stays fp32. Its bf16 slices
+// are 64, 32 or 8 channels (whole 16-byte copies), so the wrappers take a
+// bf16 C a multiple of 8 (K3 bf16 likewise: 16-byte copies of g, 16-byte
+// stores of 8 channels).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -646,15 +694,13 @@ int bwd_smem_bytes(int pool, int ratio, int slice) {
   return (pool * pool + pool * 2 * pool * ratio) * slice * static_cast<int>(sizeof(float));
 }
 
-// T is the element type of the upstream gradient; the level gradients are
-// fp32 whatever T is.
-template <typename T, int kSlice>
+// The fp32 route: the upstream gradient and the level gradients are fp32.
+template <int kSlice>
 __global__ void __launch_bounds__(kThreads)
     roi_align_backward_kernel(Levels<float> lv, const float4* __restrict__ rois,
                               const int* __restrict__ levels,
-                              const T* __restrict__ grad_out, int rois_per_image,
+                              const float* __restrict__ grad_out, int rois_per_image,
                               int channels, int pool, int ratio) {
-  using V4 = typename Vec4<T>::type;          // 4 channels of T
   constexpr int kV4 = kSlice / 4;             // float4 groups of the slice
   constexpr int kCells = kThreads / kV4;      // cells one sweep of the block covers
   extern __shared__ __align__(16) float bwd_smem[];
@@ -679,11 +725,11 @@ __global__ void __launch_bounds__(kThreads)
     roi_axis(tab, rois[n], lv.stride[l], warp ? height : width, pool, ratio, warp, lane);
   } else {
     const float count = static_cast<float>(ratio * ratio);
-    const T* src = grad_out + static_cast<size_t>(n) * pool * pool * channels + c0;
+    const float* src = grad_out + static_cast<size_t>(n) * pool * pool * channels + c0;
     for (int e = t - 64; e < pool * pool * kV4; e += kThreads - 64) {
       const int pq = e / kV4, c4 = e % kV4;
-      float4 v = to_float4(
-          __ldg(reinterpret_cast<const V4*>(src + static_cast<size_t>(pq) * channels) + c4));
+      float4 v = __ldg(
+          reinterpret_cast<const float4*>(src + static_cast<size_t>(pq) * channels) + c4);
       v.x = v.x / count;
       v.y = v.y / count;
       v.z = v.z / count;
@@ -722,6 +768,407 @@ __global__ void __launch_bounds__(kThreads)
     }
     float* cell = grad + (static_cast<size_t>(ay.cell[r]) * width + ax.cell[s]) * channels;
     atomicAdd(reinterpret_cast<float4*>(cell) + c4, acc);
+  }
+}
+
+// ------------------------------------------------------------ K3, bf16 g
+
+constexpr int kListCap = 512;    // RoIs a tile block lists at a time
+constexpr int kBoundsWarps = 4;  // RoIs a pre-pass block takes, one a warp
+// The tile blocks' two shapes. A wide block takes kWideTile x kWideTile
+// cells and kWideSlice channels with 512 threads, one block an SM; a narrow
+// one kTile x kTile cells and a 32-, 16- or 8-channel slice with kThreads,
+// two blocks an SM. The wide shape meets a RoI on fewer (tile, slice) pairs
+// (each pair is a set-up, a copy, two passes and two barriers), but holds
+// all of a RoI's g and its x-contraction: it is taken where they fit (C a
+// multiple of 256, P=7 at S=2), else the narrow one (P=14).
+constexpr int kTile = 16;
+constexpr int kWideTile = 8;
+constexpr int kWideSlice = 256;
+constexpr int kWideSmemLimit = 192 * 1024;  // dynamic bytes a wide block
+constexpr int kTileSmemLimit = 100 * 1024;  // dynamic bytes a narrow block: two fit on an SM
+
+// The pre-pass, one warp a RoI: the set-up of roi_axis along x, then y, and
+// the first and last folded cell of each axis, (x first, x last, y first,
+// y last), where an axis with no nonzero tap gives (0, -1).
+__global__ void __launch_bounds__(32 * kBoundsWarps)
+    roi_tap_bounds_kernel(Levels<__nv_bfloat16> lv, const float4* __restrict__ rois,
+                          const int* __restrict__ levels, int4* __restrict__ bounds,
+                          int num_rois, int pool, int ratio) {
+  __shared__ RoiTable tabs[kBoundsWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = blockIdx.x * kBoundsWarps + warp;
+  if (n >= num_rois) return;  // warp-uniform; the warps share no barrier
+  RoiTable& tab = tabs[warp];
+  const int l = levels[n];
+  int first[2], last[2];
+  for (int a = 0; a < 2; ++a) {
+    roi_axis(tab, rois[n], lv.stride[l], a ? lv.h[l] : lv.w[l], pool, ratio, a, lane);
+    const AxisTaps& ax = tab.axis[a];
+    first[a] = ax.count ? ax.cell[0] : 0;
+    last[a] = ax.count ? ax.cell[ax.count - 1] : -1;
+  }
+  if (lane == 0) bounds[n] = make_int4(first[0], last[0], first[1], last[1]);
+}
+
+// A tap of one sample on a cell of the tile: the sample's output bin and
+// its weight.
+struct __align__(8) BinTap {
+  int bin;
+  float weight;
+};
+
+// One RoI's taps on a tile, per axis a (0: the tile's columns, 1: its
+// rows), as lists by cell: the taps on the tile's cell j are
+// tap[a][start[a][j]..start[a][j + 1] - 1], in the fold's order (the i0 taps
+// by sample, then the i1 taps); cells lo[a]..hi[a] are those with taps
+// (none: hi < lo). mask[a][e][j] has bit k set where tap e (0: i0, 1: i1) of
+// sample k lands on cell j, the lists' ranks.
+template <int kTileN>
+struct TileTaps {
+  unsigned long long mask[2][2][kTileN];
+  int start[2][kTileN + 1];
+  BinTap tap[2][2 * kMaxSamples];
+  int lo[2], hi[2];
+};
+
+// Warp `a` of a tile block: the P*S samples along axis a of a RoI whose
+// frame on the level is `f` (K2's arithmetic), and the lists of their
+// nonzero taps on the tile's cells origin..origin + kTileN - 1, the weights
+// times `scale`. A sample's taps are found on their cells with one match a
+// tap and sweep of 32 samples, counted into the lists' starts by a scan
+// over the cells, and put into place by their rank among their cell's
+// taps.
+template <int kTileN>
+__device__ void tile_axis(TileTaps<kTileN>& tt, const RoiFrame f, int size, int pool, int ratio,
+                          int a, int origin, float scale, int lane) {
+  const unsigned full = 0xffffffffu;
+  const int samples = pool * ratio;
+  if (lane < kTileN) {
+    tt.mask[a][0][lane] = 0ull;
+    tt.mask[a][1][lane] = 0ull;
+  }
+  __syncwarp();
+  int cell[2][2];  // [sweep][tap]: the tile's cell of each tap of the lane's samples, or -1
+  float w[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = h * 32 + lane;
+    cell[h][0] = cell[h][1] = -1;
+    w[h][0] = w[h][1] = 0.0f;
+    if (k < samples) {
+      int i[2];
+      bilinear(sample_coord(a ? f.y1 : f.x1, a ? f.bin_h : f.bin_w, k, ratio), size, &i[0],
+               &i[1], &w[h][0], &w[h][1]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (w[h][e] != 0.0f && i[e] >= origin && i[e] < origin + kTileN) {
+          cell[h][e] = i[e] - origin;
+        }
+      }
+    }
+    if (h * 32 < samples) {  // warp-uniform
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const unsigned same = __match_any_sync(full, cell[h][e]);
+        if (cell[h][e] >= 0 && lane == __ffs(same) - 1) {
+          tt.mask[a][e][cell[h][e]] |= static_cast<unsigned long long>(same) << (h * 32);
+        }
+      }
+      __syncwarp();
+    }
+  }
+  const int count =
+      lane < kTileN ? __popcll(tt.mask[a][0][lane]) + __popcll(tt.mask[a][1][lane]) : 0;
+  int end = count;  // inclusive scan over the cells
+#pragma unroll
+  for (int d = 1; d < kTileN; d <<= 1) {
+    const int v = __shfl_up_sync(full, end, d);
+    if (lane >= d) end += v;
+  }
+  if (lane < kTileN) tt.start[a][lane + 1] = end;
+  if (lane == 0) tt.start[a][0] = 0;
+  const unsigned hit = __ballot_sync(full, count > 0);
+  if (lane == 0) {
+    tt.lo[a] = hit ? __ffs(hit) - 1 : 0;
+    tt.hi[a] = hit ? 31 - __clz(hit) : -1;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = h * 32 + lane;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = cell[h][e];
+      if (j >= 0) {
+        const int at = tt.start[a][j] + (e ? __popcll(tt.mask[a][0][j]) : 0) +
+                       __popcll(tt.mask[a][e][j] & ((1ull << k) - 1));
+        tt.tap[a][at] = BinTap{k / ratio, w[h][e] * scale};
+      }
+    }
+  }
+}
+
+// The tile blocks' grid, coarsest level first: entry i of the launch order
+// is level level[i], its blocks first[i]..first[i + 1] - 1, laid out as
+// (image, tile row, tile column, slice), the slice fastest.
+struct TileGrid {
+  int first[kMaxLevels + 1];
+  int level[kMaxLevels];
+  int tiles_x[kMaxLevels];
+  int tiles_y[kMaxLevels];
+};
+
+// The float4s of t a bin p: the tile's columns, 8 channels of the slice
+// as two float4s [2][tile][slice / 8], and 4 more, so that the threads of
+// pass x, which differ in p, store into different banks.
+__host__ __device__ constexpr int tile_t_stride(int tile, int slice) {
+  return 2 * tile * (slice / 8) + 4;
+}
+
+// Dynamic shared memory of one tile block: g of a RoI's slice as it is,
+// double-buffered [2][P*P][slice] bf16, and the x-contracted t
+// [P][tile_t_stride] float4.
+int tile_smem_bytes(int tile, int pool, int slice) {
+  return 2 * pool * pool * slice * static_cast<int>(sizeof(__nv_bfloat16)) +
+         pool * tile_t_stride(tile, slice) * static_cast<int>(sizeof(float4));
+}
+
+// 8 bf16 channels of g in fp32, divided by `count` (S^2) unless the x taps'
+// weights carry 1 / S^2 already.
+__device__ __forceinline__ void unpack8(const uint4 v, float count, bool divide, float4* lo,
+                                        float4* hi) {
+  *lo = to_float4(make_uint2(v.x, v.y));
+  *hi = to_float4(make_uint2(v.z, v.w));
+  if (divide) {
+    float* x = reinterpret_cast<float*>(lo);
+    float* y = reinterpret_cast<float*>(hi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = __fdiv_rn(x[e], count);
+      y[e] = __fdiv_rn(y[e], count);
+    }
+  }
+}
+
+__device__ __forceinline__ void add4(float4& acc, const float4 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+  acc.z += v.z;
+  acc.w += v.w;
+}
+
+// One block per (level, image, kTileN x kTileN tile, slice of kSlice
+// channels), of kBlock threads: the tile's bf16 gradient, summed over the
+// RoIs of its image routed to its level whose bounds meet it, in ascending
+// order.
+template <int kTileN, int kSlice, int kBlock, int kMinBlocks>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    roi_align_backward_tiles_kernel(Levels<__nv_bfloat16> lv, TileGrid grid,
+                                    const float4* __restrict__ rois,
+                                    const int* __restrict__ levels,
+                                    const int4* __restrict__ bounds,
+                                    const __nv_bfloat16* __restrict__ grad_out,
+                                    int rois_per_image, int channels, int pool, int ratio) {
+  constexpr int kSweep = kListCap / kBlock;    // RoIs a thread tests a sweep
+  constexpr int kV8 = kSlice / 8;              // 8-channel groups of the slice
+  constexpr int kLanes = kBlock / kV8;         // threads on one 8-channel group
+  constexpr int kColLanes = kLanes / kTileN;   // threads on one row of the tile
+  constexpr int kCols = kTileN / kColLanes;    // cells a thread owns along its row
+  constexpr int kStride = tile_t_stride(kTileN, kSlice);
+  constexpr int kWarps = kBlock / 32;
+  constexpr int kGroup = kWarps / 2;           // RoIs set up side by side, one warp an axis
+  static_assert(kLanes % kTileN == 0 && kColLanes <= kTileN, "a thread owns cells of one row");
+  extern __shared__ __align__(16) float tile_smem[];
+  __shared__ TileTaps<kTileN> taps[kGroup];  // the taps of a group of listed RoIs
+  __shared__ int list[kListCap];
+  __shared__ RoiFrame frames[kListCap];  // each listed RoI's frame on the level
+  __shared__ int warp_hits[kSweep][kWarps];
+
+  // the block's level, image, tile and slice
+  int i = 0;
+  while (static_cast<int>(blockIdx.x) >= grid.first[i + 1]) ++i;
+  const int l = grid.level[i];
+  int rest = blockIdx.x - grid.first[i];
+  const int c0 = rest % (channels / kSlice) * kSlice;
+  rest /= channels / kSlice;
+  const int tx0 = rest % grid.tiles_x[i] * kTileN;
+  rest /= grid.tiles_x[i];
+  const int ty0 = rest % grid.tiles_y[i] * kTileN;
+  const int b = rest / grid.tiles_y[i];
+  const int height = lv.h[l], width = lv.w[l];
+  const float stride = lv.stride[l];
+
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int c8 = t % kV8;               // this thread's 8 channels of the slice
+  const int row = t / kV8 / kColLanes;  // its row of the tile
+  const int col = t / kV8 % kColLanes;  // its first column; then every kColLanes-th
+
+  const int span = pool * pool * kV8;  // 16-byte units of one RoI's slice of g
+  uint4* raw = reinterpret_cast<uint4*>(tile_smem);        // [2][P*P][kV8], bf16
+  float4* tx = reinterpret_cast<float4*>(raw + 2 * span);  // [P][kStride], fp32
+  const unsigned long long by_pool = div_magic(pool);
+  // g / S^2 as the fp32 route stages it: where S^2 is a power of two, the
+  // x weights carry the exact 1 / S^2 instead (the same products); else
+  // pass x divides g
+  const float count = static_cast<float>(ratio * ratio);
+  const bool divide = (ratio & (ratio - 1)) != 0;
+  const float scale = divide ? 1.0f : 1.0f / count;
+  const size_t image = static_cast<size_t>(b) * rois_per_image;
+
+  // the copies of RoI r's slice of g into buffer `buf`, one group
+  auto load = [&](int r, int buf) {
+    const __nv_bfloat16* src = grad_out + (image + r) * pool * pool * channels + c0;
+    uint4* dst = raw + buf * span;
+    for (int e = t; e < span; e += kBlock) {
+      cp_async16(dst + e, src + static_cast<size_t>(e / kV8) * channels + e % kV8 * 8);
+    }
+    cp_async_commit();
+  };
+
+  float4 acc[kCols][2];  // the owned cells' sums: channels 0-3 and 4-7 of c8
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    acc[k][0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    acc[k][1] = acc[k][0];
+  }
+
+  for (int next = 0;;) {
+    // 1. list the next RoIs routed here whose bounds meet the tile, in
+    //    ascending order, kSweep * kBlock a sweep (RoI next + s * kBlock
+    //    + t is thread t's s-th)
+    int listed = 0;
+    while (next < rois_per_image && listed <= kListCap - kSweep * kBlock) {
+      int lvl[kSweep];
+      int4 v[kSweep];
+#pragma unroll
+      for (int s = 0; s < kSweep; ++s) {
+        const int r = next + s * kBlock + t;
+        lvl[s] = r < rois_per_image ? levels[image + r] : -1;
+        if (r < rois_per_image) v[s] = bounds[image + r];
+      }
+      bool hit[kSweep];
+      unsigned m[kSweep];
+#pragma unroll
+      for (int s = 0; s < kSweep; ++s) {
+        hit[s] = lvl[s] == l && v[s].x <= tx0 + kTileN - 1 && v[s].y >= tx0 &&
+                 v[s].z <= ty0 + kTileN - 1 && v[s].w >= ty0;
+        m[s] = __ballot_sync(0xffffffffu, hit[s]);
+        if (lane == 0) warp_hits[s][warp] = __popc(m[s]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < kSweep; ++s) {
+        int at = listed;
+        for (int w = 0; w < kWarps; ++w) {
+          const int h = warp_hits[s][w];
+          at += w < warp ? h : 0;
+          listed += h;
+        }
+        if (hit[s]) {
+          const int r = next + s * kBlock + t;
+          at += __popc(m[s] & ((1u << lane) - 1));
+          list[at] = r;
+          frames[at] = roi_frame(rois[image + r], stride, pool);
+        }
+      }
+      next += kSweep * kBlock;
+      __syncthreads();  // the list is written; warp_hits is free again
+    }
+
+    // 2. the listed RoIs in groups of kGroup: the group's set-ups side by
+    //    side, warp w on axis w % 2 of the group's RoI w / 2; then each RoI
+    //    in turn, its copies one RoI ahead
+    if (listed > 0) load(list[0], 0);
+    for (int j = 0; j < listed; ++j) {
+      const int cur = j & 1;
+      const int in_group = j % kGroup;
+      if (in_group == 0) {
+        __syncthreads();  // the last group's pass y no longer reads its taps
+        if (warp < 2 * min(kGroup, listed - j)) {
+          const int a = warp % 2;
+          tile_axis(taps[warp / 2], frames[j + warp / 2], a ? height : width, pool, ratio, a,
+                    a ? ty0 : tx0, a ? 1.0f : scale, lane);
+        }
+      }
+      if (j + 1 < listed) {
+        load(list[j + 1], cur ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // RoI j's g has landed and its taps are set; pass y of j - 1 is done
+      const TileTaps<kTileN>& tt = taps[in_group];
+      const uint4* gj = raw + cur * span;
+
+      //    pass x: t[p, x, c] = sum over the x taps on the tile's column x of
+      //    w * g[p, q, c] / S^2, for the columns with taps
+      const int x_lo = tt.lo[0], x_hi = tt.hi[0];
+      for (int e = t; e < (x_hi - x_lo + 1) * pool * kV8; e += kBlock) {
+        const int q = e / kV8;
+        const int jj = div_small(q, by_pool);
+        const int p = q - jj * pool;
+        const int x = x_lo + jj;
+        const int c = e % kV8;
+        float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+        for (int i = tt.start[0][x]; i < tt.start[0][x + 1]; ++i) {
+          const BinTap tap = tt.tap[0][i];
+          float4 a, a2;
+          unpack8(gj[(p * pool + tap.bin) * kV8 + c], count, divide, &a, &a2);
+          fma4(lo, a, tap.weight);
+          fma4(hi, a2, tap.weight);
+        }
+        tx[p * kStride + x * kV8 + c] = lo;
+        tx[p * kStride + (kTileN + x) * kV8 + c] = hi;
+      }
+      __syncthreads();  // t is complete
+
+
+      //    pass y: the RoI's window at each owned cell, sum over the y taps
+      //    on the thread's row of w * t[p, x, c], added to the cell's sum
+      if (row >= tt.lo[1] && row <= tt.hi[1]) {
+        float4 d[kCols][2];
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          d[k][0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          d[k][1] = d[k][0];
+        }
+        for (int i = tt.start[1][row]; i < tt.start[1][row + 1]; ++i) {
+          const BinTap tap = tt.tap[1][i];
+          const float4* src = tx + tap.bin * kStride + col * kV8 + c8;
+#pragma unroll
+          for (int kk = 0; kk < kCols; ++kk) {
+            fma4(d[kk][0], src[kk * kColLanes * kV8], tap.weight);
+            fma4(d[kk][1], src[(kTileN + kk * kColLanes) * kV8], tap.weight);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < kCols; ++kk) {
+          const int x = col + kk * kColLanes;
+          if (x >= x_lo && x <= x_hi) {
+            add4(acc[kk][0], d[kk][0]);
+            add4(acc[kk][1], d[kk][1]);
+          }
+        }
+      }
+    }
+    if (next >= rois_per_image) break;
+  }
+
+  // 3. the tile, rounded to bf16 once, 8 channels a 16-byte store
+  const int y = ty0 + row;
+  if (y >= height) return;
+  __nv_bfloat16* out = lv.ptr[l] + (static_cast<size_t>(b) * height + y) * width * channels +
+                       c0 + c8 * 8;
+#pragma unroll
+  for (int kk = 0; kk < kCols; ++kk) {
+    const int x = tx0 + col + kk * kColLanes;
+    if (x < width) {
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(x) * channels) = make_uint4(
+          pack_bf16x2(acc[kk][0].x, acc[kk][0].y), pack_bf16x2(acc[kk][0].z, acc[kk][0].w),
+          pack_bf16x2(acc[kk][1].x, acc[kk][1].y), pack_bf16x2(acc[kk][1].z, acc[kk][1].w));
+    }
   }
 }
 
@@ -856,49 +1303,51 @@ int forward_entry(const void* const* feats, const int* heights, const int* width
   }
 }
 
-template <typename T, int kSlice>
+template <int kSlice>
 cudaError_t launch_bwd(const Levels<float>& lv, const void* rois, const void* levels,
                        const void* grad_out, int num_rois, int rois_per_image, int channels,
                        int pool, int ratio, cudaStream_t stream) {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
-  cudaError_t err =
-      allow_smem(roi_align_backward_kernel<T, kSlice>, kBwdSmemLimit, &mu, done);
+  cudaError_t err = allow_smem(roi_align_backward_kernel<kSlice>, kBwdSmemLimit, &mu, done);
   if (err != cudaSuccess) return err;
-  roi_align_backward_kernel<T, kSlice>
+  roi_align_backward_kernel<kSlice>
       <<<num_rois * (channels / kSlice), kThreads, bwd_smem_bytes(pool, ratio, kSlice),
          stream>>>(lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
-                   static_cast<const T*>(grad_out), rois_per_image, channels, pool, ratio);
+                   static_cast<const float*>(grad_out), rois_per_image, channels, pool, ratio);
   return cudaGetLastError();
 }
 
-// K3 for an upstream gradient of type T (the level gradients are fp32).
-template <typename T>
-int backward_entry(void* const* grads, const int* heights, const int* widths,
-                   const float* strides, int num_levels, const void* rois, const void* levels,
-                   const void* grad_out, int num_rois, int rois_per_image, int channels,
-                   int pool, int ratio, void* stream) {
-  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rois <= 0 || channels <= 0) return 0;
-  Levels<float> lv = {};
-  fill_levels(&lv, grads, heights, widths, strides, num_levels);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_slice({32, 16, 8, 4}, channels, pool, ratio, kBwdSmemLimit, bwd_smem_bytes)) {
-    case 32:
-      return static_cast<int>(launch_bwd<T, 32>(lv, rois, levels, grad_out, num_rois,
-                                                rois_per_image, channels, pool, ratio, s));
-    case 16:
-      return static_cast<int>(launch_bwd<T, 16>(lv, rois, levels, grad_out, num_rois,
-                                                rois_per_image, channels, pool, ratio, s));
-    case 8:
-      return static_cast<int>(launch_bwd<T, 8>(lv, rois, levels, grad_out, num_rois,
-                                               rois_per_image, channels, pool, ratio, s));
-    case 4:
-      return static_cast<int>(launch_bwd<T, 4>(lv, rois, levels, grad_out, num_rois,
-                                               rois_per_image, channels, pool, ratio, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+template <int kTileN, int kSlice, int kBlock, int kMinBlocks>
+cudaError_t launch_tiles(const Levels<__nv_bfloat16>& lv, int num_levels, const void* rois,
+                         const void* levels, const void* bounds, const void* grad_out,
+                         int num_images, int rois_per_image, int channels, int pool, int ratio,
+                         int smem_limit, cudaStream_t stream) {
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  const auto kernel = roi_align_backward_tiles_kernel<kTileN, kSlice, kBlock, kMinBlocks>;
+  cudaError_t err = allow_smem(kernel, smem_limit, &mu, done);
+  if (err != cudaSuccess) return err;
+  TileGrid grid = {};
+  long long blocks = 0;
+  for (int i = 0; i < num_levels; ++i) {
+    const int l = num_levels - 1 - i;  // the coarsest level first
+    grid.level[i] = l;
+    grid.first[i] = static_cast<int>(blocks);
+    grid.tiles_x[i] = (lv.w[l] + kTileN - 1) / kTileN;
+    grid.tiles_y[i] = (lv.h[l] + kTileN - 1) / kTileN;
+    blocks += static_cast<long long>(num_images) * grid.tiles_y[i] * grid.tiles_x[i] *
+              (channels / kSlice);
   }
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  grid.first[num_levels] = static_cast<int>(blocks);
+  if (blocks == 0) return cudaSuccess;
+  kernel<<<static_cast<unsigned>(blocks), kBlock, tile_smem_bytes(kTileN, pool, kSlice),
+           stream>>>(lv, grid, static_cast<const float4*>(rois),
+                     static_cast<const int*>(levels), static_cast<const int4*>(bounds),
+                     static_cast<const __nv_bfloat16*>(grad_out), rois_per_image, channels,
+                     pool, ratio);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -942,19 +1391,89 @@ extern "C" int roi_align_backward(void* const* grads, const int* heights,
                                   const void* levels, const void* grad_out,
                                   int num_rois, int rois_per_image, int channels,
                                   int pool, int ratio, void* stream) {
-  return backward_entry<float>(grads, heights, widths, strides, num_levels, rois, levels,
-                               grad_out, num_rois, rois_per_image, channels, pool, ratio, stream);
+  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois <= 0 || channels <= 0) return 0;
+  Levels<float> lv = {};
+  fill_levels(&lv, grads, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pick_slice({32, 16, 8, 4}, channels, pool, ratio, kBwdSmemLimit, bwd_smem_bytes)) {
+    case 32:
+      return static_cast<int>(launch_bwd<32>(lv, rois, levels, grad_out, num_rois,
+                                             rois_per_image, channels, pool, ratio, s));
+    case 16:
+      return static_cast<int>(launch_bwd<16>(lv, rois, levels, grad_out, num_rois,
+                                             rois_per_image, channels, pool, ratio, s));
+    case 8:
+      return static_cast<int>(launch_bwd<8>(lv, rois, levels, grad_out, num_rois,
+                                            rois_per_image, channels, pool, ratio, s));
+    case 4:
+      return static_cast<int>(launch_bwd<4>(lv, rois, levels, grad_out, num_rois,
+                                            rois_per_image, channels, pool, ratio, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// roi_align_backward for a bf16 grad_out ([num_rois, P, P, C] bf16, 16-byte
-// aligned, C a multiple of 8), added into the same float32 buffers.
-extern "C" int roi_align_backward_bf16(void* const* grads, const int* heights,
-                                       const int* widths, const float* strides,
-                                       int num_levels, const void* rois,
-                                       const void* levels, const void* grad_out,
-                                       int num_rois, int rois_per_image, int channels,
-                                       int pool, int ratio, void* stream) {
-  return backward_entry<__nv_bfloat16>(grads, heights, widths, strides, num_levels, rois,
-                                       levels, grad_out, num_rois, rois_per_image, channels,
-                                       pool, ratio, stream);
+// K3's pre-pass for a bf16 g, alone: bounds [num_rois] int4 receives each
+// RoI's (x first, x last, y first, y last) cell of its nonzero taps on its
+// level ((0, -1) for an axis without one). heights/widths/strides: host
+// arrays of num_levels entries; rois, levels, pool and ratio as
+// roi_align_forward. Returns the cudaError_t of the launch.
+extern "C" int roi_tap_bounds(const int* heights, const int* widths, const float* strides,
+                              int num_levels, const void* rois, const void* levels,
+                              void* bounds, int num_rois, int pool, int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois <= 0) return 0;
+  Levels<__nv_bfloat16> lv = {};
+  void* const none[kMaxLevels] = {};
+  fill_levels(&lv, none, heights, widths, strides, num_levels);
+  roi_tap_bounds_kernel<<<(num_rois + kBoundsWarps - 1) / kBoundsWarps, 32 * kBoundsWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
+      static_cast<int4*>(bounds), num_rois, pool, ratio);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 for a bf16 grad_out ([num_images * rois_per_image, P, P, C] bf16,
+// 16-byte aligned, C a multiple of 8), after roi_tap_bounds wrote `bounds`:
+// writes every cell of the bf16 level gradients grads ([B, Hl, Wl, C],
+// 16-byte aligned, not filled), each once. The other arguments as
+// roi_align_backward. Returns the cudaError_t of the launch.
+extern "C" int roi_align_backward_tiles_bf16(void* const* grads, const int* heights,
+                                             const int* widths, const float* strides,
+                                             int num_levels, const void* rois,
+                                             const void* levels, const void* bounds,
+                                             const void* grad_out, int num_images,
+                                             int rois_per_image, int channels, int pool,
+                                             int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio) || channels % 8 || rois_per_image < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_images <= 0 || channels <= 0) return 0;
+  Levels<__nv_bfloat16> lv = {};
+  fill_levels(&lv, grads, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (channels % kWideSlice == 0 &&
+      tile_smem_bytes(kWideTile, pool, kWideSlice) <= kWideSmemLimit) {
+    return static_cast<int>(launch_tiles<kWideTile, kWideSlice, 512, 1>(
+        lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+        pool, ratio, kWideSmemLimit, s));
+  }
+  const auto bytes = [](int p, int /*r*/, int slice) { return tile_smem_bytes(kTile, p, slice); };
+  switch (pick_slice({32, 16, 8}, channels, pool, ratio, kTileSmemLimit, bytes)) {
+    case 32:
+      return static_cast<int>(launch_tiles<kTile, 32, kThreads, 2>(
+          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+          pool, ratio, kTileSmemLimit, s));
+    case 16:
+      return static_cast<int>(launch_tiles<kTile, 16, kThreads, 2>(
+          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+          pool, ratio, kTileSmemLimit, s));
+    case 8:
+      return static_cast<int>(launch_tiles<kTile, 8, kThreads, 2>(
+          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+          pool, ratio, kTileSmemLimit, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

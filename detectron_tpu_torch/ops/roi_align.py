@@ -257,14 +257,17 @@ def check_roi_align_contract(cfg, dtype: torch.dtype, num_levels: int = 4) -> No
 @functools.cache
 def _roi_align_lib() -> ctypes.CDLL:
     lib = _build.load("roi_align")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    geometry = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_float), i32]
+    for fn in (lib.roi_align_forward, lib.roi_align_forward_bf16, lib.roi_align_backward):
+        fn.argtypes = [ctypes.POINTER(ptr), *geometry, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                       ptr]
+    lib.roi_tap_bounds.argtypes = [*geometry, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.roi_align_backward_tiles_bf16.argtypes = [
+        ctypes.POINTER(ptr), *geometry, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     for fn in (lib.roi_align_forward, lib.roi_align_forward_bf16, lib.roi_align_backward,
-               lib.roi_align_backward_bf16):
-        fn.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+               lib.roi_tap_bounds, lib.roi_align_backward_tiles_bf16):
         fn.restype = ctypes.c_int
     return lib
 
@@ -350,14 +353,20 @@ def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tens
                                   levels: torch.Tensor, strides: Sequence[int],
                                   sampling_ratio: int = 2) -> list[torch.Tensor]:
     """:func:`multilevel_roi_align_bwd_plain` as kernel K3 of
-    ``csrc/roi_align.cu``: one zero fill of all levels' float32 gradients,
-    then one launch that builds each RoI's gradient window on chip and adds
-    it into them, one 16-byte atomic add per touched cell and 4 channels
-    (the order in which overlapping RoIs add, and so the last bits, varies
-    from run to run). A bfloat16 ``grad`` (C a multiple of 8) is read as
-    it is and added into the same float32 buffers, which are then rounded
-    to bf16 in one pass; a float32 one takes C a multiple of 4. ``grad``
-    16-byte aligned."""
+    ``csrc/roi_align.cu``, by the route of ``grad``'s dtype.
+
+    float32 (C a multiple of 4): one zero fill of all levels' float32
+    gradients, then one launch that builds each RoI's gradient window on
+    chip and adds it into them, one 16-byte atomic add per touched cell and
+    4 channels (the order in which overlapping RoIs add, and so the last
+    bits, varies from run to run).
+
+    bfloat16 (C a multiple of 8): the pre-pass :func:`roi_tap_bounds_cuda`
+    (each RoI's cell range of nonzero taps), then one launch,
+    :func:`roi_align_bwd_tiles_cuda`, in which a block sums a tile of one
+    level over the RoIs that meet it, in float32 and ascending order, and
+    writes it to bf16 once: no fill, no atomics, no cast pass, and the
+    result is bitwise deterministic. ``grad`` 16-byte aligned."""
     s = sampling_ratio
     p = grad.shape[2] if grad.dim() == 5 else 0
     _check_launch_args(rois, levels, len(level_hw), strides, p, s)
@@ -368,18 +377,25 @@ def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tens
                          "device")
     multiple = _kernel_dtype(grad.dtype, "grad")
     if grad.shape[4] % multiple or grad.data_ptr() % 16:
-        # so that every cell of grad is whole float4s, or 4-channel bf16 groups
-        raise ValueError(f"grad: K3 adds 4 channels at a time and takes {grad.dtype} C a "
-                         f"multiple of {multiple} (C={grad.shape[4]}) and a 16-byte aligned "
-                         "tensor")
+        # so that every cell of grad is whole float4s, or 16-byte bf16 copies
+        raise ValueError(f"grad: K3 reads {grad.dtype} C in multiples of {multiple} "
+                         f"(C={grad.shape[4]}) from a 16-byte aligned tensor")
     c = grad.shape[4]
+    if grad.dtype == torch.bfloat16:
+        grads = level_views(torch.empty(b * c * sum(int(h) * int(w) for h, w in level_hw),
+                                        dtype=torch.bfloat16, device=rois.device),
+                            b, c, level_hw)
+        if b and c:  # a tile that no RoI meets is written too: zeros
+            bounds = roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, s)
+            roi_align_bwd_tiles_cuda(grads, bounds, grad, rois, levels, strides, s)
+            multilevel_roi_align_bwd_cuda.launches += 1
+        return grads
     flat = level_grad_buffer(b, c, level_hw, rois.device)
     if b * r and c:
         roi_align_bwd_accumulate_cuda(level_views(flat, b, c, level_hw), grad, rois, levels,
                                       strides, s)
         multilevel_roi_align_bwd_cuda.launches += 1
-    # bf16: one rounding pass over every level's gradient (float32: no-op)
-    return level_views(flat.to(grad.dtype), b, c, level_hw)
+    return level_views(flat, b, c, level_hw)
 
 
 multilevel_roi_align_bwd_cuda.launches = 0
@@ -394,8 +410,8 @@ def level_views(flat: torch.Tensor, b: int, c: int, level_hw) -> list[torch.Tens
 
 
 def level_grad_buffer(b: int, c: int, level_hw, device) -> torch.Tensor:
-    """K3's zero fill: one zero fp32 buffer for all levels' gradients
-    (:func:`level_views` gives the per-level tensors)."""
+    """K3's zero fill (the float32 route): one zero fp32 buffer for all
+    levels' gradients (:func:`level_views` gives the per-level tensors)."""
     return torch.zeros(b * c * sum(int(h) * int(w) for h, w in level_hw), dtype=torch.float32,
                        device=device)
 
@@ -403,18 +419,86 @@ def level_grad_buffer(b: int, c: int, level_hw, device) -> torch.Tensor:
 def roi_align_bwd_accumulate_cuda(grads: Sequence[torch.Tensor], grad: torch.Tensor,
                                   rois: torch.Tensor, levels: torch.Tensor,
                                   strides: Sequence[int], sampling_ratio: int = 2) -> None:
-    """K3's launch alone: adds the gradient of every RoI into the float32
-    ``grads`` (:func:`level_views` of :func:`level_grad_buffer`). Takes what
-    :func:`multilevel_roi_align_bwd_cuda` has checked; counts nothing."""
+    """K3's float32 launch alone: adds the gradient of every RoI into the
+    float32 ``grads`` (:func:`level_views` of :func:`level_grad_buffer`).
+    Takes what :func:`multilevel_roi_align_bwd_cuda` has checked; counts
+    nothing."""
+    if grad.dtype != torch.float32:
+        raise ValueError(f"roi_align_bwd_accumulate_cuda takes a float32 grad, not "
+                         f"{grad.dtype}: a bfloat16 grad goes through "
+                         "multilevel_roi_align_bwd_cuda (roi_tap_bounds_cuda, then "
+                         "roi_align_bwd_tiles_cuda)")
     b, r = rois.shape[:2]
     p, c = grad.shape[2], grad.shape[4]
-    lib = _roi_align_lib()
-    fn = lib.roi_align_backward if grad.dtype == torch.float32 else lib.roi_align_backward_bf16
     with torch.cuda.device(rois.device):
-        err = fn(*_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
-                 grad.data_ptr(), b * r, r, c, p, sampling_ratio,
-                 _build.stream_handle(rois.device))
+        err = _roi_align_lib().roi_align_backward(
+            *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(), grad.data_ptr(),
+            b * r, r, c, p, sampling_ratio, _build.stream_handle(rois.device))
     _build.check(err, "roi_align_backward")
+
+
+def roi_tap_cell_bounds(level_hw, rois: torch.Tensor, levels: torch.Tensor,
+                        strides: Sequence[int], p: int, s: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of K3's bf16 pre-pass: per RoI, the first and
+    last cell of its level that its nonzero taps touch along x and along y,
+    ``[B, R, 4]`` int32 ``(x first, x last, y first, y last)``, an axis
+    without a nonzero tap ``(0, -1)``. A tap is nonzero where its sample
+    lies in ``[-1, size]`` and its bilinear weight is not 0: with the border
+    rule's clamp, a sample just outside the level still touches its edge
+    cell, so the range comes from the taps, not from the box."""
+    _, _, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s)
+    out = []
+    for i0, i1, w0, w1, inb in (xs, ys):
+        tap0, tap1 = inb & (w0 != 0), inb & (w1 != 0)
+        none = torch.iinfo(torch.int64).max
+        first = torch.minimum(torch.where(tap0, i0, none).amin(-1),
+                              torch.where(tap1, i1, none).amin(-1))
+        last = torch.maximum(torch.where(tap0, i0, -1).amax(-1),
+                             torch.where(tap1, i1, -1).amax(-1))
+        out += [torch.where(last < 0, 0, first), last]
+    return torch.stack(out, -1).to(torch.int32)
+
+
+def roi_tap_bounds_cuda(level_hw, rois: torch.Tensor, levels: torch.Tensor,
+                        strides: Sequence[int], p: int, s: int = 2) -> torch.Tensor:
+    """:func:`roi_tap_cell_bounds` as K3's bf16 pre-pass
+    (``csrc/roi_align.cu::roi_tap_bounds``): one warp a RoI runs the fold
+    that K2 and K3 share and keeps its first and last cell. Also the
+    library's entry for checking the pre-pass alone; counts nothing."""
+    _check_launch_args(rois, levels, len(level_hw), strides, p, s)
+    b, r = rois.shape[:2]
+    n = len(level_hw)
+    bounds = torch.empty((b, r, 4), dtype=torch.int32, device=rois.device)
+    if b * r:
+        with torch.cuda.device(rois.device):
+            err = _roi_align_lib().roi_tap_bounds(
+                (ctypes.c_int * n)(*[int(h) for h, _ in level_hw]),
+                (ctypes.c_int * n)(*[int(w) for _, w in level_hw]),
+                (ctypes.c_float * n)(*[float(x) for x in strides]), n, rois.data_ptr(),
+                levels.data_ptr(), bounds.data_ptr(), b * r, p, s,
+                _build.stream_handle(rois.device))
+        _build.check(err, "roi_tap_bounds")
+    return bounds
+
+
+def roi_align_bwd_tiles_cuda(grads: Sequence[torch.Tensor], bounds: torch.Tensor,
+                             grad: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
+                             strides: Sequence[int], sampling_ratio: int = 2) -> None:
+    """K3's bf16 launch alone: writes every cell of the bf16 ``grads``
+    (:func:`level_views` of one buffer; not filled), given the pre-pass's
+    ``bounds``. Takes what :func:`multilevel_roi_align_bwd_cuda` has
+    checked; counts nothing."""
+    if not (grad.is_cuda and bounds.is_cuda and all(x.is_cuda for x in grads)):
+        raise ValueError("roi_align_bwd_tiles_cuda: grads, bounds and grad must be CUDA "
+                         "tensors")
+    b, r = rois.shape[:2]
+    p, c = grad.shape[2], grad.shape[4]
+    with torch.cuda.device(rois.device):
+        err = _roi_align_lib().roi_align_backward_tiles_bf16(
+            *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
+            bounds.data_ptr(), grad.data_ptr(), b, r, c, p, sampling_ratio,
+            _build.stream_handle(rois.device))
+    _build.check(err, "roi_align_backward_tiles_bf16")
 
 
 class RoIAlignFunction(torch.autograd.Function):

@@ -16,6 +16,7 @@ stays with chip_smoke.py.
 """
 
 import json
+import re
 import time
 
 import numpy as np
@@ -92,6 +93,13 @@ def _plain_accumulate(grads, grad, rois, levels, strides, sampling_ratio=2):
         acc.add_(add)
 
 
+def _plain_tiles(grads, bounds, grad, rois, levels, strides, sampling_ratio=2):
+    level_hw = [tuple(t.shape[1:3]) for t in grads]
+    for out, level in zip(grads, ra.multilevel_roi_align_bwd_plain(
+            grad, level_hw, rois, levels, strides, sampling_ratio)):
+        out.copy_(level)
+
+
 @pytest.fixture
 def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(cs, "DEVICE", "cpu")
@@ -113,6 +121,11 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(nms, "nms_mask_cuda", lambda sboxes, thresh, offset=0.0: sboxes)
     monkeypatch.setattr(nms, "nms_scan_cuda", lambda mask, svalid, max_keep=None: svalid)
     monkeypatch.setattr(ra, "roi_align_bwd_accumulate_cuda", _plain_accumulate)
+    monkeypatch.setattr(ra, "roi_align_bwd_tiles_cuda", _plain_tiles)
+    monkeypatch.setattr(ra, "roi_tap_bounds_cuda", ra.roi_tap_cell_bounds)
+    # the profiler sees no card here: the listing a bf16 K3 call gives there
+    monkeypatch.setattr(cs, "device_kernels",
+                        lambda fn: [(f"void {k}<32>(...)", 1, 0.0) for k in cs.K3_BF16_KERNELS])
     monkeypatch.setattr(cs, "NMS_CASES", tuple(
         dict(case, g=3, n=case["n"] // 5, n_invalid=case["n_invalid"] // 5,
              max_out=case["max_out"] // 5) for case in cs.NMS_CASES))
@@ -150,15 +163,28 @@ def test_kernel_phases_k3_and_function(rehearsal, capsys):
         ("P14 R128", "bfloat16")]
     assert all(c["max_abs_err"] == 0.0 and c["bound_ms"] > 0.0 for c in k3)
     assert all(c["bound_by"] == "bytes" for c in k3[::2])  # fp32
-    assert all(c["fill_ms"] >= 0.0 and c["kernel_ms"] >= 0.0 for c in k3)
+    assert all(c["fill_ms"] >= 0.0 and c["kernel_ms"] >= 0.0 for c in k3[::2])
     bf16 = [c for c in k3 if c["dtype"] == "bfloat16"]
-    assert all(c["cast_ms"] >= 0.0 and c["fp32_kernel_bf16_steps"] == 0 for c in bf16)
+    assert all(c["prepass_ms"] >= 0.0 and c["kernel_ms"] >= 0.0 for c in bf16)
+    assert all(c["fp32_kernel_bf16_steps"] == 0 and "fill_ms" not in c for c in bf16)
     out = capsys.readouterr().out
     for kind in cs.K3_STRESS:
         for p in (7, 14):
             assert f"[K3 stress: {kind}, P={p} R=128] levels" in out
             assert f"[K3 bf16 stress: {kind}, P={p} R=128] max |diff| 0.000e+00" in out
-    assert "(fill " in out and " + kernel " in out and " + cast to bf16 " in out
+            assert re.search(re.escape(f"[K3 bf16 stress: {kind}, P={p} R=128] ") + r"[0-9.]+ ms\n",
+                             out)
+    # every bf16 check: two runs bitwise equal, the pre-pass's bounds those
+    # of roi_tap_cell_bounds
+    checks = 2 + 2 * len(cs.K3_STRESS)
+    assert out.count("two runs bitwise equal: True; pre-pass bounds equal to "
+                     "roi_tap_cell_bounds: True (0 of ") == checks
+    for _, p, r in cs.ROI_CASES[2:]:
+        line = next(x for x in out.splitlines() if x.startswith(f"[K3 P={p} R={r} bfloat16]"))
+        assert " ms (pre-pass " in line and " + kernel " in line and "(RoI, tile) visits" in line
+        assert "fp32 fill " in line and " + cast to bf16 " in line
+    # one profiled call a training case: the pre-pass and the tile kernel
+    assert out.count("] profiler: ") == 2 * 2
     cs.phase_function(rehearsal, feats)
     assert "[function]" in capsys.readouterr().out
 
