@@ -13,10 +13,14 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    RetinaNet (G=2, N=5000 and 2000, 81 classes shifted apart) and R-FCN
    (G=2, N=1000 and 2000) shapes, with
    and without the main path's max_keep = min(max_out, N), and at edge
-   cases (N=65, N=4096, N=8192 = the limit, odd W below and above 64,
-   max_keep=1 at N=700 and 5000, max_keep above the kept count, an
-   all-invalid problem): keep masks and (idx, valid) must be equal; N=8193
-   must be refused; the mask and scan launches are timed apart;
+   cases (N=65, N=4096, N=8192 = the widest register instance, odd W below
+   and above 64, max_keep=1 at N=700 and 5000, max_keep above the kept
+   count, an all-invalid problem): keep masks and (idx, valid) must be
+   equal; the mask and scan launches are timed apart; then the wide scan
+   (past 8192 boxes: N=8193, one box in word 128; G=2, N=10000, RetinaNet
+   at retinanet.pre_nms_topk=2000; N=16384, its last word full; N=20000, a
+   fifth invalid), keep masks exactly equal with and without max_keep,
+   timed as the main cases;
 4. K2 (multilevel RoIAlign) against its plain version on the card, at the
    1024x1344 P2-P5 shapes, C=256, inference (R=300, P=7; R=100, P=14) and
    training (R=512, P=7; R=128, P=14) RoI counts with both routing spans,
@@ -25,10 +29,13 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    max |feature|, and two K2 runs bitwise equal; each case logs, as a count
    from its inputs, the bytes of each RoI's distinct cells (what K2 stages)
    beside the distinct cells over the batch (the bound's). The bf16
-   instance at the same cases (and at C=32 and 24, its 32- and 8-channel
-   slices): within one bf16 step of its bf16 plain version plus the fp32
-   limit, within one bf16 step of the fp32 kernel on the upcast features
-   cast once, two runs bitwise equal; timed, its bound at 2 bytes a value;
+   kernel (persistent and warp-specialised) at the same cases (and at C=32
+   and 24, its 32- and 8-channel slices), each logging the variant it ran
+   (slice, S instance, ring, stages): within one bf16 step of its bf16
+   plain version plus the fp32 limit, within one bf16 step of the fp32
+   kernel on the upcast features cast once, two runs bitwise equal; timed,
+   its bound at 2 bytes a value; one call at each training case under the
+   profiler runs the bf16 kernel and nothing else;
 5. predict: Mask R-CNN R-50-FPN (configs/mask_rcnn_r50_fpn_coco.yaml) at
    full width, 1024x1344, batch 2, weights from a numpy seed, float32 then
    bf16: predict_fn three times; K1 (handed float32 boxes) and K2 (handed
@@ -37,7 +44,8 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    [0, 1]; one more call under torch.cuda.set_sync_debug_mode must report
    no synchronising call (the eval loop relies on it); the stage
    breakdown; the convolutions NCHW against channels-last on the same
-   weights, in turns; a profiled call;
+   weights, in turns; a profiled call; one more call with every kernel
+   launch held against its plain version (``hold_path``);
 6. cross-device predict: the same port at 256x256 with small widths on the
    card and on the CPU (plain versions) with the same weights: float32,
    equal valid slots, boxes within 1e-3; bf16, the FPN levels, the RPN
@@ -69,7 +77,8 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    K3 (2) launched on every step in the model's dtype, frozen parameters
    unchanged, every trainable one changed, every parameter and gradient
    float32; per-step ms, a CUDA-event breakdown, peak memory, a profiler
-   pass, both layouts on the same starting weights; in float32 then the
+   pass, both layouts on the same starting weights, one step with every
+   kernel launch held against its plain version; in float32 then the
    train driver for 2 steps;
 10. cross-device train: one train_step at 256x256 with small widths on the
     card and on the CPU with the same weights and draws: losses within
@@ -100,7 +109,9 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     its calls and steps require; in bf16 both layouts at the bench's
     batches; then K1, K2 and K3 against their plain versions at the bench's
     shapes (batch 48: 240 RPN problems of 1000 boxes, 48 of 1200; 14400 and
-    4800 RoIs; batch 16 for training), K2 and K3 in the run's dtype.
+    4800 RoIs; batch 16 for training), K2 and K3 in the run's dtype; one
+    predict call and one train step of the bench's detector with every
+    kernel launch held against its plain version (``hold_path``).
 
 13. RetinaNet predict: R-50-FPN (configs/retinanet_r50_fpn_coco.yaml) at
     full width, 1024x1344, batch 2, 81 classes, seeded weights with the
@@ -189,7 +200,14 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     batch 1 each: one DP step against train_step on the batch of 2, within
     the same limits. In phases 25-27 every kernel launch of one call or
     step of each path is also held against its plain version on that
-    path's own inputs (``hold_path``).
+    path's own inputs (``hold_path``);
+28. NMS past 8192 boxes on the main path, float32: one RetinaNet R-50-FPN
+    predict call at retinanet.pre_nms_topk=2000 (K1 once, G=2, N=10000)
+    and one Mask R-CNN R-50-FPN predict call at rpn.post_nms_topk_test=3000
+    (K1 twice: proposals, and the detections' G=2, N=12000), both at full
+    width, 1024x1344, batch 2: launches counted, K1's box shapes recorded,
+    detections non-empty; then one call of each with every launch held
+    against its plain version (``hold_path``).
 
 After each group of phases it logs the host seconds the group took
 (``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
@@ -356,14 +374,14 @@ NMS_CASES = (
     dict(name="rfcn_rpn_train", g=2, n=2000, thresh=0.7, max_out=1000, n_invalid=200,
          classes=0, path="rfcn train"),
 )
-NMS_LIMIT = 8192  # the most boxes a K1 problem takes (csrc/nms.cu, kMaxWords x 64)
+NMS_REGISTER_LIMIT = 8192  # the widest register scan (csrc/nms.cu, kMaxWords x 64)
 # edge cases, each held exactly against the plain version; max_keep "above"
 # is one more than the largest kept count of the problems
 NMS_EDGE_CASES = (
     dict(name="N=65", g=3, n=65, thresh=0.5, n_invalid=5, max_keep=None),
     dict(name="N=4096 (W=64)", g=2, n=4096, thresh=0.7, n_invalid=96, max_keep=None),
-    dict(name=f"N={NMS_LIMIT} (the limit)", g=2, n=NMS_LIMIT, thresh=0.5, n_invalid=192,
-         max_keep=None),
+    dict(name=f"N={NMS_REGISTER_LIMIT} (the widest register scan)", g=2, n=NMS_REGISTER_LIMIT,
+         thresh=0.5, n_invalid=192, max_keep=None),
     dict(name="N=1200 (odd W)", g=3, n=1200, thresh=0.6, n_invalid=0, max_keep=None),
     dict(name="N=4500 (odd W above 64)", g=2, n=4500, thresh=0.5, n_invalid=0,
          max_keep=None),
@@ -372,6 +390,17 @@ NMS_EDGE_CASES = (
     dict(name="max_keep above the kept count", g=4, n=700, thresh=0.5, n_invalid=50,
          max_keep="above"),
     dict(name="all invalid", g=2, n=300, thresh=0.5, n_invalid=300, max_keep=None),
+)
+# the wide scan (W > 128 words a row), each as NMS_CASES' cases
+NMS_WIDE_CASES = (
+    dict(name="N=8193 (one box in word 128)", g=1, n=NMS_REGISTER_LIMIT + 1, thresh=0.5,
+         max_out=100, n_invalid=0, classes=0, path="wide"),
+    dict(name="retinanet pre_nms_topk=2000", g=2, n=10000, thresh=0.5, max_out=100,
+         n_invalid=2000, classes=81, path="wide"),
+    dict(name="N=16384 (last word full)", g=1, n=16384, thresh=0.7, max_out=1000, n_invalid=0,
+         classes=0, path="wide"),
+    dict(name="N=20000, a fifth invalid", g=1, n=20000, thresh=0.7, max_out=2000,
+         n_invalid=4000, classes=0, path="wide"),
 )
 
 
@@ -402,15 +431,18 @@ def check_keep(name, sboxes, svalid, thresh, max_keep):
 def phase_nms(rng):
     results = [nms_case(rng, case) for case in NMS_CASES]
     nms_edge_cases(rng)
-    check_nms_limit()
+    wide = np.random.RandomState(11)  # its own draws: the later phases' inputs do not move
+    results += [nms_case(wide, case, against_cpu=False) for case in NMS_WIDE_CASES]
     return results
 
 
-def nms_case(rng, case, size=(1024, 1344)):
+def nms_case(rng, case, size=(1024, 1344), against_cpu=True):
     """One of NMS_CASES' shapes on a ``size`` canvas: K1 against its plain
     version with and without max_keep, ``(idx, valid)`` against the CPU
-    path, the kernel timed whole and as its two launches, the plain version
-    timed, the bound from this run's data. Returns the case's result."""
+    path (unless not ``against_cpu``: the wide cases, whose plain CPU walk
+    takes seconds), the kernel timed whole and as its two launches, the
+    plain version timed, the bound from this run's data. Returns the
+    case's result."""
     from detectron_tpu_torch.ops import nms
 
     dev = torch.device(DEVICE)
@@ -426,19 +458,21 @@ def nms_case(rng, case, size=(1024, 1344)):
     m = min(case["max_out"], n)  # what nms_padded_batched passes
     full = check_keep(case["name"], sboxes, svalid, thresh, None)
     keep_k = check_keep(case["name"], sboxes, svalid, thresh, m)
-    idx_g, ok_g = nms.nms_padded_batched(tb, ts, tv, thresh, case["max_out"])
-    idx_c, ok_c = nms.nms_padded_batched(tb.cpu(), ts.cpu(), tv.cpu(), thresh,
-                                         case["max_out"])
-    if not (torch.equal(idx_g.cpu(), idx_c) and torch.equal(ok_g.cpu(), ok_c)):
-        raise AssertionError(f"K1 {case['name']}: (idx, valid) differ from the "
-                             "CPU plain path")
+    if against_cpu:
+        idx_g, ok_g = nms.nms_padded_batched(tb, ts, tv, thresh, case["max_out"])
+        idx_c, ok_c = nms.nms_padded_batched(tb.cpu(), ts.cpu(), tv.cpu(), thresh,
+                                             case["max_out"])
+        if not (torch.equal(idx_g.cpu(), idx_c) and torch.equal(ok_g.cpu(), ok_c)):
+            raise AssertionError(f"K1 {case['name']}: (idx, valid) differ from the "
+                                 "CPU plain path")
     ms = cuda_ms(lambda: nms.greedy_keep_cuda(sboxes, svalid, thresh, max_keep=m))
     mask = nms.nms_mask_cuda(sboxes, thresh)
     mask_ms = cuda_ms(lambda: nms.nms_mask_cuda(sboxes, thresh))
     scan_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid, m))
     scan_full_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid))
     plain_ms = cuda_ms(lambda: nms.greedy_keep_plain(sboxes, svalid, thresh, max_keep=m),
-                       iters=3, warmup=1)
+                       iters=3, warmup=1) if against_cpu else cuda_ms(
+        lambda: nms.greedy_keep_plain(sboxes, svalid, thresh, max_keep=m), iters=1, warmup=0)
     # work this run's data needs: each kept box against every later valid
     # box, up to the m-th kept box where the walk stops
     pos = torch.arange(n, device=dev)[None, :]
@@ -450,7 +484,8 @@ def nms_case(rng, case, size=(1024, 1344)):
     b_ms, b_by = bound_ms(nbytes=g * n * (16 + 1 + 1), ops=pairs * 16)
     log(f"[K1 {case['name']}] G={g} N={n} t={thresh} max_keep={m}: keep masks equal "
         f"with and without max_keep ({int(keep_k.sum())} of {int(full.sum())} kept), "
-        f"(idx, valid) equal to the CPU path; kernel {ms:.4f} ms (mask {mask_ms:.4f} + "
+        f"{'(idx, valid) equal to the CPU path' if against_cpu else 'scan words ' + str(-(-n // 64))}"
+        f"; kernel {ms:.4f} ms (mask {mask_ms:.4f} + "
         f"scan {scan_ms:.4f}; scan without max_keep {scan_full_ms:.4f}), plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})")
     return dict(case=case["name"], path=case["path"], dtype="float32", max_keep=m, ms=ms,
@@ -474,26 +509,6 @@ def nms_edge_cases(rng):
             check_keep(case["name"], sboxes, svalid, case["thresh"], max_keep)
         log(f"[K1 edge] {case['name']}: G={case['g']} N={case['n']} max_keep={max_keep}, "
             f"{int(full.sum())} kept: keep masks equal")
-
-
-def check_nms_limit():
-    """The kernel's limit is NMS_LIMIT boxes a problem, and one box more is
-    refused by the wrapper with a message that names the limit."""
-    from detectron_tpu_torch.ops import nms
-
-    limit = nms._nms_lib().nms_max_boxes()
-    if limit != NMS_LIMIT:
-        raise AssertionError(f"K1 takes {limit} boxes, want {NMS_LIMIT}")
-    boxes = torch.zeros(1, limit + 1, 4, device=DEVICE)
-    valid = torch.ones(1, limit + 1, dtype=torch.bool, device=DEVICE)
-    try:
-        nms.greedy_keep_cuda(boxes, valid, 0.5)
-    except ValueError as err:
-        if str(limit) not in str(err):
-            raise AssertionError(f"K1's refusal does not name its limit: {err}") from err
-        log(f"[K1 edge] N={limit + 1}: refused ({err})")
-        return
-    raise AssertionError(f"K1 took N={limit + 1}, past its limit")
 
 
 # ----------------------------------------------------------------- phase 4
@@ -656,6 +671,11 @@ def check_k2_bf16(name, feats, rois, levels, p, fmax, s=2):
     steps = bf16_steps(got, f32)
     n_off = int((got != f32).sum())
     same = torch.equal(got, again)
+    plan = ra.k2_bf16_plan(feats[0].shape[-1], p, s)
+    log(f"[K2 bf16 {name}] variant: {plan['slice']}-channel slices, the "
+        f"{'S=2' if s == 2 else 'generic S'} instance, ring {plan['ring_rows']} rows, "
+        f"stages of {plan['stage_cells']} cells, {plan['smem_bytes']} B dynamic shared memory, "
+        f"{plan['threads']} threads, {plan['blocks_per_sm']} blocks an SM")
     log(f"[K2 bf16 {name}] max |diff| {diff:.3e} from the bf16 plain version (limit: one "
         f"bf16 step + {1e-5 * fmax:.3e}): {ok}; from the fp32 kernel on the upcast features "
         f"cast once: {steps} bf16 steps at most (limit 1), {n_off} of {got.numel()} values "
@@ -667,6 +687,22 @@ def check_k2_bf16(name, feats, rois, levels, p, fmax, s=2):
     if not same:
         raise AssertionError(f"K2 bf16 {name}: two runs differ")
     return diff, steps
+
+
+# the kernels of one bf16 K2 call: the persistent kernel, nothing else
+K2_BF16_KERNELS = ("roi_align_forward_bf16_kernel",)
+
+
+def check_k2_bf16_launches(fn, name):
+    """Lists the kernels of one bf16 K2 call (``fn``) under the profiler:
+    the bf16 kernel once, and nothing else."""
+    listing = device_kernels(fn)
+    for key, count, ms in listing:
+        log(f"[K2 bf16 {name}] profiler: {ms:.4f} ms x{count} {key[:100]}")
+    found = [next((k for k in K2_BF16_KERNELS if k in key), key) for key, _, _ in listing]
+    if found != list(K2_BF16_KERNELS) or any(count != 1 for _, count, _ in listing):
+        raise AssertionError(f"K2 bf16 {name}: one call ran {listing}, not the bf16 kernel "
+                             "once")
 
 
 def phase_roi_align(rng, feats):
@@ -704,6 +740,9 @@ def phase_roi_align(rng, feats):
                 f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); per-RoI distinct "
                 f"cells, from the inputs, {per_roi / 1e6:.1f} MB at fp32; output "
                 f"{out_bytes / 1e6:.1f} MB")
+            if path == "train" and dtype == "bfloat16":
+                check_k2_bf16_launches(lambda: ra.multilevel_roi_align_cuda(
+                    dtype_feats, rois, levels, strides, p, 2), f"P={p} R={r}")
             results.append(dict(case=f"P{p} R{r}", path=path, dtype=dtype, ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                 max_abs_err=err))
@@ -968,8 +1007,9 @@ def phase_slice(seed=0, calls=3, dtype="float32"):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     layouts = layout_times(det, lambda: det.predict_fn(params, batch), f"predict {dtype}")
     profile_call(lambda: det.predict_fn(params, batch), f"one predict_fn, {dtype}")
+    held = hold_path(lambda: det.predict_fn(params, batch), tag)
     return totals, times, dict(call_ms=times, issue_ms=issue_ms, done_ms=done_ms,
-                               stages_ms=parts, **layouts)
+                               stages_ms=parts, held=held, **layouts)
 
 
 def layout_times(det, run, label, calls=8) -> dict:
@@ -1376,23 +1416,31 @@ def check_k3_bf16(name, g, level_hw, rois, levels):
     return diff, steps
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, attempts=3) -> list:
     """``(name, launches, device ms)`` of every kernel that one call of
     ``fn()`` runs on the card, from torch.profiler: the call is made twice,
     the first as the profiler's warm-up step (a first traced step can miss
-    its first kernel), the second recorded."""
+    its first kernel), the second recorded. A recorded step now and then
+    comes back with no device events at all (seen once in four runs on an
+    NVIDIA H100 80GB HBM3): then the call is traced again, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    # the step's own range is listed with the device time inside it
-    return [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep")]
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own range is listed with the device time inside it
+        listing = [(e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep")]
+        if listing:
+            return listing
+    return []
 
 
 # the kernels of one bf16 K3 call: the pre-pass and the tile kernel, nothing
@@ -1658,8 +1706,9 @@ def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
     fresh = create_train_state(cfg, det)
     layouts = layout_times(det, lambda: train_step(fresh, batches[-1]), f"train {dtype}",
                            calls=6)
+    held = hold_path(lambda: train_step(fresh, batches[-1]), tag)
     return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts,
-                               **layouts)
+                               held=held, **layouts)
 
 
 def train_breakdown(state, batch, repeats=3, tag="train"):
@@ -2161,7 +2210,39 @@ def phase_bench(dtype=None):
     if args.dtype != "float32":
         out = dict(out, **bench_layouts(args))
     check_bench_shapes(args)
-    return counts, out
+    return counts, dict(out, held=hold_bench_path(args))
+
+
+def hold_bench_path(args) -> dict:
+    """One predict call and one train step of the bench's detector (its
+    config, shapes and calibrated weights, as ``bench.run`` builds them),
+    each kernel launch held against its plain version (``hold_path``)."""
+    from detectron_tpu_torch import bench
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.train.state import create_train_state, train_step
+
+    torch.cuda.empty_cache()
+    cfg = bench.bench_config(args)
+    det = build_detector(cfg)
+    det.module.load_state_dict(det.init(0))
+    size = int(args.size)
+    train_batch = args.train_batch or args.batch
+    full = bench.make_batch(np.random.RandomState(0), max(args.batch, train_batch),
+                            (size, size), cfg.model.num_classes)
+    bench.calibrate_frozen_bn(det.module, det.batch_to_device(
+        {"image": full["image"][:train_batch]})["image"])
+    params = det.module.state_dict()
+    batch = det.batch_to_device({k: v[:args.batch] for k, v in full.items()
+                                 if k in ("image", "image_hw")})
+    held = {"predict": hold_path(lambda: det.predict_fn(params, batch),
+                                 f"bench {args.dtype} predict")}
+    del batch
+    state = create_train_state(cfg, det, params)
+    tbatch = det.batch_to_device({k: v[:train_batch] for k, v in full.items()})
+    held["train"] = hold_path(lambda: train_step(state, tbatch), f"bench {args.dtype} train")
+    del state, det
+    torch.cuda.empty_cache()
+    return held
 
 
 def bench_layouts(args, calls=4) -> dict:
@@ -3869,6 +3950,63 @@ def phase_dp(seed=0):
     return launches, summary
 
 
+# ---------------------------------------------------------------- phase 28
+
+# (config, overrides, path name, K1's box shapes a call): the main path's
+# NMS past the register scans' 8192 boxes
+WIDE_NMS_PATHS = (
+    ("retinanet", ["retinanet.pre_nms_topk=2000"], "retinanet_predict_wide", [(2, 10000, 4)]),
+    ("mask_rcnn", ["rpn.post_nms_topk_test=3000"], "predict_wide",
+     [(10, 1000, 4), (2, 12000, 4)]),
+)
+
+
+def phase_wide_nms(seed=0):
+    """WIDE_NMS_PATHS at full width, float32, batch 2: one predict call of
+    each with its launches counted (K1 once or twice, K2 as its model
+    runs it), K1's box shapes recorded and detections non-empty; then one
+    call each with every launch held against its plain version
+    (``hold_path``). Returns ({path: launches}, {path: held})."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+
+    launches, held = {}, {}
+    for model, overrides, path, want_shapes in WIDE_NMS_PATHS:
+        config = RETINA_R50 if model == "retinanet" else MASK_R50
+        cfg = get_config(config, overrides)
+        det = build_detector(cfg)
+        batch = slice_inputs(cfg, seed, det.device)
+        if model == "retinanet":
+            params = retina_params(det, batch["image"], seed)
+        else:
+            params = raise_class_bias(det.init(seed), RAISED_CLASSES)
+        tag = f"wide nms {path}"
+        torch.cuda.synchronize()
+        reset_counts()
+        shapes = {}
+        t0 = time.perf_counter()
+        with kernel_dtypes(shapes):
+            dets, _ = det.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        reset_counts()
+        got_shapes = shapes.get("greedy_nms", [])
+        n_dets = int(dets.valid.sum())
+        log(f"[{tag}] {model} {' '.join(overrides)}: {ms:.1f} ms, launches {counts}, K1 boxes "
+            f"{got_shapes}, detections {n_dets}")
+        if got_shapes != want_shapes or counts["greedy_nms"] != len(want_shapes):
+            raise AssertionError(f"{tag}: K1 ran on {got_shapes} ({counts}), want {want_shapes}")
+        if not n_dets or not bool(torch.isfinite(dets.boxes).all()):
+            raise AssertionError(f"{tag}: {n_dets} detections, or non-finite boxes")
+        launches[path] = counts
+        held[path] = hold_path(lambda: det.predict_fn(params, batch), tag)
+        if held[path]["greedy_nms"][0] != len(want_shapes):
+            raise AssertionError(f"{tag}: held {held[path]}")
+        del det, params
+    return launches, held
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -3994,6 +4132,8 @@ def main(argv=None) -> int:
     lap("phase 26")
     dp_launches, dp_summary = phase_dp()
     lap("phase 27")
+    wide_launches, wide_held = phase_wide_nms()
+    lap("phase 28")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -4006,7 +4146,8 @@ def main(argv=None) -> int:
                 **{path: counts[name] for path, counts in pool_launches.items()},
                 **{path: counts[name] for path, counts in gn_launches.items()},
                 **{path: counts[name] for path, counts in remat_launches.items()},
-                **{path: counts[name] for path, counts in dp_launches.items()}}
+                **{path: counts[name] for path, counts in dp_launches.items()},
+                **{path: counts[name] for path, counts in wide_launches.items()}}
 
     kernels = [
         kernel_entry("greedy_nms", k1, launches("greedy_nms"), 0.0),
@@ -4024,7 +4165,7 @@ def main(argv=None) -> int:
         "retinanet": {path: summary for path, (_, summary) in retina.items()},
         "rfcn": {path: summary for path, (_, summary) in rfcn.items()},
         "roi_pool": pool_summary, "gn": gn_summary, "remat": remat_summary,
-        "dp": dp_summary}}), flush=True)
+        "dp": dp_summary, "wide_nms": wide_held}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

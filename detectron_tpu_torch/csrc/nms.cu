@@ -49,6 +49,25 @@
 //      __syncthreads: one warp, warp-uniform branches. With max_keep, the
 //      chunk where the count is reached keeps only its first boxes up to
 //      it, and the walk ends.
+//   2'. nms_scan_wide_kernel, the same walk past 8192 boxes (W > 128), with
+//      no box limit of its own: two whole chunks (2 * 64 * W * 8 bytes) no
+//      longer fit a block's shared memory (256 KB at W = 256), and named
+//      registers do not scale with W. So the removed-bits words live in
+//      shared memory (W * 8 bytes, lane-strided), and only what the walk
+//      reads is brought in: the chunk's diagonal words and valid flags,
+//      loaded one chunk ahead (they do not depend on the walk), and, once
+//      the chunk's keep set is known, each kept row's live words [rb + 1, W)
+//      by one bulk asynchronous copy a row (its span widened to 16-byte
+//      alignment), all in flight together on one mbarrier into a 64 KB
+//      stage, in as many windows of words as the kept rows need to fit it,
+//      then folded into the removed words from shared memory. A lane-strided
+//      read of the live words straight from L2 (a 20000-box mask is 50 MB,
+//      about the L2's size) waits a round trip for every few loads a lane
+//      keeps in flight; scripts/k1_wide_ablation.py times both. The chunk
+//      fixpoint and the max_keep stop are the register instances'. The
+//      limit is shared memory, kWideMaxWords words (1,280,000 boxes): a
+//      problem's mask, 64 * W * W * 8 bytes, outgrows the card's memory
+//      well before it (205 GB there).
 //
 // The IoU must be bit-identical to the JAX package's bbox_overlaps and
 // _iou_block so that keep sets are equal: the same operation order, IEEE
@@ -65,7 +84,9 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr int kBlock = 64;
-constexpr int kMaxWords = 128;  // at most 8192 boxes: 4 removed-bits words a lane
+constexpr int kMaxWords = 128;  // the register instances: 4 removed-bits words a lane, 8192 boxes
+constexpr int kWideStageWords = 8192;  // the wide scan's stage of live words, 64 KB
+constexpr int kWideMaxWords = 20000;   // the wide scan's removed words, 160 KB
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float box_area(const float4 b, float offset) {
@@ -142,19 +163,30 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Starts copying `bytes` (a multiple of 16, both addresses 16-byte aligned)
-// from global to shared memory; the copy completes phase of `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          u64* bar) {
+// Arrives on `bar`, whose phase then also waits for `bytes` of copies.
+__device__ __forceinline__ void expect_bytes(u64* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// Starts copying `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory, counted against the phase of `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          u64* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
       "[%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// bulk_copy that alone completes the phase of `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          u64* bar) {
+  expect_bytes(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
 }
 
 // Waits until the phase of `bar` with the given parity has completed.
@@ -313,6 +345,147 @@ __global__ void __launch_bounds__(32)
   if (rb < words) bar_wait(&bars[rb & 1], (rb >> 1) & 1);
 }
 
+// Dynamic shared memory of one wide scan block: the stage, then the
+// removed-bits words.
+int wide_smem_bytes(int words) {
+  return static_cast<int>((kWideStageWords + words) * sizeof(u64));
+}
+
+// The scan for W > kMaxWords: one warp a problem, as nms_scan_kernel, with
+// the removed-bits words in shared memory and only the words the walk reads
+// brought in (the header's 2').
+__global__ void __launch_bounds__(32)
+    nms_scan_wide_kernel(const u64* __restrict__ mask,         // [G, 64 * W, W]
+                         const uint8_t* __restrict__ valid,    // [G, N]
+                         uint8_t* __restrict__ keep,           // [G, N]
+                         int n, int words, int max_keep) {
+  extern __shared__ __align__(128) u64 smem[];
+  __shared__ __align__(8) u64 bar;
+  __shared__ int order[kBlock];  // the kept rows of a chunk, in order
+  __shared__ int piece[kBlock];  // where word w of kept row order[k] lies: stage[piece[k] + w]
+  u64* stage = smem;                       // [kWideStageWords]
+  u64* removed = smem + kWideStageWords;   // [words]
+  const unsigned full = 0xffffffffu;
+  const int g = blockIdx.x;
+  const int lane = threadIdx.x;
+  const u64* gmask = mask + (size_t)g * kBlock * words * words;
+  const uint8_t* gvalid = valid + (size_t)g * n;
+  uint8_t* gkeep = keep + (size_t)g * n;
+
+  if (lane == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int w = lane; w < words; w += 32) removed[w] = 0ull;
+  __syncwarp();
+
+  // chunk rb's diagonal words of rows lane and lane + 32, and their valid
+  // bytes, as loaded: the next chunk's are in flight while this one is
+  // resolved (used raw, so that nothing waits for them before then)
+  auto fetch = [&](int rb, u64& e0, u64& e1, uint8_t& f0, uint8_t& f1) {
+    const int i0 = rb * kBlock;
+    const int m = min(kBlock, n - i0);
+    e0 = lane < m ? gmask[(size_t)(i0 + lane) * words + rb] : 0ull;
+    e1 = lane + 32 < m ? gmask[(size_t)(i0 + lane + 32) * words + rb] : 0ull;
+    f0 = lane < m ? gvalid[i0 + lane] : 0;
+    f1 = lane + 32 < m ? gvalid[i0 + lane + 32] : 0;
+  };
+  u64 d0, d1;
+  uint8_t b0, b1;
+  fetch(0, d0, d1, b0, b1);
+  uint32_t phase = 0;
+  int kept = 0;
+  bool done = kept >= max_keep;  // warp-uniform
+  int rb = 0;
+  for (; rb < words && !done; ++rb) {
+    u64 e0 = 0ull, e1 = 0ull;
+    uint8_t f0 = 0, f1 = 0;
+    if (rb + 1 < words) fetch(rb + 1, e0, e1, f0, f1);
+    const int i0 = rb * kBlock;
+    const int nrow = min(kBlock, n - i0);
+    const u64 vword = (static_cast<u64>(__ballot_sync(full, b1 != 0)) << 32) |
+                      __ballot_sync(full, b0 != 0);
+    const u64 alive = vword & ~removed[rb];
+    // the chunk's keep set: the fixpoint of nms_scan_kernel
+    u64 kept_bits = alive;
+    while (true) {  // warp-uniform
+      const u64 mine = (((kept_bits >> lane) & 1ull) ? d0 : 0ull) |
+                       (((kept_bits >> (lane + 32)) & 1ull) ? d1 : 0ull);
+      const u64 sup = (static_cast<u64>(__reduce_or_sync(full, static_cast<unsigned>(mine >> 32)))
+                       << 32) |
+                      __reduce_or_sync(full, static_cast<unsigned>(mine));
+      const u64 next = alive & ~sup;
+      if (next == kept_bits) break;
+      kept_bits = next;
+    }
+    if (kept + __popcll(kept_bits) >= max_keep) {  // keep only the first max_keep
+      while (kept + __popcll(kept_bits) > max_keep) {
+        kept_bits &= ~(1ull << (63 - __clzll(static_cast<long long>(kept_bits))));
+      }
+      done = true;
+    }
+    kept += __popcll(kept_bits);
+    const int count = __popcll(kept_bits);
+    if (!done && rb + 1 < words && count > 0) {
+      if ((kept_bits >> lane) & 1ull) order[__popcll(kept_bits & ((1ull << lane) - 1))] = lane;
+      if ((kept_bits >> (lane + 32)) & 1ull) {
+        order[__popcll(kept_bits & ((1ull << (lane + 32)) - 1))] = lane + 32;
+      }
+      __syncwarp();
+      // the kept rows' live words [rb + 1, W), a window of `span` words at a
+      // time: row order[k]'s piece goes to stage[k * slot], from the even
+      // word at or before the window's first (16-byte alignment) to the even
+      // word at or after its end, so a piece takes at most span + 2 words
+      const int slot = (kWideStageWords / count) & ~1;
+      const int span = slot - 2;
+      for (int wa = rb + 1; wa < words; wa += span) {
+        const int wb = min(words, wa + span);
+        uint32_t bytes[2] = {0u, 0u};
+        const u64* src[2] = {nullptr, nullptr};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = lane + 32 * h;
+          if (k < count) {
+            const size_t row = (size_t)(i0 + order[k]) * words;  // the row's word 0
+            const size_t first = (row + wa) & ~static_cast<size_t>(1);
+            const size_t end = (row + wb + 1) & ~static_cast<size_t>(1);
+            src[h] = gmask + first;
+            bytes[h] = static_cast<uint32_t>((end - first) * sizeof(u64));
+            piece[k] = k * slot + static_cast<int>(row + wa - first) - wa;
+          }
+        }
+        const uint32_t total = __reduce_add_sync(full, bytes[0] + bytes[1]);
+        if (lane == 0) expect_bytes(&bar, total);
+        __syncwarp();
+        // the stage was last read by this warp's generic loads, before the __syncwarp
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (bytes[h]) bulk_copy(stage + (lane + 32 * h) * slot, src[h], bytes[h], &bar);
+        }
+        bar_wait(&bar, phase);
+        phase ^= 1u;
+        for (int w = wa + lane; w < wb; w += 32) {
+          u64 acc = 0ull;
+#pragma unroll 4
+          for (int k = 0; k < count; ++k) acc |= stage[piece[k] + w];
+          removed[w] |= acc;
+        }
+        __syncwarp();  // every lane is done with the stage before it is refilled
+      }
+    }
+    if (lane < nrow) gkeep[i0 + lane] = (kept_bits >> lane) & 1ull;
+    if (lane + 32 < nrow) gkeep[i0 + 32 + lane] = (kept_bits >> (lane + 32)) & 1ull;
+    __syncwarp();  // `order` and `piece` are read before the next chunk writes them
+    d0 = e0;
+    d1 = e1;
+    b0 = f0;
+    b1 = f1;
+  }
+  // after an early stop: the later boxes keep nothing
+  for (int i = rb * kBlock + lane; i < n; i += 32) gkeep[i] = 0;
+}
+
 // The scan needs more than the default 48 KB of dynamic shared memory at
 // large N; the attribute belongs to each of the kernel's instances on one
 // device, so it is set once per device.
@@ -333,6 +506,10 @@ cudaError_t allow_scan_smem() {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                scan_smem_bytes(kMaxWords));
     if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(nms_scan_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               wide_smem_bytes(kWideMaxWords));
+    if (err != cudaSuccess) return err;
     done[dev] = true;
   }
   return cudaSuccess;
@@ -340,35 +517,44 @@ cudaError_t allow_scan_smem() {
 
 }  // namespace
 
-extern "C" int nms_max_boxes() { return kMaxWords * kBlock; }
-
 // boxes: [G, N, 4] float32, score-sorted per problem, 16-byte aligned; mask:
 // [G, 64 * ceil(N/64), ceil(N/64)] uint64 output (rows past N are not
-// written). Returns the cudaError_t of the launch.
+// written); N at most 64 * kWideMaxWords. Returns the cudaError_t of the
+// launch.
 extern "C" int nms_mask(const void* boxes, void* mask, int g, int n, float thresh,
                         float offset, void* stream) {
   if (g <= 0 || n <= 0) return 0;
   const int words = (n + kBlock - 1) / kBlock;
-  if (words > kMaxWords || g > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(words * (words + 1) / 2, g);
+  if (words > kWideMaxWords || g > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // W (W + 1) / 2 tiles a problem: 200,010,000 at kWideMaxWords, and within
+  // gridDim.x's 2^31 - 1 up to W = 65535; the product overflows an int from
+  // W = 46341, so it is taken in 64 bits
+  dim3 grid(static_cast<unsigned>(static_cast<long long>(words) * (words + 1) / 2), g);
   nms_mask_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<u64*>(mask), n, words, thresh, offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 // mask: nms_mask's output, 16-byte aligned; valid: [G, N] uint8; keep: [G, N]
-// uint8 output; max_keep: the walk of a problem stops once that many boxes
+// uint8 output; N at most 64 * kWideMaxWords (the register instances up to
+// 64 * kMaxWords, the wide scan past it); max_keep: the walk of a problem stops once that many boxes
 // are kept (N or more: no limit). Returns the cudaError_t of the launch.
 extern "C" int nms_scan(const void* mask, const void* valid, void* keep, int g, int n,
                         int max_keep, void* stream) {
   if (g <= 0 || n <= 0) return 0;
   const int words = (n + kBlock - 1) / kBlock;
-  if (words > kMaxWords || max_keep < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (words > kWideMaxWords || max_keep < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(mask) % 16) {
     return static_cast<int>(cudaErrorMisalignedAddress);
   }
   cudaError_t err = allow_scan_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (words > kMaxWords) {
+    nms_scan_wide_kernel<<<g, 32, wide_smem_bytes(words), static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),
+        static_cast<uint8_t*>(keep), n, words, max_keep);
+    return static_cast<int>(cudaGetLastError());
+  }
   auto kernel = words <= 64 ? nms_scan_kernel<2> : nms_scan_kernel<4>;
   kernel<<<g, 32, scan_smem_bytes(words), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const u64*>(mask), static_cast<const uint8_t*>(valid),

@@ -148,24 +148,24 @@
 // `slice` is, for each kernel, the first of its widths that divides C and
 // whose shared memory lets blocks share an SM: K2 64, 32 or 4 (64 at C=256,
 // P=7 and 14; 32 at the small configs' C=32; 4 divides any C the wrapper
-// takes), K3 fp32 32, 16, 8 or 4 (32 at P=7, 16 at P=14, with S=2), K3
-// bf16 narrow 32, 16 or 8 (32 at P=14).
+// takes; bf16 64, 32 or 8), K3 fp32 32, 16, 8 or 4 (32 at P=7, 16 at
+// P=14, with S=2), K3 bf16 narrow 32, 16 or 8 (32 at P=14).
 //
-// bf16 K2. K2 has an instance for fp32 and one for bf16 features, as the
-// TPU kernel reads either and computes in fp32 (roi_align_pallas.py: the
-// window's .astype(float32), the fp32 matmuls, the output's
-// .astype(out_dtype)). Only the outside of the kernel changes with the
-// element type: a thread still takes 4 channels at a time (a float4, or 4
-// bf16 in 8 bytes) and converts them to fp32 where it reads them; every
-// tap, fold, contraction and division is the fp32 instance's, in the same
-// order, so a bf16 output is the fp32 kernel's on the upcast inputs,
-// rounded to nearest even once. K2 stages the bf16 cells as they are (a
-// 16-byte cp.async carries 8 channels; cp.async cannot convert) and
-// converts them as pass x reads them: the staging buffers keep their bytes,
-// so a chunk holds twice the cells; the ring stays fp32. Its bf16 slices
-// are 64, 32 or 8 channels (whole 16-byte copies), so the wrappers take a
-// bf16 C a multiple of 8 (K3 bf16 likewise: 16-byte copies of g, 16-byte
-// stores of 8 channels).
+// bf16 K2. K2 reads fp32 or bf16 features and computes in fp32, as the
+// TPU kernel does (roi_align_pallas.py: the window's .astype(float32), the
+// fp32 matmuls, the output's .astype(out_dtype)). bf16 features go through
+// their own kernel, roi_align_forward_bf16_kernel: the fp32 kernel's
+// set-up, taps and passes, in the same order, so a bf16 output is the fp32
+// kernel's on the upcast inputs, rounded to nearest even once; a thread
+// still takes 4 channels at a time (4 bf16 in 8 bytes) and converts them to
+// fp32 where pass x reads them. The cells are staged as they are (a 16-byte
+// cp.async carries 8 channels; cp.async cannot convert), so its slices are
+// 64, 32 or 8 channels and the wrappers take a bf16 C a multiple of 8 (K3
+// bf16 likewise: 16-byte copies of g, 16-byte stores of 8 channels). Its
+// design differs from the fp32 kernel's: halving the bytes left the time of
+// the fp32 kernel's chain almost where it was (PERF.md), so the bf16 kernel
+// is persistent and warp-specialised, the set-up and the copies of the next
+// chunks running beside the passes of this one (see the kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -520,6 +520,28 @@ struct BinTaps {
     }
     return acc;
   }
+
+  // contract, with every tap's load issued before the first sum where the
+  // instance knows S: a tap past `count` loads slot 0 (a cell the stage or
+  // the ring holds) and is then skipped, so the sums are contract's, in its
+  // order. contract's loads sit each in its own branch, each waiting for
+  // the sum before it.
+  template <typename V>
+  __device__ __forceinline__ float4 contract_all(const V* v, int stride, int mask) const {
+    if constexpr (kTaps == 0) {
+      return contract(v, stride, mask);
+    } else {
+      V x[kTaps];
+#pragma unroll
+      for (int e = 0; e < kTaps; ++e) x[e] = v[(tap[e].slot & mask) * stride];
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int e = 0; e < kTaps; ++e) {
+        if (e < count) fma4(acc, to_float4(x[e]), tap[e].weight);
+      }
+      return acc;
+    }
+  }
 };
 
 // Rows of K2's ring of x-contracted rows: the largest power of two whose
@@ -683,6 +705,304 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     p_done = p_end;
+  }
+}
+
+// -------------------------------------------------------- K2, bf16 features
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(u64* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(u64* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of `bar` with the given parity has completed (the
+// phase before the first completes at once: parity 1 on a fresh barrier).
+// The waiting thread is suspended until then, up to kWaitHintNs at a time
+// (the warps that wait long are the producers, a stage or a unit ahead;
+// the card's default suspend time measured the same,
+// scripts/k2_ablation.py).
+constexpr unsigned kWaitHintNs = 1000000;
+__device__ __forceinline__ void mbar_wait(u64* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity), "n"(kWaitHintNs)
+        : "memory");
+  }
+}
+
+// An arrival on `bar` once every cp.async this thread has issued has landed
+// (counted among the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_arrive(u64* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+constexpr int kBf16Consumers = 256;  // warps 0-7: the passes
+constexpr int kBf16CopyWarps = 4;
+constexpr int kBf16SetupWarps = 2;  // one an axis
+constexpr int kBf16CopyWarp0 = kBf16Consumers / 32;  // warps 8-11
+constexpr int kBf16SetupWarp0 = kBf16CopyWarp0 + kBf16CopyWarps;  // warps 12, 13
+constexpr int kBf16Threads = kBf16Consumers + 32 * (kBf16CopyWarps + kBf16SetupWarps);
+constexpr int kBf16Stages = 4;
+constexpr int kBf16StageBytes = 16 * 1024;  // one stage, at least
+constexpr int kBf16RingBytes = 32 * 1024;   // the ring, at most, where 4*S rows fit
+constexpr int kBf16BlocksPerSm = 2;
+constexpr int kBf16UnitsPerBlock = 4;  // a RoI's slices are split until there are this many
+// dynamic bytes a block: two blocks an SM, with their static tables and the
+// 1 KB each the card reserves, in the SM's 228 KB
+constexpr int kBf16SmemLimit = 95 * 1024;
+
+// What one bf16 K2 block keeps in static shared memory: the tables of the
+// unit being contracted and of the next (by the parity of the unit's place
+// in the block's walk), the set-up warps' working tables, and the barriers.
+struct Bf16Shared {
+  FwdTaps tab[2];
+  FwdSetup setup;
+  u64 full[kBf16Stages];   // a stage's copies landed (each copy thread's, once)
+  u64 empty[kBf16Stages];  // the consumers are done with a stage
+  u64 tab_full[2];         // a table is set up (each set-up thread, once)
+  u64 tab_empty[2];        // the consumers and each copy warp are done with a table
+};
+
+// Rows of the bf16 kernel's ring: the largest power of two whose ring stays
+// within kBf16RingBytes, and at least 4*S.
+int bf16_ring_rows(int pool, int ratio, int slice) {
+  int rows = 1;
+  while (rows < 4 * ratio) rows *= 2;
+  while (2 * rows * pool * slice * static_cast<int>(sizeof(float)) <= kBf16RingBytes) rows *= 2;
+  return rows;
+}
+
+// Cells one stage holds: kBf16StageBytes of bf16 cell slices, and at least
+// one row of the widest fold (2 * P * S cells).
+int bf16_stage_cells(int pool, int ratio, int slice) {
+  return std::max(2 * pool * ratio, kBf16StageBytes / (slice * 2));
+}
+
+// Dynamic shared memory of one bf16 block: the fp32 ring [rows][P][slice],
+// then kBf16Stages stages [cells][slice] of bf16.
+int bf16_smem_bytes(int pool, int ratio, int slice) {
+  return bf16_ring_rows(pool, ratio, slice) * pool * slice * static_cast<int>(sizeof(float)) +
+         kBf16Stages * bf16_stage_cells(pool, ratio, slice) * slice * 2;
+}
+
+// K2 for bf16 features: persistent and warp-specialised. The fp32 kernel's
+// chain (set-up, copies, pass x, pass y, each behind a __syncthreads) left
+// each part waiting for the one before; here the parts are roles that run
+// side by side, on the same arithmetic.
+//
+// A unit is a RoI and `per` of its channel slices (bf16_unit_slices). The
+// grid is kBf16BlocksPerSm blocks an SM (fewer if
+// there are fewer units); block b walks units b, b + grid, b + 2 grid, ...
+// in that fixed order: strided, so that neighbouring RoIs, which cost alike
+// (a batch's proposals come sorted, the sampled RoIs grouped), spread over
+// the blocks. The slices of a unit share its set-up. Roles, each a fixed
+// set of warps:
+//   - set-up, warps 12 and 13 (axis x, axis y): for each unit of the walk,
+//     roi_axis and bin_taps into the table of the unit's parity, as soon as
+//     the consumer and copy warps have released it (all of them: consumers
+//     pass a RoI none of whose samples fall inside its level without
+//     waiting for the copies): one unit ahead of the consumers;
+//   - copies, warps 8-11: for each slice, its chunks of y rows (the chunk's
+//     cells of the slice, by 16-byte cp.async, as each cell's slice is one
+//     contiguous run of 2 * slice bytes in NHWC) into a ring of kBf16Stages
+//     stages, each copy thread completing its arrival on the stage's full
+//     mbarrier when its copies land (cp.async.mbarrier.arrive), as soon as
+//     every consumer warp has released the stage. Four warps: the copies'
+//     address arithmetic (two table loads a 16-byte copy) keeps fewer from
+//     staying ahead of the consumers; one bulk copy a cell (cp.async.bulk)
+//     was slower still (scripts/k2_ablation.py);
+//   - consumers, warps 0-7: pass x of each chunk into the fp32 ring of x
+//     contracted rows, then pass y of every output row whose taps have all
+//     arrived, written with 8-byte stores of 4 bf16. A warp owns whole
+//     output columns (all their rows), so its pass y reads only ring rows
+//     its own pass x wrote: the consumer warps share no barrier, not even a
+//     named one, and each releases a stage, and a table, by its own
+//     arrival. A bin's loads are all issued before its sums
+//     (BinTaps::contract_all).
+// Every output value is summed and written by one consumer thread, in the
+// fold's tap order and divided by S^2 last, in fp32 (the fp32 kernel's
+// contract and BinTaps); no atomics, so the result does not depend on the
+// schedule, and it is the fp32 kernel's output on the upcast features,
+// rounded once.
+template <int kSlice, int kRatio>
+__global__ void __launch_bounds__(kBf16Threads, kBf16BlocksPerSm)
+    roi_align_forward_bf16_kernel(Levels<const __nv_bfloat16> lv, const float4* __restrict__ rois,
+                                  const int* __restrict__ levels,
+                                  __nv_bfloat16* __restrict__ out, int num_rois,
+                                  int rois_per_image, int channels, int pool, int ratio_arg,
+                                  int per, int ring_rows, int stage_cells) {
+  using V4 = Vec4<__nv_bfloat16>::type;  // 4 bf16 channels
+  constexpr int kV4 = kSlice / 4;         // 4-channel groups of a slice
+  constexpr int kLanes = kBf16Consumers / kV4;  // consumers on one 4-channel group
+  constexpr int kCopies = kSlice * 2 / 16;  // 16-byte copies a cell's slice
+  constexpr int kTaps = 2 * kRatio;
+  static_assert(kCopies * 16 == kSlice * 2, "a slice of a cell is whole 16-byte copies");
+  const int ratio = kRatio > 0 ? kRatio : ratio_arg;
+  extern __shared__ __align__(16) float fwd_smem[];
+  __shared__ Bf16Shared sh;
+  const int groups = channels / (kSlice * per);  // units a RoI
+  const int units = num_rois * groups;
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  float4* ring = reinterpret_cast<float4*>(fwd_smem);  // [ring_rows][pool][kV4], fp32
+  // [kBf16Stages][stage_cells][kCopies] 16-byte units
+  uint4* stage = reinterpret_cast<uint4*>(ring + ring_rows * pool * kV4);
+  const int mask = ring_rows - 1;
+  // rows a chunk takes, for a fold of nx x cells
+  auto chunk_rows = [&](int nx) { return min(stage_cells / nx, ring_rows - 2 * ratio + 1); };
+
+  if (t == 0) {
+    for (int s = 0; s < kBf16Stages; ++s) {
+      mbar_init(&sh.full[s], 32 * kBf16CopyWarps);
+      mbar_init(&sh.empty[s], kBf16Consumers / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&sh.tab_full[i], 32 * kBf16SetupWarps);
+      mbar_init(&sh.tab_empty[i], kBf16Consumers / 32 + kBf16CopyWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the block's only __syncthreads: the barriers exist
+
+  if (warp >= kBf16SetupWarp0) {
+    // set-up: warp 12 the x axis, warp 13 the y axis, unit by unit
+    const int a = warp - kBf16SetupWarp0;
+    for (int unit = blockIdx.x, k = 0; unit < units; unit += gridDim.x, ++k) {
+      const int n = unit / groups;
+      mbar_wait(&sh.tab_empty[k & 1], ((k >> 1) & 1) ^ 1);
+      const int l = levels[n];
+      roi_axis(sh.setup.tab, rois[n], lv.stride[l], a ? lv.h[l] : lv.w[l], pool, ratio, a,
+               lane);
+      bin_taps(sh.setup, sh.tab[k & 1], a, pool, ratio, lane);
+      __syncwarp();
+      mbar_arrive(&sh.tab_full[k & 1]);
+    }
+    return;
+  }
+
+  if (warp >= kBf16CopyWarp0) {
+    // copies: every slice's chunks, stage after stage
+    const int ct = t - kBf16Consumers;  // this thread's place among the copy threads
+    int seq = 0;
+    for (int unit = blockIdx.x, k = 0; unit < units; unit += gridDim.x, ++k) {
+      const int n = unit / groups;
+      mbar_wait(&sh.tab_full[k & 1], (k >> 1) & 1);
+      const FwdTaps& ft = sh.tab[k & 1];
+      const int nx = ft.cells[0], ny = ft.cells[1];
+      if (nx > 0 && ny > 0) {  // else every sample is outside the level: no copies
+        const int chunk = chunk_rows(nx);
+        const int l = levels[n];
+        const int width = lv.w[l];
+        const unsigned long long by_nx = div_magic(nx);
+        const __nv_bfloat16* feat =
+            lv.ptr[l] + static_cast<size_t>(n / rois_per_image) * lv.h[l] * width * channels +
+            (unit - n * groups) * per * kSlice;
+        for (int j = 0; j < per; ++j) {
+          for (int r0 = 0; r0 < ny; r0 += chunk, ++seq) {
+            const int s = seq % kBf16Stages;
+            mbar_wait(&sh.empty[s], ((seq / kBf16Stages) & 1) ^ 1);
+            uint4* buf = stage + s * stage_cells * kCopies;
+            const int copies = min(chunk, ny - r0) * nx * kCopies;
+#pragma unroll 4
+            for (int e = ct; e < copies; e += 32 * kBf16CopyWarps) {
+              const int cell = e / kCopies;
+              const int r = div_small(cell, by_nx);
+              const int x = cell - r * nx;
+              cp_async16(buf + e, feat + (static_cast<size_t>(ft.cell[1][r0 + r]) * width +
+                                          ft.cell[0][x]) * channels +
+                                      j * kSlice + (e - cell * kCopies) * 8);
+            }
+            cp_async_arrive(&sh.full[s]);
+          }
+        }
+      }
+      __syncwarp();  // the warp is done with the unit's table
+      if (lane == 0) mbar_arrive(&sh.tab_empty[k & 1]);
+    }
+    return;  // the consumers wait for every copy before the block ends
+  }
+
+  // consumers: the passes, slice by slice. Thread (u, c4) takes 4 channels
+  // of output column q and every `spread`-th row from g, for (q, g) = (e /
+  // spread, e % spread), e = u, u + kLanes, ...: spread is a power of two
+  // that divides the kWarpLanes values of u a warp holds, so each column's
+  // rows lie in one warp, and a warp's pass y reads only the ring rows its
+  // own pass x wrote. The warps then need no barrier among themselves: each
+  // releases a stage, and a table, by its own arrival.
+  constexpr int kWarpLanes = 32 / kV4;
+  const int row4 = channels / 4;  // 4-channel groups from one output to the next
+  const int c4 = t % kV4;
+  const int u = t / kV4;  // this thread's place among the kLanes on its group
+  int shift = 0;  // log2(spread)
+  while (2 << shift <= kWarpLanes && (2 << shift) * pool <= kLanes) ++shift;
+  const int spread = 1 << shift;
+  const float count = static_cast<float>(ratio * ratio);
+  int seq = 0;
+  for (int unit = blockIdx.x, k = 0; unit < units; unit += gridDim.x, ++k) {
+    const int n = unit / groups;
+    mbar_wait(&sh.tab_full[k & 1], (k >> 1) & 1);
+    const FwdTaps& ft = sh.tab[k & 1];
+    const int nx = ft.cells[0], ny = ft.cells[1];
+    for (int j = 0; j < per; ++j) {
+      V4* dst = reinterpret_cast<V4*>(out) + static_cast<size_t>(n) * pool * pool * row4 +
+                ((unit - n * groups) * per + j) * kV4 + c4;
+      if (nx == 0 || ny == 0) {  // every sample outside the level
+        for (int pq = u; pq < pool * pool; pq += kLanes) {
+          store4(&dst[pq * row4], make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+        }
+        continue;
+      }
+      const int chunk = chunk_rows(nx);
+      int p_done = 0;  // output rows of the slice written
+      for (int r0 = 0; r0 < ny; r0 += chunk, ++seq) {
+        const int s = seq % kBf16Stages;
+        const int rows = min(chunk, ny - r0);
+        mbar_wait(&sh.full[s], (seq / kBf16Stages) & 1);
+        // pass x: the chunk's rows into the ring, converted to fp32 as read
+        const V4* buf = reinterpret_cast<const V4*>(stage + s * stage_cells * kCopies) + c4;
+        for (int e = u; e < pool * spread; e += kLanes) {
+          const int q = e >> shift;
+          const BinTaps<kTaps> taps(&ft.tap[0][q * 2 * ratio], ft.count[0][q]);
+          for (int r = e & (spread - 1); r < rows; r += spread) {
+            ring[(((r0 + r) & mask) * pool + q) * kV4 + c4] =
+                taps.contract_all(buf + r * nx * kV4, kV4, -1);
+          }
+        }
+        __syncwarp();  // the warp's ring rows are written; it is done with the stage
+        if (lane == 0) mbar_arrive(&sh.empty[s]);
+        // pass y: every output row whose taps all lie in rows already contracted
+        int p_end = p_done;
+        while (p_end < pool && ft.last_row[p_end] < r0 + rows) ++p_end;
+        for (int e = u; e < pool * spread; e += kLanes) {
+          const int q = e >> shift;
+          for (int p = p_done + (e & (spread - 1)); p < p_end; p += spread) {
+            const BinTaps<kTaps> taps(&ft.tap[1][p * 2 * ratio], ft.count[1][p]);
+            const float4 a = taps.contract_all(ring + q * kV4 + c4, pool * kV4, mask);
+            store4(&dst[(p * pool + q) * row4],
+                   make_float4(a.x / count, a.y / count, a.z / count, a.w / count));
+          }
+        }
+        p_done = p_end;
+        __syncwarp();  // pass y no longer reads the warp's ring rows
+      }
+    }
+    __syncwarp();  // the warp is done with the unit's table
+    if (lane == 0) mbar_arrive(&sh.tab_empty[k & 1]);
   }
 }
 
@@ -1303,6 +1623,70 @@ int forward_entry(const void* const* feats, const int* heights, const int* width
   }
 }
 
+// The slices of a bf16 unit: all of a RoI's, halved (while they divide)
+// until there are kBf16UnitsPerBlock units a block. Smaller units share a
+// RoI's set-up less but even out the walks: RoIs differ in cost, a walk
+// takes whole units, and the kernel lasts as long as its longest walk.
+int bf16_unit_slices(int num_rois, int slices, int blocks) {
+  int per = slices;
+  while (per % 2 == 0 &&
+         static_cast<long long>(num_rois) * (slices / per) < kBf16UnitsPerBlock * blocks) {
+    per /= 2;
+  }
+  return per;
+}
+
+template <int kSlice, int kRatio>
+cudaError_t launch_fwd_bf16(const Levels<const __nv_bfloat16>& lv, const void* rois,
+                            const void* levels, void* out, int num_rois, int rois_per_image,
+                            int channels, int pool, int ratio, cudaStream_t stream) {
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  static int sms[kMaxDevices] = {};
+  const auto kernel = roi_align_forward_bf16_kernel<kSlice, kRatio>;
+  cudaError_t err = allow_smem(kernel, kBf16SmemLimit, &mu, done);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (sms[dev] == 0) {
+    // the largest shared-memory carveout, so that two blocks share an SM
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = kBf16BlocksPerSm * sms[dev];
+  const int slices = channels / kSlice;
+  const int per = bf16_unit_slices(num_rois, slices, blocks);
+  const long long units = static_cast<long long>(num_rois) * (slices / per);
+  if (units > 0x7fffffff) return cudaErrorInvalidValue;
+  kernel<<<static_cast<int>(std::min<long long>(units, blocks)), kBf16Threads,
+           bf16_smem_bytes(pool, ratio, kSlice), stream>>>(
+      lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
+      static_cast<__nv_bfloat16*>(out), num_rois, rois_per_image, channels, pool, ratio, per,
+      bf16_ring_rows(pool, ratio, kSlice), bf16_stage_cells(pool, ratio, kSlice));
+  return cudaGetLastError();
+}
+
+// The bf16 kernel's slice width: the first of 64, 32 and 8 (whole 16-byte
+// copies) that divides C and fits kBf16SmemLimit; 0 if none.
+int bf16_slice(int channels, int pool, int ratio) {
+  return pick_slice({64, 32, 8}, channels, pool, ratio, kBf16SmemLimit, bf16_smem_bytes);
+}
+
+template <int kSlice>
+cudaError_t launch_fwd_bf16_slice(const Levels<const __nv_bfloat16>& lv, const void* rois,
+                                  const void* levels, void* out, int num_rois,
+                                  int rois_per_image, int channels, int pool, int ratio,
+                                  cudaStream_t stream) {
+  return ratio == 2 ? launch_fwd_bf16<kSlice, 2>(lv, rois, levels, out, num_rois,
+                                                 rois_per_image, channels, pool, ratio, stream)
+                    : launch_fwd_bf16<kSlice, 0>(lv, rois, levels, out, num_rois,
+                                                 rois_per_image, channels, pool, ratio, stream);
+}
+
 template <int kSlice>
 cudaError_t launch_bwd(const Levels<float>& lv, const void* rois, const void* levels,
                        const void* grad_out, int num_rois, int rois_per_image, int channels,
@@ -1368,16 +1752,48 @@ extern "C" int roi_align_forward(const void* const* feats, const int* heights,
 }
 
 // roi_align_forward for bf16 features and output ([B, Hl, Wl, C] and
-// [num_rois, P, P, C] bf16, 16-byte aligned); C a multiple of 8.
+// [num_rois, P, P, C] bf16, 16-byte aligned); C a multiple of 8. The
+// persistent, warp-specialised kernel (roi_align_forward_bf16_kernel).
 extern "C" int roi_align_forward_bf16(const void* const* feats, const int* heights,
                                       const int* widths, const float* strides,
                                       int num_levels, const void* rois,
                                       const void* levels, void* out, int num_rois,
                                       int rois_per_image, int channels, int pool,
                                       int ratio, void* stream) {
-  return forward_entry<__nv_bfloat16, 8>(feats, heights, widths, strides, num_levels, rois,
-                                         levels, out, num_rois, rois_per_image, channels, pool,
-                                         ratio, stream);
+  if (bad_args(num_levels, pool, ratio) || channels % 8 || rois_per_image <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_rois <= 0 || channels <= 0) return 0;
+  Levels<const __nv_bfloat16> lv = {};
+  fill_levels(&lv, feats, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bf16_slice(channels, pool, ratio)) {
+    case 64:
+      return static_cast<int>(launch_fwd_bf16_slice<64>(lv, rois, levels, out, num_rois,
+                                                        rois_per_image, channels, pool, ratio, s));
+    case 32:
+      return static_cast<int>(launch_fwd_bf16_slice<32>(lv, rois, levels, out, num_rois,
+                                                        rois_per_image, channels, pool, ratio, s));
+    case 8:
+      return static_cast<int>(launch_fwd_bf16_slice<8>(lv, rois, levels, out, num_rois,
+                                                       rois_per_image, channels, pool, ratio, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// How roi_align_forward_bf16 runs C channels at P and S, into plan[6]: the
+// slice width (0: refused), the ring's rows, a stage's cells, the dynamic
+// shared memory of a block, its threads, and the blocks an SM.
+extern "C" void roi_align_forward_bf16_plan(int channels, int pool, int ratio, int* plan) {
+  const int slice = bad_args(1, pool, ratio) || channels % 8 ? 0
+                                                             : bf16_slice(channels, pool, ratio);
+  plan[0] = slice;
+  plan[1] = slice ? bf16_ring_rows(pool, ratio, slice) : 0;
+  plan[2] = slice ? bf16_stage_cells(pool, ratio, slice) : 0;
+  plan[3] = slice ? bf16_smem_bytes(pool, ratio, slice) : 0;
+  plan[4] = kBf16Threads;
+  plan[5] = kBf16BlocksPerSm;
 }
 
 // grads: host array of num_levels device pointers to zero-filled

@@ -31,6 +31,7 @@ from torch.func import functional_call
 from detectron_tpu_torch.models import faster_rcnn as frcnn
 from detectron_tpu_torch.models import retinanet as retina
 from detectron_tpu_torch.models import rfcn as rfcn_mod
+from detectron_tpu_torch.ops.nms import check_nms_contract
 from detectron_tpu_torch.ops.roi_align import check_roi_align_contract
 
 MODEL_NAMES = ("faster_rcnn", "mask_rcnn", "retinanet", "rfcn")
@@ -66,9 +67,10 @@ def _init_std(name: str, shape) -> float:
 
 class Detector:
     """A detector module on a device, with the JAX Detector's pure-function
-    interface. ``dtype``: the compute dtype. On the card a two-stage
-    config that pools with RoIAlign is held to what the RoIAlign kernels
-    take (``check_roi_align_contract``) when the detector is built;
+    interface. ``dtype``: the compute dtype. On the card every config is
+    held to the NMS sizes kernel K1 takes (``check_nms_contract``), and a
+    two-stage config that pools with RoIAlign to what the RoIAlign kernels
+    take (``check_roi_align_contract``), when the detector is built;
     RoIPool (``roi.pool_type=pool``), RetinaNet and R-FCN (PSRoIPool) run
     no RoIAlign kernel and need no such check."""
 
@@ -89,9 +91,10 @@ class Detector:
         else:
             self.module = retina.RetinaNet(cfg)
         self.dtype = self.module.dtype
-        if (self.device.type == "cuda" and self.is_two_stage
-                and cfg.roi.pool_type != "pool"):
-            check_roi_align_contract(cfg, self.dtype, len(frcnn.ROI_STRIDES))
+        if self.device.type == "cuda":
+            check_nms_contract(cfg, len(retina.RETINA_STRIDES))
+            if self.is_two_stage and cfg.roi.pool_type != "pool":
+                check_roi_align_contract(cfg, self.dtype, len(frcnn.ROI_STRIDES))
         self.module.to(device=self.device).eval()
 
     def init(self, seed: int = 0) -> dict:

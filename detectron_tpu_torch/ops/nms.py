@@ -62,7 +62,7 @@ def _nms_lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.nms_scan.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.nms_mask, lib.nms_scan, lib.nms_max_boxes):
+    for fn in (lib.nms_mask, lib.nms_scan):
         fn.restype = ctypes.c_int
     return lib
 
@@ -104,7 +104,10 @@ def greedy_keep_cuda(sboxes: torch.Tensor, svalid: torch.Tensor,
     """:func:`greedy_keep_plain` as the CUDA kernel pair of ``csrc/nms.cu``:
     one launch of all IoU bit masks, one launch of the sequential scans
     (each problem's stops at ``max_keep`` kept boxes), for all G problems
-    at once. Never synchronises with the host."""
+    at once. Never synchronises with the host. N up to
+    :data:`NMS_MAX_BOXES`; the mask takes ``G * 64W * W * 8`` bytes
+    (about ``G * N**2 / 8``), and its allocation raises where the card's
+    memory does not hold it."""
     if not (sboxes.is_cuda and svalid.device == sboxes.device):
         raise ValueError("greedy_keep_cuda takes CUDA tensors on one device")
     if sboxes.dtype != torch.float32 or svalid.dtype != torch.bool:
@@ -118,16 +121,48 @@ def greedy_keep_cuda(sboxes: torch.Tensor, svalid: torch.Tensor,
         raise ValueError("greedy_keep_cuda reads boxes as float4: 16-byte alignment")
     if max_keep is not None and max_keep < 0:
         raise ValueError(f"max_keep={max_keep}: want None or >= 0")
-    g, n = svalid.shape
-    limit = _nms_lib().nms_max_boxes()
-    if n > limit:
-        raise ValueError(f"NMS over {n} boxes: the kernel takes at most {limit}")
     keep = nms_scan_cuda(nms_mask_cuda(sboxes, thresh, offset), svalid, max_keep)
     greedy_keep_cuda.launches += 1
     return keep
 
 
 greedy_keep_cuda.launches = 0
+
+
+# The most boxes K1 takes in one problem: 64 * kWideMaxWords of
+# csrc/nms.cu, where the wide scan's removed-bits words fill its shared
+# memory. A problem's mask (N**2 / 8 bytes, 205 GB there) outgrows the
+# card's memory well before.
+NMS_MAX_BOXES = 64 * 20000
+
+
+def nms_problem_sizes(cfg, retina_levels: int = 5) -> list[tuple[str, int]]:
+    """The config keys that set the box counts of ``cfg``'s NMS problems,
+    each with the largest count it gives: per (image, level) RPN problems
+    of ``rpn.pre_nms_topk_*`` boxes, the detection NMS over
+    ``4 * rpn.post_nms_topk_test`` candidates (two-stage, R-FCN), and
+    RetinaNet's merged NMS over its ``retina_levels`` levels'
+    ``retinanet.pre_nms_topk`` (or ``retinanet.merged_pre_nms_topk``)
+    candidates."""
+    if cfg.model.name == "retinanet":
+        merged = int(cfg.retinanet.merged_pre_nms_topk)
+        if merged:
+            return [("retinanet.merged_pre_nms_topk", merged)]
+        return [("retinanet.pre_nms_topk", retina_levels * int(cfg.retinanet.pre_nms_topk))]
+    return [("rpn.pre_nms_topk_train", int(cfg.rpn.pre_nms_topk_train)),
+            ("rpn.pre_nms_topk_test", int(cfg.rpn.pre_nms_topk_test)),
+            ("rpn.post_nms_topk_test", 4 * int(cfg.rpn.post_nms_topk_test))]
+
+
+def check_nms_contract(cfg, retina_levels: int = 5) -> None:
+    """Raises ``ValueError`` naming the config key where one of ``cfg``'s
+    NMS problems would exceed :data:`NMS_MAX_BOXES`, so that a detector on
+    the card fails when it is built and not at its first call. The plain
+    version, on the CPU, takes any N."""
+    for key, n in nms_problem_sizes(cfg, retina_levels):
+        if n > NMS_MAX_BOXES:
+            raise ValueError(f"{key}: NMS problems of {n} boxes; kernel K1 takes at most "
+                             f"{NMS_MAX_BOXES}")
 
 
 def greedy_keep(sboxes: torch.Tensor, svalid: torch.Tensor, thresh: float,

@@ -266,6 +266,8 @@ def _roi_align_lib() -> ctypes.CDLL:
     lib.roi_tap_bounds.argtypes = [*geometry, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.roi_align_backward_tiles_bf16.argtypes = [
         ctypes.POINTER(ptr), *geometry, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.roi_align_forward_bf16_plan.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.roi_align_forward_bf16_plan.restype = None
     for fn in (lib.roi_align_forward, lib.roi_align_forward_bf16, lib.roi_align_backward,
                lib.roi_tap_bounds, lib.roi_align_backward_tiles_bf16):
         fn.restype = ctypes.c_int
@@ -313,9 +315,11 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
     """:func:`multilevel_roi_align_plain` as kernel K2 of
     ``csrc/roi_align.cu``: one launch for all RoIs of all levels. A block
     folds its RoI's samples onto the cells they touch, stages those cells
-    once per channel slice and contracts them along x, then y.
-    Deterministic (no atomics). Float32 features take C a multiple of 4,
-    bfloat16 ones (read as they are, summed in float32, written bf16) a
+    once per channel slice and contracts them along x, then y; bfloat16
+    features (read as they are, summed in float32, written bf16) go
+    through a persistent, warp-specialised kernel whose set-up and copies
+    run beside its passes (:func:`k2_bf16_plan`). Deterministic (no
+    atomics). Float32 features take C a multiple of 4, bfloat16 ones a
     multiple of 8; levels 16-byte aligned."""
     f0 = features[0]
     p, s = output_size, sampling_ratio
@@ -347,6 +351,19 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
 
 
 multilevel_roi_align_cuda.launches = 0
+
+K2_BF16_PLAN = ("slice", "ring_rows", "stage_cells", "smem_bytes", "threads", "blocks_per_sm")
+
+
+def k2_bf16_plan(channels: int, output_size: int, sampling_ratio: int) -> dict:
+    """How K2's bf16 kernel runs ``channels`` channels at P and S (its C
+    entry ``roi_align_forward_bf16_plan``): the channel slice of a work item
+    (0: refused), the rows of its fp32 ring, the cells of a stage, a
+    block's dynamic shared memory, its threads and the blocks an SM. Loads
+    the kernel library."""
+    plan = (ctypes.c_int * len(K2_BF16_PLAN))()
+    _roi_align_lib().roi_align_forward_bf16_plan(channels, output_size, sampling_ratio, plan)
+    return dict(zip(K2_BF16_PLAN, plan))
 
 
 def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tensor,

@@ -86,6 +86,16 @@ class _PlainFunction(ra.RoIAlignFunction):
                                    for g, need in zip(grads, ctx.needs_input_grad[5:]))
 
 
+def _listing(fn):
+    """What the profiler lists on the card for one call of ``fn``: the bf16
+    K2 kernel if it ran K2, else K3's two bf16 kernels."""
+    before = ra.multilevel_roi_align_cuda.launches
+    fn()
+    kernels = (cs.K2_BF16_KERNELS if ra.multilevel_roi_align_cuda.launches > before
+               else cs.K3_BF16_KERNELS)
+    return [(f"void {k}<32>(...)", 1, 0.0) for k in kernels]
+
+
 def _plain_accumulate(grads, grad, rois, levels, strides, sampling_ratio=2):
     level_hw = [tuple(t.shape[1:3]) for t in grads]
     for acc, add in zip(grads, ra.multilevel_roi_align_bwd_plain(
@@ -123,17 +133,21 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(ra, "roi_align_bwd_accumulate_cuda", _plain_accumulate)
     monkeypatch.setattr(ra, "roi_align_bwd_tiles_cuda", _plain_tiles)
     monkeypatch.setattr(ra, "roi_tap_bounds_cuda", ra.roi_tap_cell_bounds)
-    # the profiler sees no card here: the listing a bf16 K3 call gives there
-    monkeypatch.setattr(cs, "device_kernels",
-                        lambda fn: [(f"void {k}<32>(...)", 1, 0.0) for k in cs.K3_BF16_KERNELS])
+    # the profiler sees no card here: the listing a bf16 K2 or K3 call gives there
+    monkeypatch.setattr(cs, "device_kernels", _listing)
+    # the bf16 K2 kernel's plan is the library's, which needs the card
+    monkeypatch.setattr(ra, "k2_bf16_plan", lambda c, p, s: dict(
+        slice=64 if c % 64 == 0 else 32 if c % 32 == 0 else 8, ring_rows=16, stage_cells=128,
+        smem_bytes=94208, threads=448, blocks_per_sm=2))
     monkeypatch.setattr(cs, "NMS_CASES", tuple(
         dict(case, g=3, n=case["n"] // 5, n_invalid=case["n_invalid"] // 5,
              max_out=case["max_out"] // 5) for case in cs.NMS_CASES))
     monkeypatch.setattr(cs, "NMS_EDGE_CASES", tuple(
         dict(case, n=min(case["n"], 300), n_invalid=min(case["n_invalid"], case["n"], 300))
         for case in cs.NMS_EDGE_CASES))
-    # the limit is the library's, which needs the card
-    monkeypatch.setattr(cs, "check_nms_limit", lambda: print("[K1 edge] limit not checked"))
+    monkeypatch.setattr(cs, "NMS_WIDE_CASES", tuple(
+        dict(case, n=case["n"] // 40, n_invalid=case["n_invalid"] // 40)
+        for case in cs.NMS_WIDE_CASES))
     monkeypatch.setattr(ra, "RoIAlignFunction", _PlainFunction)
     get_config = detectron_tpu_torch.config.get_config
 
@@ -235,11 +249,13 @@ def test_kernel_phase_k2_cases_stress_and_rerun(rehearsal, capsys):
 
 def test_kernel_phase_k1_cases_and_split(rehearsal, capsys):
     k1 = cs.phase_nms(rehearsal)
+    wide = [c["name"] for c in cs.NMS_WIDE_CASES]
     assert [c["case"] for c in k1] == ["rpn", "det", "rpn_train", "retinanet",
-                                       "retinanet_fast", "rfcn_rpn", "rfcn_rpn_train"]
-    # min(max_out, n), cut by 5
-    assert [c["max_keep"] for c in k1] == [60, 20, 200, 20, 20, 60, 200]
-    assert [c["path"] for c in k1][3:] == ["retinanet predict", "retinanet predict (fast)",
+                                       "retinanet_fast", "rfcn_rpn", "rfcn_rpn_train", *wide]
+    # min(max_out, n), cut by 5; the wide cases' cut by 40
+    assert [c["max_keep"] for c in k1] == [60, 20, 200, 20, 20, 60, 200, 100, 100, 409, 500]
+    assert {c["path"] for c in k1[7:]} == {"wide"}
+    assert [c["path"] for c in k1][3:7] == ["retinanet predict", "retinanet predict (fast)",
                                            "rfcn predict", "rfcn train"]
     for c in k1:
         assert {"ms", "mask_ms", "scan_ms", "scan_full_ms", "plain_ms", "bound_ms"} <= set(c)
@@ -247,6 +263,9 @@ def test_kernel_phase_k1_cases_and_split(rehearsal, capsys):
     for case in cs.NMS_EDGE_CASES:
         assert f"[K1 edge] {case['name']}: " in out
     assert "max_keep=1," in out and "max_keep=None, 0 kept" in out  # all invalid
+    for name in wide:  # the wide cases, held exactly but not against the CPU path
+        line = next(x for x in out.splitlines() if x.startswith(f"[K1 {name}]"))
+        assert "keep masks equal with and without max_keep" in line and "scan words" in line
 
 
 @pytest.mark.parametrize("kind", cs.K3_STRESS)
@@ -301,6 +320,9 @@ def test_train_phase_in_bf16(rehearsal, capsys):
     assert "convolutions channels-last" in out and "not float32: 0" in out
     assert "[train bfloat16 stages]" in out and "[layout train bfloat16]" in out
     assert "[driver]" not in out
+    # one more step, each launch held against its plain version
+    assert summary["held"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
+                               "multilevel_roi_align_bwd": (2, 0.0)}
 
 
 def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
@@ -311,8 +333,11 @@ def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
         totals, times, summary = cs.phase_slice(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 4, "multilevel_roi_align": 4}
         assert set(summary) == {"call_ms", "issue_ms", "done_ms", "stages_ms",
-                                "channels_last_ms", "nchw_ms"}
+                                "channels_last_ms", "nchw_ms", "held"}
         assert "backbone+fpn" in summary["stages_ms"]
+        # one more call, each launch held against its plain version
+        assert summary["held"] == {"greedy_nms": (2, 0.0), "multilevel_roi_align": (2, 0.0),
+                                   "multilevel_roi_align_bwd": (0, 0.0)}
     out = capsys.readouterr().out
     assert "kernel input dtypes {'greedy_nms': ['float32'], 'multilevel_roi_align': " \
            "['float32']}" in out
@@ -473,6 +498,9 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
     # twice): two warm-ups and one timed each
     assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
                       "multilevel_roi_align_bwd": 6}
+    # then one call and one step of the bench's detector, each launch held
+    assert line16["held"]["predict"]["multilevel_roi_align"] == (2, 0.0)
+    assert line16["held"]["train"]["multilevel_roi_align_bwd"] == (2, 0.0)
     assert ", bfloat16, cpu)" in line16["metric"]
     out16 = capsys.readouterr().out
     assert "[K2 bf16 bench B=2 128x128 P=7 R=64" in out16
@@ -497,13 +525,35 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
 
 
 def test_k1_limit_cases_and_refusal_name_the_limit():
+    """K1 has no 8192-box limit any more: the NMS tables hold the widest
+    register scan (N = 8192) among the edge cases and, past it, the wide
+    scan's cases (one box in word 128; RetinaNet's G=2 N=10000 at
+    retinanet.pre_nms_topk=2000; a last word full; a fifth invalid), and
+    phase 28 drives the main path past it. What K1 still refuses (past
+    NMS_MAX_BOXES) is refused when a detector is built, naming the key and
+    the limit."""
     names = [c["name"] for c in cs.NMS_EDGE_CASES]
-    assert f"N={cs.NMS_LIMIT} (the limit)" in names and cs.NMS_LIMIT == 8192
+    assert f"N={cs.NMS_REGISTER_LIMIT} (the widest register scan)" in names
+    assert cs.NMS_REGISTER_LIMIT == 8192
     assert any(c["n"] > 4096 and c["n"] % 64 and (c["n"] // 64) % 2 == 0
                for c in cs.NMS_EDGE_CASES)  # W = 71: odd, above 64
     assert any(c["max_keep"] == 1 and c["n"] == 5000 for c in cs.NMS_EDGE_CASES)
     retina = [c for c in cs.NMS_CASES if c["name"] == "retinanet"][0]
     assert (retina["g"], retina["n"], retina["classes"]) == (2, 5000, 81)
+    wide = {c["n"]: c for c in cs.NMS_WIDE_CASES}
+    assert sorted(wide) == [8193, 10000, 16384, 20000]
+    assert all(n > cs.NMS_REGISTER_LIMIT and c["path"] == "wide" for n, c in wide.items())
+    assert (wide[10000]["g"], wide[10000]["classes"]) == (2, 81)  # 5 x pre_nms_topk 2000
+    assert 16384 % 64 == 0 and wide[16384]["n_invalid"] == 0  # the last word full
+    assert wide[20000]["n_invalid"] == 20000 // 5
+    paths = {path: (overrides, shapes) for _, overrides, path, shapes in cs.WIDE_NMS_PATHS}
+    assert paths["retinanet_predict_wide"] == (["retinanet.pre_nms_topk=2000"], [(2, 10000, 4)])
+    assert paths["predict_wide"][1][-1] == (2, 4 * 3000, 4)
+    cfg = detectron_tpu_torch.config.get_config(None, ["model.name=retinanet",
+                                                       "retinanet.pre_nms_topk=300000"])
+    with pytest.raises(ValueError, match=r"retinanet\.pre_nms_topk: NMS problems of 1500000 "
+                                         r"boxes; kernel K1 takes at most 1280000"):
+        nms.check_nms_contract(cfg)
 
 
 def test_retinanet_predict_phase_launches_k1_once_a_call(rehearsal, monkeypatch, capsys):
@@ -777,3 +827,24 @@ def test_dp_phase(rehearsal, monkeypatch, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "backend gloo, rank 0 of 1" in out and "metrics.jsonl records [1, 2]" in out
     assert "two ranks on one card over gloo" in out and "[dp (b) rank 0]" in out
+
+
+def test_wide_nms_phase_holds_k1_on_the_main_path(rehearsal, monkeypatch, capsys):
+    """Phase 28 at the rehearsal's sizes: RetinaNet's merged NMS (5 levels
+    x pre_nms_topk) and Mask R-CNN's proposals and detections, each call's
+    K1 shapes as its config gives them, every launch held."""
+    monkeypatch.setattr(cs, "WIDE_NMS_PATHS", (
+        ("retinanet", ["retinanet.pre_nms_topk=100"], "retinanet_predict_wide",
+         [(2, 500, 4)]),
+        ("mask_rcnn", ["rpn.post_nms_topk_test=100"], "predict_wide",
+         [(10, 256, 4), (2, 400, 4)])))
+    launches, held = cs.phase_wide_nms()
+    assert launches["retinanet_predict_wide"] == {"greedy_nms": 1, "multilevel_roi_align": 0,
+                                                  "multilevel_roi_align_bwd": 0}
+    assert launches["predict_wide"] == {"greedy_nms": 2, "multilevel_roi_align": 2,
+                                        "multilevel_roi_align_bwd": 0}
+    assert held["retinanet_predict_wide"]["greedy_nms"] == (1, 0.0)
+    assert held["predict_wide"]["greedy_nms"] == (2, 0.0)
+    out = capsys.readouterr().out
+    assert "[wide nms predict_wide] mask_rcnn rpn.post_nms_topk_test=100" in out
+    assert "K1 boxes [(2, 500, 4)]" in out

@@ -154,22 +154,23 @@ def test_roi_pool_routes_with_its_window():
 # it is checked here before the kernel runs.
 
 # Stagings the model runs, each as (stage cells, ring rows): the kernel's at
-# C = 256, of its fp32 and its bf16 instance (bf16 cells are staged as they
-# are, so its 16 KB buffers hold twice the cells; the ring is fp32 in both);
-# one row of the widest fold (2*P*S cells) a chunk, so that every RoI
-# taller than a row streams; and a stage so large that the ring alone
-# limits a chunk (ring rows - 2*S + 1), so that bins straddle many chunks.
-# The bf16 instance's arithmetic is the fp32 one's on the upcast features,
-# so one model holds both.
+# C = 256, of its fp32 kernel and of its bf16 kernel (the persistent one:
+# bf16 cells are staged as they are, so its 16 KB stages hold twice the
+# cells, and its fp32 ring takes up to 32 KB); one row of the widest fold
+# (2*P*S cells) a chunk, so that every RoI taller than a row streams; and a
+# stage so large that the ring alone limits a chunk (ring rows - 2*S + 1),
+# so that bins straddle many chunks. The bf16 kernel's arithmetic is the
+# fp32 one's on the upcast features, so one model holds both.
 K2_STAGES = ("kernel", "kernel bf16", "one row", "ring-bound")
 
 
-def k2_kernel_sizes(pool, ratio, channels=256, elem=4):
-    """(stage cells, ring rows) of the kernel at C = ``channels`` and
-    ``elem`` bytes a feature: the slice pick_slice takes of 64, 32, then 4
-    (fp32) or 8 (bf16), and fwd_stage_cells, fwd_ring_rows and
-    fwd_smem_bytes (within kFwdSmemLimit) of csrc/roi_align.cu."""
-    for width in (64, 32, 4 if elem == 4 else 8):
+def k2_kernel_sizes(pool, ratio, channels=256):
+    """(stage cells, ring rows) of the fp32 kernel at C = ``channels``: the
+    slice pick_slice takes of 64, 32, then 4, and fwd_stage_cells,
+    fwd_ring_rows and fwd_smem_bytes (within kFwdSmemLimit) of
+    csrc/roi_align.cu."""
+    elem = 4
+    for width in (64, 32, 4):
         rows = 1
         while rows < 4 * ratio:
             rows *= 2
@@ -181,21 +182,34 @@ def k2_kernel_sizes(pool, ratio, channels=256, elem=4):
     raise AssertionError("no slice fits")
 
 
+def k2_bf16_sizes(pool, ratio, channels=256):
+    """(stage cells, ring rows) of the bf16 kernel at C = ``channels``:
+    bf16_slice, bf16_stage_cells and bf16_ring_rows of csrc/roi_align.cu
+    (tests/test_torch_k2_bf16.py's model of them)."""
+    from test_torch_k2_bf16 import bf16_plan
+
+    _, rows, cells, _ = bf16_plan(channels, pool, ratio)
+    return cells, rows
+
+
 def k2_staging(stage, pool, ratio):
+    if stage == "kernel bf16":
+        return k2_bf16_sizes(pool, ratio)
     cells, rows = k2_kernel_sizes(pool, ratio)
-    return {"kernel": cells, "kernel bf16": k2_kernel_sizes(pool, ratio, elem=2)[0],
-            "one row": 2 * pool * ratio, "ring-bound": 4096}[stage], rows
+    return {"kernel": cells, "one row": 2 * pool * ratio, "ring-bound": 4096}[stage], rows
 
 
 def test_k2_kernel_sizes_at_the_model_ratio():
     """At S = 2, C = 256 the kernel stages 64 cells of a 64-channel slice
-    (16 KB) and keeps a ring of 8 rows, at P = 7 and 14; its bf16 instance
-    128 cells (16 KB of bf16) with the same ring."""
+    (16 KB) and keeps a ring of 8 rows, at P = 7 and 14; its bf16 kernel
+    128 cells (16 KB of bf16) a stage, with a ring of 16 rows at P = 7
+    and 8 at P = 14 (32 KB at most)."""
     assert k2_kernel_sizes(7, 2) == (64, 8) and k2_kernel_sizes(14, 2) == (64, 8)
     assert k2_kernel_sizes(14, 3) == (128, 16)  # 32-channel slices: 64 would not fit
-    assert k2_kernel_sizes(7, 2, elem=2) == (128, 8)
-    assert k2_kernel_sizes(14, 2, elem=2) == (128, 8)
-    assert k2_kernel_sizes(14, 2, channels=24, elem=2) == (1024, 32)  # 8-channel slices
+    assert k2_bf16_sizes(7, 2) == (128, 16)
+    assert k2_bf16_sizes(14, 2) == (128, 8)
+    assert k2_bf16_sizes(14, 3) == (256, 16)  # 32-channel slices
+    assert k2_bf16_sizes(14, 2, channels=24) == (1024, 64)  # 8-channel slices
 
 
 def fold_axis_model(i0, i1, w0, w1, ratio):
