@@ -207,7 +207,21 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     (K1 twice: proposals, and the detections' G=2, N=12000), both at full
     width, 1024x1344, batch 2: launches counted, K1's box shapes recorded,
     detections non-empty; then one call of each with every launch held
-    against its plain version (``hold_path``).
+    against its plain version (``hold_path``);
+29. the op-level API (``phase_op_api``): ops/boxes.py's pairwise_iou on
+    the card against float64 on the host (1e-6); ops/nms_wrapper.py's nms,
+    impl="pallas" (K1) against impl="jnp" on the same CUDA tensors,
+    exactly, one problem of each phase-3 shape (N = 1000 to 20000); the
+    single-level ops/roi_align.py::roi_align on P3 of the 1024x1344 canvas
+    (stride 8, C=256, batch 2; R=512 at P=7, 128 at P=14), float32 and
+    bf16, aligned false and true: forward and gradient (K2, K3) against
+    their plain versions at phases 4 and 7's limits, the launches of these
+    calls counted; with aligned=True the same inputs and four stress kinds
+    (zero extent, all sub-cell, shifted past the border, the whole level)
+    through phases 4 and 7's checks (bitwise reruns, bf16 against the fp32
+    kernel, K3 bf16's pre-pass against roi_tap_cell_bounds), zero-extent
+    axes folded onto one or two cells; both values of aligned timed; C=6,
+    C=12 in bf16 and P x S = 65 refused at the call, naming the limit.
 
 After each group of phases it logs the host seconds the group took
 (``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
@@ -539,33 +553,19 @@ def roi_cases(rng, b, r, canvas):
     return rois.astype(np.float32)
 
 
-def touched_bytes(features, rois, levels, strides, p, s):
+def touched_bytes(features, rois, levels, strides, p, s, aligned=False):
     """Bytes of the distinct feature cells that the samples of these RoIs
     read (each once), at the features' bytes a value."""
-    from detectron_tpu_torch.ops.roi_align import _bilinear_1d, _sample_coords
+    from detectron_tpu_torch.ops.roi_align import _corners, _sample_geometry
 
-    dev = rois.device
     c = features[0].shape[-1]
     b = rois.shape[0]
-    hs = torch.tensor([f.shape[1] for f in features], device=dev)
-    ws = torch.tensor([f.shape[2] for f in features], device=dev)
-    sizes = hs * ws
-    offs = torch.cumsum(sizes, 0) - sizes
-    total = int(sizes.sum())
-    lvl = levels.long()
-    scale = 1.0 / torch.tensor(strides, dtype=torch.float32, device=dev)[lvl]
-    x1, y1 = rois[..., 0] * scale, rois[..., 1] * scale
-    rw = (rois[..., 2] * scale - x1).clamp_min(1.0)
-    rh = (rois[..., 3] * scale - y1).clamp_min(1.0)
-    xi0, xi1, _, _, xin = _bilinear_1d(_sample_coords(x1, rw, p, s), ws[lvl].float()[..., None])
-    yi0, yi1, _, _, yin = _bilinear_1d(_sample_coords(y1, rh, p, s), hs[lvl].float()[..., None])
-    base = (torch.arange(b, device=dev)[:, None] * total + offs[lvl])[..., None, None]
-    cells = []
-    inb = yin[..., :, None] & xin[..., None, :]
-    for yi in (yi0, yi1):
-        for xi in (xi0, xi1):
-            flat = base + yi[..., :, None] * ws[lvl][..., None, None] + xi[..., None, :]
-            cells.append(flat[inb])
+    level_hw = [tuple(f.shape[1:3]) for f in features]
+    total = sum(h * w for h, w in level_hw)
+    base, wrow, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s, aligned)
+    inb = ys[4][..., :, None] & xs[4][..., None, :]
+    image = torch.arange(b, device=rois.device)[:, None, None, None] * total
+    cells = [(image + idx)[inb] for idx, _ in _corners(base, wrow, ys, xs)]
     return int(torch.unique(torch.cat(cells)).numel()) * c * features[0].element_size()
 
 
@@ -582,14 +582,14 @@ def level_features(rng, b=2, c=256):
                          device=DEVICE) for st in STRIDES]
 
 
-def k2_bound(feats, rois, levels, p, s=2):
+def k2_bound(feats, rois, levels, p, s=2, strides=STRIDES, aligned=False):
     """K2's bound at these inputs: the distinct feature cells its samples
     read over the batch, its output (both at the features' bytes a value),
     RoIs and routing, at the card's memory rate, or its fp32 operations
     where slower. Returns (ms, by, bytes)."""
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
-    nbytes = (touched_bytes(feats, rois, levels, STRIDES, p, s)
+    nbytes = (touched_bytes(feats, rois, levels, strides, p, s, aligned)
               + b * r * p * p * c * feats[0].element_size() + b * r * (16 + 4))
     # per output value: S^2 samples of four corners, a weight product and a
     # scaled add each, and the division by S^2
@@ -597,7 +597,20 @@ def k2_bound(feats, rois, levels, p, s=2):
     return b_ms, b_by, nbytes
 
 
-def check_k2(name, feats, rois, levels, p, fmax, s=2):
+def k3_bound(g, level_hw):
+    """K3's bound at these inputs: what the function must move, g read
+    once and every level's gradient written once (both at g's bytes a
+    value), RoIs and routing read once, at the card's memory rate, or its
+    fp32 operations (per sample and corner, a weight product and a scaled
+    add) where slower. Returns (ms, by, bytes)."""
+    b, r, p, _, c = g.shape
+    nbytes = (g.numel() * g.element_size()
+              + sum(b * h * w * c for h, w in level_hw) * g.element_size() + b * r * (16 + 4))
+    b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (4 * 4 * 3 + 1))
+    return b_ms, b_by, nbytes
+
+
+def check_k2(name, feats, rois, levels, p, fmax, s=2, strides=STRIDES, aligned=False):
     """K2 twice and its plain version on the same inputs: max |diff| against
     the plain version must be within 1e-5 x max |feature|, and the two K2
     runs bitwise equal (no atomics). Logs two counts from the inputs: the
@@ -606,14 +619,15 @@ def check_k2(name, feats, rois, levels, p, fmax, s=2):
     bound's). Returns (max |diff|, per-RoI bytes)."""
     from detectron_tpu_torch.ops import roi_align as ra
 
-    got = ra.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, p, s)
-    again = ra.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, p, s)
-    want = ra.multilevel_roi_align_plain(feats, rois, levels, STRIDES, p, s)
+    args = (feats, rois, levels, strides, p, s, aligned)
+    got = ra.multilevel_roi_align_cuda(*args)
+    again = ra.multilevel_roi_align_cuda(*args)
+    want = ra.multilevel_roi_align_plain(*args)
     torch.cuda.synchronize()
     diff = float((got - want).abs().max())
     same = torch.equal(got, again)
-    per_roi, distinct = roi_cell_bytes(feats, rois, levels, p, s)
-    hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    per_roi, distinct = roi_cell_bytes(feats, rois, levels, p, s, strides, aligned)
+    hist = torch.bincount(levels.flatten().long(), minlength=len(feats)).tolist()
     log(f"[K2 {name}] levels {hist}, max |diff| {diff:.3e} (limit {1e-5 * fmax:.3e}), two "
         f"runs bitwise equal: {same}; per-RoI distinct cells, from the inputs, "
         f"{per_roi / 1e6:.1f} MB; {distinct / 1e6:.1f} MB distinct over the batch")
@@ -648,7 +662,7 @@ def within_bf16(got, want, floor):
     return float(d.max()) if d.numel() else 0.0, ok
 
 
-def check_k2_bf16(name, feats, rois, levels, p, fmax, s=2):
+def check_k2_bf16(name, feats, rois, levels, p, fmax, s=2, strides=STRIDES, aligned=False):
     """K2's bf16 instance twice, its bf16 plain version, and the fp32
     kernel on the upcast features, on the same inputs: within one bf16 step
     of the plain version plus the fp32 limit (1e-5 x max |feature|: the two
@@ -659,11 +673,11 @@ def check_k2_bf16(name, feats, rois, levels, p, fmax, s=2):
     the fp32 kernel)."""
     from detectron_tpu_torch.ops import roi_align as ra
 
-    got = ra.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, p, s)
-    again = ra.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, p, s)
-    want = ra.multilevel_roi_align_plain(feats, rois, levels, STRIDES, p, s)
-    f32 = ra.multilevel_roi_align_cuda([f.float() for f in feats], rois, levels, STRIDES, p,
-                                       s).to(torch.bfloat16)
+    args = (rois, levels, strides, p, s, aligned)
+    got = ra.multilevel_roi_align_cuda(feats, *args)
+    again = ra.multilevel_roi_align_cuda(feats, *args)
+    want = ra.multilevel_roi_align_plain(feats, *args)
+    f32 = ra.multilevel_roi_align_cuda([f.float() for f in feats], *args).to(torch.bfloat16)
     torch.cuda.synchronize()
     if got.dtype != torch.bfloat16:
         raise AssertionError(f"K2 bf16 {name}: output {got.dtype}")
@@ -1316,14 +1330,57 @@ def k3_stress_rois(rng, kind, b, r):
     return rois.astype(np.float32), lv.astype(np.int32)
 
 
-def roi_cell_bytes(feats, rois, levels, p, s):
+# phase 29's stress kinds for aligned=True on one level, where the half-cell
+# shift and the dropped minimum extent change what the samples touch
+ALIGNED_STRESS = ("zero extent", "all sub-cell", "shifted past the border", "whole level")
+
+
+def aligned_stress_rois(rng, kind, b, r, level_hw, stride):
+    """Seeded image-coordinate RoIs [B, R, 4] of one of ALIGNED_STRESS on a
+    level of ``level_hw`` cells at ``stride``: boxes of zero width, height
+    or both (x1 == x2; a third of them on a cell's edge after the shift, so
+    that their samples touch one cell, not two); boxes narrower and shorter
+    than a cell; boxes within half a cell of the top-left border, whose
+    shift puts samples in [-1, 0), half of them mirrored to the bottom-right
+    border; boxes over the whole level, up to half a cell beyond."""
+    h, w = level_hw[0] * stride, level_hw[1] * stride
+    if kind == "whole level":
+        out = rng.uniform(0, stride / 2, size=(b, r, 4))
+        rois = np.stack([-out[..., 0], -out[..., 1], w + out[..., 2], h + out[..., 3]], -1)
+        return rois.astype(np.float32)
+    x0 = rng.uniform(0, w - 4 * stride, size=(b, r))
+    y0 = rng.uniform(0, h - 4 * stride, size=(b, r))
+    if kind == "zero extent":
+        ew, eh = rng.uniform(0, 3 * stride, size=(2, b, r))
+        which = rng.randint(0, 3, size=(b, r))  # 0: zero width, 1: zero height, 2: both
+        ew = np.where(which == 1, ew, 0.0)
+        eh = np.where(which == 0, eh, 0.0)
+        edge = rng.rand(b, r) < 1 / 3  # x * scale - 0.5 a whole number of cells
+        x0 = np.where(edge, (np.floor(x0 / stride) + 0.5) * stride, x0)
+        y0 = np.where(edge, (np.floor(y0 / stride) + 0.5) * stride, y0)
+    elif kind == "all sub-cell":
+        ew, eh = rng.uniform(0.02, 0.98, size=(2, b, r)) * stride
+    elif kind == "shifted past the border":
+        x0, y0 = rng.uniform(0, stride / 2, size=(2, b, r))
+        ew, eh = rng.uniform(0, 3 * stride, size=(2, b, r))
+        rois = np.stack([x0, y0, x0 + ew, y0 + eh], -1)
+        k = r // 2
+        rois[:, k:] = np.stack([w - rois[:, k:, 2], h - rois[:, k:, 3], w - rois[:, k:, 0],
+                                h - rois[:, k:, 1]], -1)
+        return rois.astype(np.float32)
+    else:
+        raise ValueError(kind)
+    return np.stack([x0, y0, x0 + ew, y0 + eh], -1).astype(np.float32)
+
+
+def roi_cell_bytes(feats, rois, levels, p, s, strides=STRIDES, aligned=False):
     """Bytes of each RoI's distinct touched cells (its distinct columns x
     rows, C channels, fp32), summed over the RoIs: what K2 stages and K3's
     atomics add; and the bytes of the distinct cells over all RoIs."""
     from detectron_tpu_torch.ops.roi_align import _sample_geometry
 
     level_hw = [tuple(f.shape[1:3]) for f in feats]
-    _, _, ys, xs = _sample_geometry(level_hw, rois, levels, STRIDES, p, s)
+    _, _, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s, aligned)
     counts = []
     for i0, i1, w0, w1, inb in (xs, ys):
         size = max(max(hw) for hw in level_hw) + 1
@@ -1333,23 +1390,24 @@ def roi_cell_bytes(feats, rois, levels, p, s):
         counts.append(hit[..., :-1].sum(-1))
     c = feats[0].shape[-1]
     return int((counts[0] * counts[1]).sum()) * c * 4, touched_bytes(feats, rois, levels,
-                                                                       STRIDES, p, s)
+                                                                       strides, p, s, aligned)
 
 
-def check_k3(name, g, level_hw, rois, levels):
+def check_k3(name, g, level_hw, rois, levels, strides=STRIDES, aligned=False):
     """K3 twice and its plain version on the same inputs: max |diff| against
     the plain version must be within 1e-5 x max |plain gradient|. Returns
     (max |diff|, max |diff| between the two K3 runs)."""
     from detectron_tpu_torch.ops import roi_align as ra
 
-    got = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
-    again = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
-    want = ra.multilevel_roi_align_bwd_plain(g, level_hw, rois, levels, STRIDES, 2)
+    args = (g, level_hw, rois, levels, strides, 2, aligned)
+    got = ra.multilevel_roi_align_bwd_cuda(*args)
+    again = ra.multilevel_roi_align_bwd_cuda(*args)
+    want = ra.multilevel_roi_align_bwd_plain(*args)
     torch.cuda.synchronize()
     gmax = max(float(w.abs().max()) for w in want)
     diff = max(float((x - w).abs().max()) for x, w in zip(got, want))
     rerun = max(float((x - y).abs().max()) for x, y in zip(got, again))
-    hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    hist = torch.bincount(levels.flatten().long(), minlength=len(level_hw)).tolist()
     log(f"[K3 {name}] levels {hist}, max |diff| {diff:.3e} (limit {1e-5 * gmax:.3e} = 1e-5 x "
         f"max |plain gradient|), between two K3 runs {rerun:.3e}")
     if not (gmax > 0.0 and diff <= 1e-5 * gmax):
@@ -1369,7 +1427,7 @@ def tile_visits(bounds, tile) -> int:
     return int((tiles[..., 0] * tiles[..., 1] * (last >= 0).all(-1)).sum())
 
 
-def check_k3_bf16(name, g, level_hw, rois, levels):
+def check_k3_bf16(name, g, level_hw, rois, levels, strides=STRIDES, aligned=False):
     """K3 with a bf16 ``g`` (bf16 level gradients) twice, its bf16 plain
     version, the fp32 kernel on the upcast ``g`` cast once, and K3's bf16
     pre-pass alone, on the same inputs: within one bf16 step plus the fp32
@@ -1381,13 +1439,13 @@ def check_k3_bf16(name, g, level_hw, rois, levels):
     from detectron_tpu_torch.ops import roi_align as ra
 
     p = g.shape[2]
-    got = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
-    again = ra.multilevel_roi_align_bwd_cuda(g, level_hw, rois, levels, STRIDES, 2)
-    want = ra.multilevel_roi_align_bwd_plain(g, level_hw, rois, levels, STRIDES, 2)
-    f32 = [x.to(torch.bfloat16) for x in ra.multilevel_roi_align_bwd_cuda(
-        g.float(), level_hw, rois, levels, STRIDES, 2)]
-    bounds = ra.roi_tap_bounds_cuda(level_hw, rois, levels, STRIDES, p, 2)
-    want_bounds = ra.roi_tap_cell_bounds(level_hw, rois, levels, STRIDES, p, 2)
+    args = (level_hw, rois, levels, strides, 2, aligned)
+    got = ra.multilevel_roi_align_bwd_cuda(g, *args)
+    again = ra.multilevel_roi_align_bwd_cuda(g, *args)
+    want = ra.multilevel_roi_align_bwd_plain(g, *args)
+    f32 = [x.to(torch.bfloat16) for x in ra.multilevel_roi_align_bwd_cuda(g.float(), *args)]
+    bounds = ra.roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, 2, aligned)
+    want_bounds = ra.roi_tap_cell_bounds(level_hw, rois, levels, strides, p, 2, aligned)
     torch.cuda.synchronize()
     if any(x.dtype != torch.bfloat16 for x in got):
         raise AssertionError(f"K3 bf16 {name}: level gradients {[x.dtype for x in got]}")
@@ -1486,12 +1544,8 @@ def phase_roi_align_bwd(rng, feats):
                                                                      STRIDES, 2))
         plain_ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_plain(
             g, level_hw, rois, levels, STRIDES, 2), iters=5, warmup=1)
-        # what the function must move: g read once, every level's gradient
-        # written once, RoIs and routing read once
         out_bytes = sum(b * h * w * c * 4 for h, w in level_hw)
-        nbytes = g.numel() * 4 + out_bytes + b * r * (16 + 4)
-        # per sample and corner: one weight product, one scaled add
-        b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (4 * 4 * 3 + 1))
+        b_ms, b_by, nbytes = k3_bound(g, level_hw)
         added, distinct = roi_cell_bytes(feats, rois, levels, p, 2)
         log(f"[K3 P={p} R={r}] {ms:.4f} ms (fill {fill_ms:.4f} + kernel {kernel_ms:.4f}), "
             f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB: "
@@ -1525,10 +1579,7 @@ def phase_roi_align_bwd(rng, feats):
         del flat, views
         plain16_ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_plain(
             g16, level_hw, rois, levels, STRIDES, 2), iters=5, warmup=1)
-        # g read once and every level's gradient written once, at 2 bytes a
-        # value, RoIs and routing read once
-        nbytes16 = g16.numel() * 2 + out_bytes // 2 + b * r * (16 + 4)
-        b16_ms, b16_by = bound_ms(nbytes16, ops=b * r * p * p * c * (4 * 4 * 3 + 1))
+        b16_ms, b16_by, nbytes16 = k3_bound(g16, level_hw)
         log(f"[K3 P={p} R={r} bfloat16] {ms16:.4f} ms (pre-pass {prepass_ms:.4f} + kernel "
             f"{kernel16_ms:.4f}), plain {plain16_ms:.3f} ms, bound {b16_ms:.4f} ms ({b16_by}, "
             f"{nbytes16 / 1e6:.1f} MB: level gradients {out_bytes / 2e6:.1f}, g "
@@ -4007,6 +4058,223 @@ def phase_wide_nms(seed=0):
     return launches, held
 
 
+# ----------------------------------------------------------------- phase 29
+
+OP_STRIDE = 8  # roi_align's level: P3 of the canvas
+OP_ROI_CASES = ((7, 512), (14, 128))  # (P, RoIs an image): a training step's
+OP_STRESS_ROIS = 128  # RoIs an image of each ALIGNED_STRESS case
+
+
+def iou_float64(a, b):
+    """pairwise_iou's reference: the same formula in float64, on the host."""
+    def area(x):
+        return (np.clip(x[..., 2] - x[..., 0], 0, None)
+                * np.clip(x[..., 3] - x[..., 1], 0, None))
+
+    wh = np.clip(np.minimum(a[..., 2:], b[..., 2:]) - np.maximum(a[..., :2], b[..., :2]), 0,
+                 None)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / np.maximum(area(a) + area(b) - inter, 1e-8)
+
+
+def phase_op_api(seed=29, c=256):
+    """The op-level API on the card, at full width: pairwise_iou against a
+    float64 host reference; ``nms_wrapper.nms(impl="pallas")`` (K1) against
+    ``impl="jnp"`` on the same CUDA tensors, exactly, one problem of each
+    NMS_CASES and NMS_WIDE_CASES shape; single-level ``roi_align`` (K2
+    forward, K3 backward) on P3 of the canvas (stride 8, C=``c``, batch 2)
+    at OP_ROI_CASES, float32 and bf16, ``aligned`` false and true, forward
+    and gradient against their plain versions at phase 4's and 7's limits.
+    The launches of those calls are counted (the counts set to 0 just
+    before, read just after). Then, with ``aligned=True``, K2 and K3 at
+    the same inputs and at ALIGNED_STRESS through check_k2, check_k2_bf16,
+    check_k3 and check_k3_bf16 (K3 bf16's pre-pass against
+    roi_tap_cell_bounds), zero-extent boxes folded onto one or two cells,
+    both values of ``aligned`` timed, and the call-time refusals of what
+    the kernels do not take. Returns ({name: launches}, K2 cases, K3
+    cases)."""
+    from detectron_tpu_torch.ops import boxes as box_ops
+    from detectron_tpu_torch.ops import nms_wrapper
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed)
+    tag = "[op api]"
+
+    # pairwise_iou, [2, 1000] pairs: clustered boxes against shuffled ones,
+    # exact matches and disjoint pairs among them
+    a = nms_problems(rng, 2, 1000, CANVAS, 0)[0].astype(np.float32)
+    b = a[:, rng.permutation(1000)]
+    b[:, :100] = a[:, :100]
+    b[:, 100:200] += 5000.0
+    iou = box_ops.pairwise_iou(torch.tensor(a, device=dev), torch.tensor(b, device=dev))
+    diff = float(np.abs(iou.cpu().double().numpy() - iou_float64(a.astype(np.float64),
+                                                                b.astype(np.float64))).max())
+    # IoU <= 1 after a few float32 roundings (2^-24 each, relative)
+    log(f"{tag} pairwise_iou [2, 1000] on the card: max |diff| {diff:.3e} from float64 "
+        f"(limit 1e-6)")
+    if iou.shape != (2, 1000) or not diff <= 1e-6:
+        raise AssertionError(f"pairwise_iou: shape {tuple(iou.shape)}, max |diff| {diff}")
+
+    problems = []
+    for case in NMS_CASES + NMS_WIDE_CASES:
+        bx, sc, va, _ = nms_problems(rng, 1, case["n"], CANVAS, case["n_invalid"])
+        problems.append((case["name"], *(torch.tensor(x[0], device=dev) for x in (bx, sc, va)),
+                         case["thresh"], case["max_out"]))
+    h, w = CANVAS[0] // OP_STRIDE, CANVAS[1] // OP_STRIDE
+    feat = torch.tensor(rng.randn(2, h, w, c).astype(np.float32), device=dev)
+    rois = {p: torch.tensor(roi_cases(rng, 2, r, CANVAS), device=dev) for p, r in OP_ROI_CASES}
+    g = {p: torch.tensor(rng.randn(2, r, p, p, c).astype(np.float32), device=dev)
+         for p, r in OP_ROI_CASES}
+    combos = [(dtype, p, aligned) for dtype in (torch.float32, torch.bfloat16)
+              for p, _ in OP_ROI_CASES for aligned in (False, True)]
+
+    # the path: every call through the public functions, launches counted
+    torch.cuda.synchronize()
+    reset_counts()
+    kept = [nms_wrapper.nms(boxes, scores, thresh, max_out, valid=valid, impl="pallas")
+            for _, boxes, scores, valid, thresh, max_out in problems]
+    pooled = {}
+    for dtype, p, aligned in combos:
+        leaf = feat.to(dtype, copy=True).requires_grad_(True)
+        out = ra.roi_align(leaf, rois[p], OP_STRIDE, p, 2, aligned)
+        (grad,) = torch.autograd.grad(out, leaf, grad_outputs=g[p].to(dtype))
+        pooled[(dtype, p, aligned)] = (out.detach(), grad)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    reset_counts()
+    want_counts = {"greedy_nms": len(problems), "multilevel_roi_align": len(combos),
+                   "multilevel_roi_align_bwd": len(combos)}
+    log(f"{tag} launches {counts} (want {want_counts})")
+    if counts != want_counts:
+        raise AssertionError(f"op api: launches {counts}, want {want_counts}")
+
+    for (name, boxes, scores, valid, thresh, max_out), (idx, ok) in zip(problems, kept):
+        want_idx, want_ok = nms_wrapper.nms(boxes, scores, thresh, max_out, valid=valid,
+                                            impl="jnp")
+        torch.cuda.synchronize()
+        same = torch.equal(idx, want_idx) and torch.equal(ok, want_ok)
+        log(f"{tag} nms {name}: N={boxes.shape[0]} max_out={max_out}, {int(ok.sum())} kept; "
+            f"impl='pallas' equal to impl='jnp': {same}")
+        if not same or idx.dtype != torch.int32 or ok.shape != (max_out,):
+            raise AssertionError(f"op api nms {name}: impl='pallas' differs from impl='jnp'")
+
+    level_hw = [(h, w)]
+    strides = (OP_STRIDE,)
+    k2_cases, k3_cases = [], []
+    for dtype, p, aligned in combos:
+        label = f"roi_align {str(dtype)[6:]} P={p} R={rois[p].shape[1]} aligned={aligned}"
+        out, grad = pooled[(dtype, p, aligned)]
+        f = feat.to(dtype)
+        levels = torch.zeros(rois[p].shape[:2], dtype=torch.int32, device=dev)
+        want = ra.multilevel_roi_align_plain([f], rois[p], levels, strides, p, 2, aligned)
+        gd = g[p].to(dtype)
+        (want_grad,) = ra.multilevel_roi_align_bwd_plain(gd, level_hw, rois[p], levels, strides,
+                                                         2, aligned)
+        torch.cuda.synchronize()
+        fmax = float(f.float().abs().max())
+        floor = 1e-5 * fmax
+        gfloor = 1e-5 * float(want_grad.float().abs().max())
+        if dtype == torch.bfloat16:
+            diff, ok = within_bf16(out, want, floor)
+            gdiff, gok = within_bf16(grad, want_grad, gfloor)
+        else:
+            diff = float((out - want).abs().max())
+            gdiff = float((grad - want_grad).abs().max())
+            ok, gok = diff <= floor, gdiff <= gfloor
+        log(f"{tag} {label}: forward max |diff| {diff:.3e} from its plain version (limit "
+            f"{'one bf16 step + ' if dtype == torch.bfloat16 else ''}{floor:.3e}), gradient "
+            f"{gdiff:.3e} ({gfloor:.3e})")
+        if not (ok and gok and out.dtype == dtype and grad.dtype == dtype):
+            raise AssertionError(f"op api {label}: beyond its limit")
+        if aligned:
+            name = f"op api aligned, P={p} R={rois[p].shape[1]}"
+            if dtype == torch.float32:
+                check_k2(name, [f], rois[p], levels, p, fmax, strides=strides, aligned=True)
+                check_k3(name, gd, level_hw, rois[p], levels, strides=strides, aligned=True)
+            else:
+                check_k2_bf16(name, [f], rois[p], levels, p, fmax, strides=strides,
+                              aligned=True)
+                check_k3_bf16(name, gd, level_hw, rois[p], levels, strides=strides,
+                              aligned=True)
+        fwd_ms = cuda_ms(lambda: ra.multilevel_roi_align_cuda([f], rois[p], levels, strides, p,
+                                                              2, aligned))
+        fwd_plain = cuda_ms(lambda: ra.multilevel_roi_align_plain(
+            [f], rois[p], levels, strides, p, 2, aligned), iters=5, warmup=1)
+        b_ms, b_by, _ = k2_bound([f], rois[p], levels, p, strides=strides, aligned=aligned)
+        bwd_ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_cuda(gd, level_hw, rois[p], levels,
+                                                                  strides, 2, aligned))
+        bwd_plain = cuda_ms(lambda: ra.multilevel_roi_align_bwd_plain(
+            gd, level_hw, rois[p], levels, strides, 2, aligned), iters=5, warmup=1)
+        k3_ms, k3_by, _ = k3_bound(gd, level_hw)
+        log(f"{tag} {label}: K2 {fwd_ms:.4f} ms (plain {fwd_plain:.3f}, bound {b_ms:.4f}, "
+            f"{b_by}), K3 {bwd_ms:.4f} ms (plain {bwd_plain:.3f}, bound {k3_ms:.4f}, {k3_by})")
+        case = dict(case=f"P{p} R{rois[p].shape[1]} one level aligned={aligned}", path="op_api",
+                    dtype=str(dtype)[6:])
+        k2_cases.append(dict(case, ms=fwd_ms, plain_ms=fwd_plain, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=diff))
+        k3_cases.append(dict(case, ms=bwd_ms, plain_ms=bwd_plain, bound_ms=k3_ms,
+                             bound_by=k3_by, max_abs_err=gdiff))
+
+    stress = np.random.RandomState(seed + 1)
+    f16 = feat.bfloat16()
+    for kind in ALIGNED_STRESS:
+        for p in (7, 14):
+            r = OP_STRESS_ROIS
+            rs = torch.tensor(aligned_stress_rois(stress, kind, 2, r, (h, w), OP_STRIDE),
+                              device=dev)
+            levels = torch.zeros((2, r), dtype=torch.int32, device=dev)
+            gs = torch.tensor(stress.randn(2, r, p, p, c).astype(np.float32), device=dev)
+            name = f"op api aligned stress: {kind}, P={p} R={r}"
+            fmax = float(feat.abs().max())
+            check_k2(name, [feat], rs, levels, p, fmax, strides=strides, aligned=True)
+            check_k2_bf16(name, [f16], rs, levels, p, float(f16.float().abs().max()),
+                          strides=strides, aligned=True)
+            check_k3(name, gs, level_hw, rs, levels, strides=strides, aligned=True)
+            check_k3_bf16(name, gs.bfloat16(), level_hw, rs, levels, strides=strides,
+                          aligned=True)
+            if kind == "zero extent":
+                # the pre-pass's cell range of each zero-extent axis: one or two cells
+                bounds = ra.roi_tap_bounds_cuda(level_hw, rs, levels, strides, p, 2, True)
+                for axis, (lo, hi) in enumerate(((0, 1), (2, 3))):
+                    flat = rs[..., 2 + axis] == rs[..., axis]
+                    span = (bounds[..., hi] - bounds[..., lo])[flat]
+                    log(f"{tag} zero extent along {'xy'[axis]}: {int(flat.sum())} RoIs, cells "
+                        f"{sorted(set((span + 1).tolist()))}")
+                    if not bool(((span >= 0) & (span <= 1)).all()):
+                        raise AssertionError(f"op api: a zero-extent RoI folds onto more than "
+                                             f"two cells along {'xy'[axis]}")
+
+    check_refusals()
+    reset_counts()
+    return counts, k2_cases, k3_cases
+
+
+def check_refusals():
+    """Single-level roi_align on the card refuses, at the call and naming
+    the limit, what K2 and K3 do not take: float32 C=6, bf16 C=12, and
+    P x S = 65 samples an axis."""
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    dev = torch.device(DEVICE)
+    small = torch.zeros((1, 8, 8, 6), device=dev)
+    box = torch.tensor([[[0.0, 0.0, 32.0, 32.0]]], device=dev)
+    refusals = ((lambda: ra.roi_align(small, box, 8), "multiple of 4"),
+                (lambda: ra.roi_align(small[..., :4].repeat(1, 1, 1, 3).bfloat16(), box, 8),
+                 "multiple of 8"),
+                (lambda: ra.roi_align(small[..., :4].contiguous(), box, 8, output_size=13,
+                                      sampling_ratio=5), "1..64"))
+    for call, limit in refusals:
+        try:
+            call()
+        except ValueError as err:
+            if limit not in str(err):
+                raise AssertionError(f"op api: the refusal {err} does not name {limit!r}")
+            log(f"[op api] refused at the call: {err}")
+        else:
+            raise AssertionError(f"op api: roi_align took what the kernels refuse ({limit})")
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -4066,7 +4334,7 @@ def retinanet_phases(k1) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", action="store_true",
-                        help="run phases 1-4 and 7 only (the kernels against their plain "
+                        help="run phases 1-4, 7 and 29 only (the kernels against their plain "
                              "versions, and their times), print their cases and stop; no "
                              "result line")
     args = parser.parse_args(argv)
@@ -4089,8 +4357,11 @@ def main(argv=None) -> int:
     lap("phases 3-4")
     if args.kernels:
         k3 = phase_roi_align_bwd(rng, feats)
-        print(json.dumps({"kernel_cases": {"greedy_nms": k1, "multilevel_roi_align": k2,
-                                           "multilevel_roi_align_bwd": k3}}), flush=True)
+        del feats
+        _, op_k2, op_k3 = phase_op_api()
+        print(json.dumps({"kernel_cases": {"greedy_nms": k1, "multilevel_roi_align": k2 + op_k2,
+                                           "multilevel_roi_align_bwd": k3 + op_k3}}),
+              flush=True)
         print(card, flush=True)
         return 0
     predict_launches, _, predict32 = phase_slice()
@@ -4134,6 +4405,10 @@ def main(argv=None) -> int:
     lap("phase 27")
     wide_launches, wide_held = phase_wide_nms()
     lap("phase 28")
+    op_launches, op_k2, op_k3 = phase_op_api()
+    k2 += op_k2
+    k3 += op_k3
+    lap("phase 29")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -4147,7 +4422,8 @@ def main(argv=None) -> int:
                 **{path: counts[name] for path, counts in gn_launches.items()},
                 **{path: counts[name] for path, counts in remat_launches.items()},
                 **{path: counts[name] for path, counts in dp_launches.items()},
-                **{path: counts[name] for path, counts in wide_launches.items()}}
+                **{path: counts[name] for path, counts in wide_launches.items()},
+                "op_api": op_launches[name]}
 
     kernels = [
         kernel_entry("greedy_nms", k1, launches("greedy_nms"), 0.0),

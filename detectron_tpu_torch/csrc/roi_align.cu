@@ -4,10 +4,13 @@
 // K2, roi_align_forward, replaces the Pallas TPU kernel
 // detectron_tpu/ops/roi_align_pallas.py::multilevel_roi_align_pallas
 // (_make_kernel, _interp_matrix): per-level NHWC features [B, Hl, Wl, C]
-// and RoIs [B, R, 4] (image coordinates) give [B, R, P, P, C]. aligned=False,
-// RoI extent at least one cell, S x S bilinear samples per bin averaged,
-// and the Caffe2 border rule: a sample outside [-1, size] contributes 0,
-// otherwise it is clamped to [0, size - 1]. The level of every RoI is
+// and RoIs [B, R, 4] (image coordinates) give [B, R, P, P, C]. S x S bilinear
+// samples per bin averaged, and the Caffe2 border rule: a sample outside
+// [-1, size] contributes 0, otherwise it is clamped to [0, size - 1]. With
+// aligned=False (every model's), a RoI's extent is at least one cell; with
+// aligned=True it moves by half a cell and its extent may be 0 (roi_frame).
+// aligned is a template parameter of every kernel, so that the aligned=False
+// instances are the same code as before it existed. The level of every RoI is
 // computed by the caller (the port's assign_fpn_levels), so this kernel
 // and its plain PyTorch version route identically by construction.
 //
@@ -249,20 +252,33 @@ struct RoiFrame {
   float x1, y1, bin_w, bin_h;
 };
 
+// kAligned is RoIAlign's aligned: the corners x * scale - 0.5 and an extent
+// of at least 0 cells, else x * scale and at least 1 cell.
+template <bool kAligned>
 __device__ __forceinline__ RoiFrame roi_frame(const float4 roi, float stride, int pool) {
   // Sample coordinates reach hundreds of cells, where one rounding step is
   // ~3e-5 of a cell; a fused multiply-add here would move the bilinear
   // weights by that much against the plain version. So every step is
   // rounded as the JAX and PyTorch versions round it (_rn intrinsics are
-  // never contracted).
+  // never contracted): the extent is (x2 * scale - 0.5) - x1 with x1 already
+  // shifted, not (x2 - x1) * scale.
   const float scale = __fdiv_rn(1.0f, stride);
   RoiFrame f;
   f.x1 = __fmul_rn(roi.x, scale);
   f.y1 = __fmul_rn(roi.y, scale);
-  f.bin_w = __fdiv_rn(fmaxf(__fsub_rn(__fmul_rn(roi.z, scale), f.x1), 1.0f),
-                      static_cast<float>(pool));
-  f.bin_h = __fdiv_rn(fmaxf(__fsub_rn(__fmul_rn(roi.w, scale), f.y1), 1.0f),
-                      static_cast<float>(pool));
+  if constexpr (kAligned) {
+    f.x1 = __fsub_rn(f.x1, 0.5f);
+    f.y1 = __fsub_rn(f.y1, 0.5f);
+    f.bin_w = __fdiv_rn(fmaxf(__fsub_rn(__fsub_rn(__fmul_rn(roi.z, scale), 0.5f), f.x1), 0.0f),
+                        static_cast<float>(pool));
+    f.bin_h = __fdiv_rn(fmaxf(__fsub_rn(__fsub_rn(__fmul_rn(roi.w, scale), 0.5f), f.y1), 0.0f),
+                        static_cast<float>(pool));
+  } else {
+    f.bin_w = __fdiv_rn(fmaxf(__fsub_rn(__fmul_rn(roi.z, scale), f.x1), 1.0f),
+                        static_cast<float>(pool));
+    f.bin_h = __fdiv_rn(fmaxf(__fsub_rn(__fmul_rn(roi.w, scale), f.y1), 1.0f),
+                        static_cast<float>(pool));
+  }
   return f;
 }
 
@@ -376,10 +392,13 @@ __device__ void fold_axis(RoiTable& tab, int a, int samples, int ratio, int lane
 
 // The set-up both kernels share, run by warp `a` of the block: the RoI's
 // pool * ratio samples along axis a (0: x over `size` = the level's width,
-// 1: y over its height), folded onto their distinct cells.
+// 1: y over its height), folded onto their distinct cells. A zero-extent
+// RoI (kAligned) puts every sample on one coordinate: the fold merges their
+// taps onto one or two cells.
+template <bool kAligned>
 __device__ void roi_axis(RoiTable& tab, const float4 roi, float stride, int size, int pool,
                          int ratio, int a, int lane) {
-  const RoiFrame f = roi_frame(roi, stride, pool);
+  const RoiFrame f = roi_frame<kAligned>(roi, stride, pool);
   const int samples = pool * ratio;
   for (int k = lane; k < samples; k += 32) {
     bilinear(sample_coord(a ? f.y1 : f.x1, a ? f.bin_h : f.bin_w, k, ratio), size,
@@ -574,8 +593,9 @@ int fwd_smem_bytes(int pool, int ratio, int slice, int elem) {
 
 // One block per (RoI, group of `per_block` consecutive channel slices).
 // T is the features' and the output's element type; kRatio is S where the
-// instance is specialised for it, else 0 (S at run time).
-template <typename T, int kSlice, int kRatio>
+// instance is specialised for it, else 0 (S at run time); kAligned is
+// roi_frame's.
+template <typename T, int kSlice, int kRatio, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
     roi_align_forward_kernel(Levels<const T> lv, const float4* __restrict__ rois,
                              const int* __restrict__ levels, T* __restrict__ out,
@@ -606,7 +626,8 @@ __global__ void __launch_bounds__(kThreads)
   //    cells, then their taps by output bin
   if (warp < 2) {
     FwdSetup& su = *reinterpret_cast<FwdSetup*>(fwd_smem);
-    roi_axis(su.tab, rois[n], lv.stride[l], warp ? height : width, pool, ratio, warp, lane);
+    roi_axis<kAligned>(su.tab, rois[n], lv.stride[l], warp ? height : width, pool, ratio,
+                       warp, lane);
     bin_taps(su, ft, warp, pool, ratio, lane);
   }
   __syncthreads();
@@ -839,7 +860,7 @@ int bf16_smem_bytes(int pool, int ratio, int slice) {
 // contract and BinTaps); no atomics, so the result does not depend on the
 // schedule, and it is the fp32 kernel's output on the upcast features,
 // rounded once.
-template <int kSlice, int kRatio>
+template <int kSlice, int kRatio, bool kAligned>
 __global__ void __launch_bounds__(kBf16Threads, kBf16BlocksPerSm)
     roi_align_forward_bf16_kernel(Levels<const __nv_bfloat16> lv, const float4* __restrict__ rois,
                                   const int* __restrict__ levels,
@@ -886,8 +907,8 @@ __global__ void __launch_bounds__(kBf16Threads, kBf16BlocksPerSm)
       const int n = unit / groups;
       mbar_wait(&sh.tab_empty[k & 1], ((k >> 1) & 1) ^ 1);
       const int l = levels[n];
-      roi_axis(sh.setup.tab, rois[n], lv.stride[l], a ? lv.h[l] : lv.w[l], pool, ratio, a,
-               lane);
+      roi_axis<kAligned>(sh.setup.tab, rois[n], lv.stride[l], a ? lv.h[l] : lv.w[l], pool,
+                         ratio, a, lane);
       bin_taps(sh.setup, sh.tab[k & 1], a, pool, ratio, lane);
       __syncwarp();
       mbar_arrive(&sh.tab_full[k & 1]);
@@ -1015,7 +1036,7 @@ int bwd_smem_bytes(int pool, int ratio, int slice) {
 }
 
 // The fp32 route: the upstream gradient and the level gradients are fp32.
-template <int kSlice>
+template <int kSlice, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
     roi_align_backward_kernel(Levels<float> lv, const float4* __restrict__ rois,
                               const int* __restrict__ levels,
@@ -1042,7 +1063,8 @@ __global__ void __launch_bounds__(kThreads)
   float4* gs = reinterpret_cast<float4*>(bwd_smem);  // [P*P][kV4]
   float4* tx = gs + pool * pool * kV4;               // [P][span][kV4]
   if (warp < 2) {
-    roi_axis(tab, rois[n], lv.stride[l], warp ? height : width, pool, ratio, warp, lane);
+    roi_axis<kAligned>(tab, rois[n], lv.stride[l], warp ? height : width, pool, ratio, warp,
+                       lane);
   } else {
     const float count = static_cast<float>(ratio * ratio);
     const float* src = grad_out + static_cast<size_t>(n) * pool * pool * channels + c0;
@@ -1110,7 +1132,10 @@ constexpr int kTileSmemLimit = 100 * 1024;  // dynamic bytes a narrow block: two
 
 // The pre-pass, one warp a RoI: the set-up of roi_axis along x, then y, and
 // the first and last folded cell of each axis, (x first, x last, y first,
-// y last), where an axis with no nonzero tap gives (0, -1).
+// y last), where an axis with no nonzero tap gives (0, -1). The range comes
+// from the fold of the samples, so that with kAligned it holds the shifted
+// ones (a sample in [-1, 0) still touches cell 0).
+template <bool kAligned>
 __global__ void __launch_bounds__(32 * kBoundsWarps)
     roi_tap_bounds_kernel(Levels<__nv_bfloat16> lv, const float4* __restrict__ rois,
                           const int* __restrict__ levels, int4* __restrict__ bounds,
@@ -1123,7 +1148,8 @@ __global__ void __launch_bounds__(32 * kBoundsWarps)
   const int l = levels[n];
   int first[2], last[2];
   for (int a = 0; a < 2; ++a) {
-    roi_axis(tab, rois[n], lv.stride[l], a ? lv.h[l] : lv.w[l], pool, ratio, a, lane);
+    roi_axis<kAligned>(tab, rois[n], lv.stride[l], a ? lv.h[l] : lv.w[l], pool, ratio, a,
+                       lane);
     const AxisTaps& ax = tab.axis[a];
     first[a] = ax.count ? ax.cell[0] : 0;
     last[a] = ax.count ? ax.cell[ax.count - 1] : -1;
@@ -1282,7 +1308,7 @@ __device__ __forceinline__ void add4(float4& acc, const float4 v) {
 // channels), of kBlock threads: the tile's bf16 gradient, summed over the
 // RoIs of its image routed to its level whose bounds meet it, in ascending
 // order.
-template <int kTileN, int kSlice, int kBlock, int kMinBlocks>
+template <int kTileN, int kSlice, int kBlock, int kMinBlocks, bool kAligned>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     roi_align_backward_tiles_kernel(Levels<__nv_bfloat16> lv, TileGrid grid,
                                     const float4* __restrict__ rois,
@@ -1390,7 +1416,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
           const int r = next + s * kBlock + t;
           at += __popc(m[s] & ((1u << lane) - 1));
           list[at] = r;
-          frames[at] = roi_frame(rois[image + r], stride, pool);
+          frames[at] = roi_frame<kAligned>(rois[image + r], stride, pool);
         }
       }
       next += kSweep * kBlock;
@@ -1551,7 +1577,7 @@ int fwd_per_block(int num_rois, int slices, int sms) {
   return per_block;
 }
 
-template <typename T, int kSlice, int kRatio>
+template <typename T, int kSlice, int kRatio, bool kAligned>
 cudaError_t launch_fwd(const Levels<const T>& lv, const void* rois, const void* levels,
                        void* out, int num_rois, int rois_per_image, int channels, int pool,
                        int ratio, cudaStream_t stream) {
@@ -1560,7 +1586,7 @@ cudaError_t launch_fwd(const Levels<const T>& lv, const void* rois, const void* 
   static int sms[kMaxDevices] = {};
   constexpr int kElem = static_cast<int>(sizeof(T));
   cudaError_t err =
-      allow_smem(roi_align_forward_kernel<T, kSlice, kRatio>, kFwdSmemLimit, &mu, done);
+      allow_smem(roi_align_forward_kernel<T, kSlice, kRatio, kAligned>, kFwdSmemLimit, &mu, done);
   if (err != cudaSuccess) return err;
   int dev = 0;
   err = cudaGetDevice(&dev);
@@ -1571,7 +1597,7 @@ cudaError_t launch_fwd(const Levels<const T>& lv, const void* rois, const void* 
   }
   const int slices = channels / kSlice;
   const int per_block = fwd_per_block(num_rois, slices, sms[dev]);
-  roi_align_forward_kernel<T, kSlice, kRatio>
+  roi_align_forward_kernel<T, kSlice, kRatio, kAligned>
       <<<num_rois * (slices / per_block), kThreads, fwd_smem_bytes(pool, ratio, kSlice, kElem),
          stream>>>(lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
                    static_cast<T*>(out), rois_per_image, channels, pool, ratio, per_block,
@@ -1582,20 +1608,22 @@ cudaError_t launch_fwd(const Levels<const T>& lv, const void* rois, const void* 
 
 // K2 at slice width kSlice, with the instance specialised for S = 2 (the
 // model's sampling ratio) where it applies.
-template <typename T, int kSlice>
+template <typename T, int kSlice, bool kAligned>
 cudaError_t launch_fwd_slice(const Levels<const T>& lv, const void* rois, const void* levels,
                              void* out, int num_rois, int rois_per_image, int channels,
                              int pool, int ratio, cudaStream_t stream) {
-  return ratio == 2 ? launch_fwd<T, kSlice, 2>(lv, rois, levels, out, num_rois, rois_per_image,
-                                               channels, pool, ratio, stream)
-                    : launch_fwd<T, kSlice, 0>(lv, rois, levels, out, num_rois, rois_per_image,
-                                               channels, pool, ratio, stream);
+  return ratio == 2 ? launch_fwd<T, kSlice, 2, kAligned>(lv, rois, levels, out, num_rois,
+                                                         rois_per_image, channels, pool, ratio,
+                                                         stream)
+                    : launch_fwd<T, kSlice, 0, kAligned>(lv, rois, levels, out, num_rois,
+                                                         rois_per_image, channels, pool, ratio,
+                                                         stream);
 }
 
 // K2 for features of type T at the first slice width of kWidths (64, 32,
 // then 4 for fp32 or 8 for bf16: whole 16-byte copies) that divides C and
 // fits kFwdSmemLimit.
-template <typename T, int kNarrow>
+template <typename T, int kNarrow, bool kAligned>
 int forward_entry(const void* const* feats, const int* heights, const int* widths,
                   const float* strides, int num_levels, const void* rois, const void* levels,
                   void* out, int num_rois, int rois_per_image, int channels, int pool,
@@ -1610,13 +1638,13 @@ int forward_entry(const void* const* feats, const int* heights, const int* width
   };
   switch (pick_slice({64, 32, kNarrow}, channels, pool, ratio, kFwdSmemLimit, bytes)) {
     case 64:
-      return static_cast<int>(launch_fwd_slice<T, 64>(lv, rois, levels, out, num_rois,
-                                                      rois_per_image, channels, pool, ratio, s));
+      return static_cast<int>(launch_fwd_slice<T, 64, kAligned>(
+          lv, rois, levels, out, num_rois, rois_per_image, channels, pool, ratio, s));
     case 32:
-      return static_cast<int>(launch_fwd_slice<T, 32>(lv, rois, levels, out, num_rois,
-                                                      rois_per_image, channels, pool, ratio, s));
+      return static_cast<int>(launch_fwd_slice<T, 32, kAligned>(
+          lv, rois, levels, out, num_rois, rois_per_image, channels, pool, ratio, s));
     case kNarrow:
-      return static_cast<int>(launch_fwd_slice<T, kNarrow>(
+      return static_cast<int>(launch_fwd_slice<T, kNarrow, kAligned>(
           lv, rois, levels, out, num_rois, rois_per_image, channels, pool, ratio, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1636,14 +1664,14 @@ int bf16_unit_slices(int num_rois, int slices, int blocks) {
   return per;
 }
 
-template <int kSlice, int kRatio>
+template <int kSlice, int kRatio, bool kAligned>
 cudaError_t launch_fwd_bf16(const Levels<const __nv_bfloat16>& lv, const void* rois,
                             const void* levels, void* out, int num_rois, int rois_per_image,
                             int channels, int pool, int ratio, cudaStream_t stream) {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
   static int sms[kMaxDevices] = {};
-  const auto kernel = roi_align_forward_bf16_kernel<kSlice, kRatio>;
+  const auto kernel = roi_align_forward_bf16_kernel<kSlice, kRatio, kAligned>;
   cudaError_t err = allow_smem(kernel, kBf16SmemLimit, &mu, done);
   if (err != cudaSuccess) return err;
   int dev = 0;
@@ -1676,40 +1704,44 @@ int bf16_slice(int channels, int pool, int ratio) {
   return pick_slice({64, 32, 8}, channels, pool, ratio, kBf16SmemLimit, bf16_smem_bytes);
 }
 
-template <int kSlice>
+template <int kSlice, bool kAligned>
 cudaError_t launch_fwd_bf16_slice(const Levels<const __nv_bfloat16>& lv, const void* rois,
                                   const void* levels, void* out, int num_rois,
                                   int rois_per_image, int channels, int pool, int ratio,
                                   cudaStream_t stream) {
-  return ratio == 2 ? launch_fwd_bf16<kSlice, 2>(lv, rois, levels, out, num_rois,
-                                                 rois_per_image, channels, pool, ratio, stream)
-                    : launch_fwd_bf16<kSlice, 0>(lv, rois, levels, out, num_rois,
-                                                 rois_per_image, channels, pool, ratio, stream);
+  return ratio == 2 ? launch_fwd_bf16<kSlice, 2, kAligned>(lv, rois, levels, out, num_rois,
+                                                           rois_per_image, channels, pool,
+                                                           ratio, stream)
+                    : launch_fwd_bf16<kSlice, 0, kAligned>(lv, rois, levels, out, num_rois,
+                                                           rois_per_image, channels, pool,
+                                                           ratio, stream);
 }
 
-template <int kSlice>
+template <int kSlice, bool kAligned>
 cudaError_t launch_bwd(const Levels<float>& lv, const void* rois, const void* levels,
                        const void* grad_out, int num_rois, int rois_per_image, int channels,
                        int pool, int ratio, cudaStream_t stream) {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
-  cudaError_t err = allow_smem(roi_align_backward_kernel<kSlice>, kBwdSmemLimit, &mu, done);
+  cudaError_t err =
+      allow_smem(roi_align_backward_kernel<kSlice, kAligned>, kBwdSmemLimit, &mu, done);
   if (err != cudaSuccess) return err;
-  roi_align_backward_kernel<kSlice>
+  roi_align_backward_kernel<kSlice, kAligned>
       <<<num_rois * (channels / kSlice), kThreads, bwd_smem_bytes(pool, ratio, kSlice),
          stream>>>(lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
                    static_cast<const float*>(grad_out), rois_per_image, channels, pool, ratio);
   return cudaGetLastError();
 }
 
-template <int kTileN, int kSlice, int kBlock, int kMinBlocks>
+template <int kTileN, int kSlice, int kBlock, int kMinBlocks, bool kAligned>
 cudaError_t launch_tiles(const Levels<__nv_bfloat16>& lv, int num_levels, const void* rois,
                          const void* levels, const void* bounds, const void* grad_out,
                          int num_images, int rois_per_image, int channels, int pool, int ratio,
                          int smem_limit, cudaStream_t stream) {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
-  const auto kernel = roi_align_backward_tiles_kernel<kTileN, kSlice, kBlock, kMinBlocks>;
+  const auto kernel =
+      roi_align_backward_tiles_kernel<kTileN, kSlice, kBlock, kMinBlocks, kAligned>;
   cudaError_t err = allow_smem(kernel, smem_limit, &mu, done);
   if (err != cudaSuccess) return err;
   TileGrid grid = {};
@@ -1734,7 +1766,121 @@ cudaError_t launch_tiles(const Levels<__nv_bfloat16>& lv, int num_levels, const 
   return cudaGetLastError();
 }
 
+// The bodies of the C entries below, one instance for each value of
+// aligned.
+template <bool kAligned>
+int forward_bf16_entry(const void* const* feats, const int* heights, const int* widths,
+                       const float* strides, int num_levels, const void* rois,
+                       const void* levels, void* out, int num_rois, int rois_per_image,
+                       int channels, int pool, int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio) || channels % 8 || rois_per_image <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_rois <= 0 || channels <= 0) return 0;
+  Levels<const __nv_bfloat16> lv = {};
+  fill_levels(&lv, feats, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bf16_slice(channels, pool, ratio)) {
+    case 64:
+      return static_cast<int>(launch_fwd_bf16_slice<64, kAligned>(
+          lv, rois, levels, out, num_rois, rois_per_image, channels, pool, ratio, s));
+    case 32:
+      return static_cast<int>(launch_fwd_bf16_slice<32, kAligned>(
+          lv, rois, levels, out, num_rois, rois_per_image, channels, pool, ratio, s));
+    case 8:
+      return static_cast<int>(launch_fwd_bf16_slice<8, kAligned>(
+          lv, rois, levels, out, num_rois, rois_per_image, channels, pool, ratio, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kAligned>
+int backward_entry(void* const* grads, const int* heights, const int* widths,
+                   const float* strides, int num_levels, const void* rois, const void* levels,
+                   const void* grad_out, int num_rois, int rois_per_image, int channels,
+                   int pool, int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois <= 0 || channels <= 0) return 0;
+  Levels<float> lv = {};
+  fill_levels(&lv, grads, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (pick_slice({32, 16, 8, 4}, channels, pool, ratio, kBwdSmemLimit, bwd_smem_bytes)) {
+    case 32:
+      return static_cast<int>(launch_bwd<32, kAligned>(lv, rois, levels, grad_out, num_rois,
+                                                       rois_per_image, channels, pool, ratio, s));
+    case 16:
+      return static_cast<int>(launch_bwd<16, kAligned>(lv, rois, levels, grad_out, num_rois,
+                                                       rois_per_image, channels, pool, ratio, s));
+    case 8:
+      return static_cast<int>(launch_bwd<8, kAligned>(lv, rois, levels, grad_out, num_rois,
+                                                      rois_per_image, channels, pool, ratio, s));
+    case 4:
+      return static_cast<int>(launch_bwd<4, kAligned>(lv, rois, levels, grad_out, num_rois,
+                                                      rois_per_image, channels, pool, ratio, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool kAligned>
+int tap_bounds_entry(const int* heights, const int* widths, const float* strides,
+                     int num_levels, const void* rois, const void* levels, void* bounds,
+                     int num_rois, int pool, int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois <= 0) return 0;
+  Levels<__nv_bfloat16> lv = {};
+  void* const none[kMaxLevels] = {};
+  fill_levels(&lv, none, heights, widths, strides, num_levels);
+  roi_tap_bounds_kernel<kAligned>
+      <<<(num_rois + kBoundsWarps - 1) / kBoundsWarps, 32 * kBoundsWarps, 0,
+         static_cast<cudaStream_t>(stream)>>>(lv, static_cast<const float4*>(rois),
+                                              static_cast<const int*>(levels),
+                                              static_cast<int4*>(bounds), num_rois, pool, ratio);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kAligned>
+int tiles_entry(void* const* grads, const int* heights, const int* widths,
+                const float* strides, int num_levels, const void* rois, const void* levels,
+                const void* bounds, const void* grad_out, int num_images, int rois_per_image,
+                int channels, int pool, int ratio, void* stream) {
+  if (bad_args(num_levels, pool, ratio) || channels % 8 || rois_per_image < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_images <= 0 || channels <= 0) return 0;
+  Levels<__nv_bfloat16> lv = {};
+  fill_levels(&lv, grads, heights, widths, strides, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (channels % kWideSlice == 0 &&
+      tile_smem_bytes(kWideTile, pool, kWideSlice) <= kWideSmemLimit) {
+    return static_cast<int>(launch_tiles<kWideTile, kWideSlice, 512, 1, kAligned>(
+        lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+        pool, ratio, kWideSmemLimit, s));
+  }
+  const auto bytes = [](int p, int /*r*/, int slice) { return tile_smem_bytes(kTile, p, slice); };
+  switch (pick_slice({32, 16, 8}, channels, pool, ratio, kTileSmemLimit, bytes)) {
+    case 32:
+      return static_cast<int>(launch_tiles<kTile, 32, kThreads, 2, kAligned>(
+          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+          pool, ratio, kTileSmemLimit, s));
+    case 16:
+      return static_cast<int>(launch_tiles<kTile, 16, kThreads, 2, kAligned>(
+          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+          pool, ratio, kTileSmemLimit, s));
+    case 8:
+      return static_cast<int>(launch_tiles<kTile, 8, kThreads, 2, kAligned>(
+          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
+          pool, ratio, kTileSmemLimit, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+// Every entry that runs a kernel takes `aligned` (0 or 1) before the stream:
+// RoIAlign's aligned, which picks the kernels' instance (roi_frame).
 
 // feats/heights/widths/strides: host arrays of num_levels entries (device
 // pointers to [B, Hl, Wl, C] float32, 16-byte aligned); rois: [num_rois, 4]
@@ -1746,9 +1892,13 @@ extern "C" int roi_align_forward(const void* const* feats, const int* heights,
                                  int num_levels, const void* rois,
                                  const void* levels, void* out, int num_rois,
                                  int rois_per_image, int channels, int pool,
-                                 int ratio, void* stream) {
-  return forward_entry<float, 4>(feats, heights, widths, strides, num_levels, rois, levels,
-                                 out, num_rois, rois_per_image, channels, pool, ratio, stream);
+                                 int ratio, int aligned, void* stream) {
+  return aligned ? forward_entry<float, 4, true>(feats, heights, widths, strides, num_levels,
+                                                 rois, levels, out, num_rois, rois_per_image,
+                                                 channels, pool, ratio, stream)
+                 : forward_entry<float, 4, false>(feats, heights, widths, strides, num_levels,
+                                                  rois, levels, out, num_rois, rois_per_image,
+                                                  channels, pool, ratio, stream);
 }
 
 // roi_align_forward for bf16 features and output ([B, Hl, Wl, C] and
@@ -1759,27 +1909,13 @@ extern "C" int roi_align_forward_bf16(const void* const* feats, const int* heigh
                                       int num_levels, const void* rois,
                                       const void* levels, void* out, int num_rois,
                                       int rois_per_image, int channels, int pool,
-                                      int ratio, void* stream) {
-  if (bad_args(num_levels, pool, ratio) || channels % 8 || rois_per_image <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_rois <= 0 || channels <= 0) return 0;
-  Levels<const __nv_bfloat16> lv = {};
-  fill_levels(&lv, feats, heights, widths, strides, num_levels);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bf16_slice(channels, pool, ratio)) {
-    case 64:
-      return static_cast<int>(launch_fwd_bf16_slice<64>(lv, rois, levels, out, num_rois,
-                                                        rois_per_image, channels, pool, ratio, s));
-    case 32:
-      return static_cast<int>(launch_fwd_bf16_slice<32>(lv, rois, levels, out, num_rois,
-                                                        rois_per_image, channels, pool, ratio, s));
-    case 8:
-      return static_cast<int>(launch_fwd_bf16_slice<8>(lv, rois, levels, out, num_rois,
-                                                       rois_per_image, channels, pool, ratio, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                      int ratio, int aligned, void* stream) {
+  return aligned ? forward_bf16_entry<true>(feats, heights, widths, strides, num_levels, rois,
+                                            levels, out, num_rois, rois_per_image, channels,
+                                            pool, ratio, stream)
+                 : forward_bf16_entry<false>(feats, heights, widths, strides, num_levels, rois,
+                                             levels, out, num_rois, rois_per_image, channels,
+                                             pool, ratio, stream);
 }
 
 // How roi_align_forward_bf16 runs C channels at P and S, into plan[6]: the
@@ -1806,90 +1942,46 @@ extern "C" int roi_align_backward(void* const* grads, const int* heights,
                                   int num_levels, const void* rois,
                                   const void* levels, const void* grad_out,
                                   int num_rois, int rois_per_image, int channels,
-                                  int pool, int ratio, void* stream) {
-  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rois <= 0 || channels <= 0) return 0;
-  Levels<float> lv = {};
-  fill_levels(&lv, grads, heights, widths, strides, num_levels);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_slice({32, 16, 8, 4}, channels, pool, ratio, kBwdSmemLimit, bwd_smem_bytes)) {
-    case 32:
-      return static_cast<int>(launch_bwd<32>(lv, rois, levels, grad_out, num_rois,
-                                             rois_per_image, channels, pool, ratio, s));
-    case 16:
-      return static_cast<int>(launch_bwd<16>(lv, rois, levels, grad_out, num_rois,
-                                             rois_per_image, channels, pool, ratio, s));
-    case 8:
-      return static_cast<int>(launch_bwd<8>(lv, rois, levels, grad_out, num_rois,
-                                            rois_per_image, channels, pool, ratio, s));
-    case 4:
-      return static_cast<int>(launch_bwd<4>(lv, rois, levels, grad_out, num_rois,
-                                            rois_per_image, channels, pool, ratio, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                  int pool, int ratio, int aligned, void* stream) {
+  return aligned ? backward_entry<true>(grads, heights, widths, strides, num_levels, rois,
+                                        levels, grad_out, num_rois, rois_per_image, channels,
+                                        pool, ratio, stream)
+                 : backward_entry<false>(grads, heights, widths, strides, num_levels, rois,
+                                         levels, grad_out, num_rois, rois_per_image, channels,
+                                         pool, ratio, stream);
 }
 
 // K3's pre-pass for a bf16 g, alone: bounds [num_rois] int4 receives each
 // RoI's (x first, x last, y first, y last) cell of its nonzero taps on its
 // level ((0, -1) for an axis without one). heights/widths/strides: host
-// arrays of num_levels entries; rois, levels, pool and ratio as
+// arrays of num_levels entries; rois, levels, pool, ratio and aligned as
 // roi_align_forward. Returns the cudaError_t of the launch.
 extern "C" int roi_tap_bounds(const int* heights, const int* widths, const float* strides,
                               int num_levels, const void* rois, const void* levels,
-                              void* bounds, int num_rois, int pool, int ratio, void* stream) {
-  if (bad_args(num_levels, pool, ratio)) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rois <= 0) return 0;
-  Levels<__nv_bfloat16> lv = {};
-  void* const none[kMaxLevels] = {};
-  fill_levels(&lv, none, heights, widths, strides, num_levels);
-  roi_tap_bounds_kernel<<<(num_rois + kBoundsWarps - 1) / kBoundsWarps, 32 * kBoundsWarps, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      lv, static_cast<const float4*>(rois), static_cast<const int*>(levels),
-      static_cast<int4*>(bounds), num_rois, pool, ratio);
-  return static_cast<int>(cudaGetLastError());
+                              void* bounds, int num_rois, int pool, int ratio, int aligned,
+                              void* stream) {
+  return aligned ? tap_bounds_entry<true>(heights, widths, strides, num_levels, rois, levels,
+                                          bounds, num_rois, pool, ratio, stream)
+                 : tap_bounds_entry<false>(heights, widths, strides, num_levels, rois, levels,
+                                           bounds, num_rois, pool, ratio, stream);
 }
 
 // K3 for a bf16 grad_out ([num_images * rois_per_image, P, P, C] bf16,
-// 16-byte aligned, C a multiple of 8), after roi_tap_bounds wrote `bounds`:
-// writes every cell of the bf16 level gradients grads ([B, Hl, Wl, C],
-// 16-byte aligned, not filled), each once. The other arguments as
-// roi_align_backward. Returns the cudaError_t of the launch.
+// 16-byte aligned, C a multiple of 8), after roi_tap_bounds wrote `bounds`
+// (with the same aligned): writes every cell of the bf16 level gradients
+// grads ([B, Hl, Wl, C], 16-byte aligned, not filled), each once. The other
+// arguments as roi_align_backward. Returns the cudaError_t of the launch.
 extern "C" int roi_align_backward_tiles_bf16(void* const* grads, const int* heights,
                                              const int* widths, const float* strides,
                                              int num_levels, const void* rois,
                                              const void* levels, const void* bounds,
                                              const void* grad_out, int num_images,
                                              int rois_per_image, int channels, int pool,
-                                             int ratio, void* stream) {
-  if (bad_args(num_levels, pool, ratio) || channels % 8 || rois_per_image < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (num_images <= 0 || channels <= 0) return 0;
-  Levels<__nv_bfloat16> lv = {};
-  fill_levels(&lv, grads, heights, widths, strides, num_levels);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (channels % kWideSlice == 0 &&
-      tile_smem_bytes(kWideTile, pool, kWideSlice) <= kWideSmemLimit) {
-    return static_cast<int>(launch_tiles<kWideTile, kWideSlice, 512, 1>(
-        lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
-        pool, ratio, kWideSmemLimit, s));
-  }
-  const auto bytes = [](int p, int /*r*/, int slice) { return tile_smem_bytes(kTile, p, slice); };
-  switch (pick_slice({32, 16, 8}, channels, pool, ratio, kTileSmemLimit, bytes)) {
-    case 32:
-      return static_cast<int>(launch_tiles<kTile, 32, kThreads, 2>(
-          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
-          pool, ratio, kTileSmemLimit, s));
-    case 16:
-      return static_cast<int>(launch_tiles<kTile, 16, kThreads, 2>(
-          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
-          pool, ratio, kTileSmemLimit, s));
-    case 8:
-      return static_cast<int>(launch_tiles<kTile, 8, kThreads, 2>(
-          lv, num_levels, rois, levels, bounds, grad_out, num_images, rois_per_image, channels,
-          pool, ratio, kTileSmemLimit, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                             int ratio, int aligned, void* stream) {
+  return aligned ? tiles_entry<true>(grads, heights, widths, strides, num_levels, rois, levels,
+                                     bounds, grad_out, num_images, rois_per_image, channels,
+                                     pool, ratio, stream)
+                 : tiles_entry<false>(grads, heights, widths, strides, num_levels, rois, levels,
+                                      bounds, grad_out, num_images, rois_per_image, channels,
+                                      pool, ratio, stream);
 }

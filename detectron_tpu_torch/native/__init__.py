@@ -91,6 +91,17 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+def have_native() -> bool:
+    """Whether the codec builds and loads here (``detectron_tpu.native``'s
+    query). The JAX package falls back to numpy where it does not; the
+    port's functions raise instead, so this only asks."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _ptr(a: np.ndarray, typ):
     return a.ctypes.data_as(ctypes.POINTER(typ))
 

@@ -54,6 +54,16 @@ def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor,
     return inter / union.clamp_min(EPS)
 
 
+def pairwise_iou(a: torch.Tensor, b: torch.Tensor, offset: float = 0.0) -> torch.Tensor:
+    """Elementwise IoU ``[...]`` of two aligned box arrays ``[..., 4]``."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt + offset).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a, offset) + box_area(b, offset) - inter
+    return inter / union.clamp_min(EPS)
+
+
 def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor,
                  weights=(1.0, 1.0, 1.0, 1.0), offset: float = 0.0):
     """Encode target ``boxes`` relative to ``anchors`` as weighted

@@ -175,11 +175,14 @@ def greedy_keep(sboxes: torch.Tensor, svalid: torch.Tensor, thresh: float,
 
 def nms_padded_batched(boxes: torch.Tensor, scores: torch.Tensor,
                        valid: torch.Tensor | None, thresh: float, max_out: int,
-                       offset: float = 0.0):
+                       offset: float = 0.0, keep_fn=None):
     """Greedy NMS over G independent problems.
 
     boxes ``[G, N, 4]``, scores ``[G, N]``, valid ``[G, N]`` bool (None =
     all valid). Returns ``(idx [G, max_out] int32, valid [G, max_out])``.
+    ``keep_fn`` is the greedy walk over the sorted problems, called as
+    :func:`greedy_keep` is, and by default :func:`greedy_keep`
+    (``ops/nms_wrapper.py`` names another).
     """
     g, n = scores.shape
     if valid is None:
@@ -192,7 +195,7 @@ def nms_padded_batched(boxes: torch.Tensor, scores: torch.Tensor,
     # kept scores gives, ties in index order); the rest are invalid, so the
     # walk may stop at m kept boxes
     m = min(max_out, n)
-    keep = greedy_keep(sboxes, svalid, thresh, offset, max_keep=m)
+    keep = (keep_fn or greedy_keep)(sboxes, svalid, thresh, offset, max_keep=m)
     rank = keep.cumsum(1) - 1
     slot = torch.where(keep & (rank < m), rank, torch.full_like(rank, m))
     out = torch.zeros((g, m + 1), dtype=order.dtype, device=order.device)
@@ -208,9 +211,14 @@ def nms_padded_batched(boxes: torch.Tensor, scores: torch.Tensor,
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
                max_out: int, valid: torch.Tensor | None = None,
-               offset: float = 0.0):
+               offset: float = 0.0, tiled: bool = True, algo: str = "auto"):
     """One problem: boxes ``[N, 4]``, scores ``[N]`` ->
-    ``(idx [max_out] int32, valid [max_out] bool)``."""
+    ``(idx [max_out] int32, valid [max_out] bool)``.
+
+    ``tiled`` and ``algo`` are the JAX signature's: there they pick a TPU
+    schedule of the same greedy walk (tiles of 128 boxes, a fixpoint or a
+    loop), and the result does not depend on them. The port has one walk
+    for every value (:func:`greedy_keep`)."""
     idx, ok = nms_padded_batched(
         boxes[None], scores[None], None if valid is None else valid[None],
         iou_threshold, max_out, offset)

@@ -5,10 +5,12 @@ The port of ``detectron_tpu/ops/roi_align.py`` and of the RoIAlign custom
 VJPs of ``detectron_tpu/ops/roi_align_pallas.py``: per-level NHWC features
 ``[B, Hl, Wl, C]`` and image-coordinate RoIs ``[B, R, 4]`` give pooled
 features ``[B, R, P, P, C]``. Semantics are the JAX package's:
-``aligned=False``, RoI extent at least one cell, ``sampling_ratio**2``
-samples per bin averaged, and the Caffe2 border rule (a sample outside
-``[-1, size]`` contributes 0, otherwise it is clamped to ``[0, size - 1]``).
-The RoIs get no gradient.
+``sampling_ratio**2`` samples per bin averaged, the Caffe2 border rule (a
+sample outside ``[-1, size]`` contributes 0, otherwise it is clamped to
+``[0, size - 1]``), and with ``aligned=False`` (the default) an RoI extent
+of at least one cell; ``aligned=True`` shifts the RoI by half a cell
+(``x * scale - 0.5``) and drops the minimum extent (at least 0). The RoIs
+get no gradient. :func:`roi_align` is the single-level function.
 
 :func:`multilevel_roi_align` routes every RoI with :func:`assign_fpn_levels`
 and then applies :class:`RoIAlignFunction`: on CUDA tensors the
@@ -129,7 +131,8 @@ def _bilinear_1d(coord, limit):
     return i0, i1, 1.0 - frac, frac, inb
 
 
-def _sample_geometry(level_hw, rois, levels, strides, p: int, s: int):
+def _sample_geometry(level_hw, rois, levels, strides, p: int, s: int,
+                     aligned: bool = False):
     """Where the samples of every RoI fall in the concatenated levels.
 
     ``level_hw``: the ``(H, W)`` of each level; ``levels [B, R]``: the
@@ -137,6 +140,11 @@ def _sample_geometry(level_hw, rois, levels, strides, p: int, s: int):
     offset of each RoI's level in one image's flattened levels, ``wrow``
     its level's width, and per axis the ``(i0, i1, w0, w1, inb)`` of
     :func:`_bilinear_1d` over ``P * S`` samples.
+
+    The frame rounds as the JAX package's does, step by step in float32:
+    ``x1 = x * scale - shift`` and ``w = max(x2 * scale - shift - x1,
+    1 or 0)``, where the shift (0.5 with ``aligned``) is subtracted only
+    when it is not 0. The kernels round the same steps (``roi_frame``).
     """
     dev = rois.device
     hs = torch.tensor([h for h, _ in level_hw], device=dev)
@@ -145,10 +153,11 @@ def _sample_geometry(level_hw, rois, levels, strides, p: int, s: int):
     strides_t = torch.tensor(list(strides), dtype=torch.float32, device=dev)
     lvl = levels.long()
     scale = 1.0 / strides_t[lvl]  # [B, R]
-    x1 = rois[..., 0] * scale
-    y1 = rois[..., 1] * scale
-    rw = (rois[..., 2] * scale - x1).clamp_min(1.0)
-    rh = (rois[..., 3] * scale - y1).clamp_min(1.0)
+    x1, y1, x2, y2 = (rois[..., i] * scale for i in range(4))
+    if aligned:
+        x1, y1, x2, y2 = x1 - 0.5, y1 - 0.5, x2 - 0.5, y2 - 0.5
+    rw = (x2 - x1).clamp_min(0.0 if aligned else 1.0)
+    rh = (y2 - y1).clamp_min(0.0 if aligned else 1.0)
     xs = _bilinear_1d(_sample_coords(x1, rw, p, s), ws[lvl].float()[..., None])
     ys = _bilinear_1d(_sample_coords(y1, rh, p, s), hs[lvl].float()[..., None])
     return offsets[lvl][..., None, None], ws[lvl][..., None, None], ys, xs
@@ -167,8 +176,8 @@ def _corners(base, wrow, ys, xs):
 
 def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Tensor,
                                levels: torch.Tensor, strides: Sequence[int],
-                               output_size: int = 7,
-                               sampling_ratio: int = 2) -> torch.Tensor:
+                               output_size: int = 7, sampling_ratio: int = 2,
+                               aligned: bool = False) -> torch.Tensor:
     """Plain PyTorch version of kernel K2: a gather of the four bilinear
     corners of every sample from the concatenated levels, on any device.
     ``levels [B, R]`` is the routing of :func:`assign_fpn_levels`."""
@@ -177,7 +186,7 @@ def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Ten
     c = features[0].shape[-1]
     flat = torch.cat([f.reshape(b, -1, c) for f in features], dim=1)  # [B, L, C]
     base, wrow, ys, xs = _sample_geometry([f.shape[1:3] for f in features], rois,
-                                          levels, strides, p, s)
+                                          levels, strides, p, s, aligned)
     bidx = torch.arange(b, device=rois.device)[:, None, None, None]
     # the corners gathered in the features' dtype, summed in float32
     pts = sum(flat[bidx, idx].float() * w[..., None]  # [B, R, PS, PS, C]
@@ -189,7 +198,8 @@ def multilevel_roi_align_plain(features: Sequence[torch.Tensor], rois: torch.Ten
 
 def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Tensor,
                                    levels: torch.Tensor, strides: Sequence[int],
-                                   sampling_ratio: int = 2) -> list[torch.Tensor]:
+                                   sampling_ratio: int = 2,
+                                   aligned: bool = False) -> list[torch.Tensor]:
     """Plain PyTorch version of kernel K3, the gradient of
     :func:`multilevel_roi_align_plain` with respect to each level:
     ``index_add_`` of every sample's weighted corner contributions,
@@ -204,7 +214,7 @@ def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Ten
     s = sampling_ratio
     sizes = [int(h) * int(w) for h, w in level_hw]
     total = sum(sizes)
-    base, wrow, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s)
+    base, wrow, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s, aligned)
     # d(mean over the S x S samples of a bin) = grad / S^2 at every sample
     gs = true_div(grad.float(), s * s)[:, :, :, None, :, None, :]
     gs = gs.expand(b, r, p, s, p, s, c).reshape(b, r, p * s, p * s, c)
@@ -260,12 +270,13 @@ def _roi_align_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     geometry = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
                 ctypes.POINTER(ctypes.c_float), i32]
+    # the last int of each entry is `aligned` (0 or 1)
     for fn in (lib.roi_align_forward, lib.roi_align_forward_bf16, lib.roi_align_backward):
         fn.argtypes = [ctypes.POINTER(ptr), *geometry, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                       ptr]
-    lib.roi_tap_bounds.argtypes = [*geometry, ptr, ptr, ptr, i32, i32, i32, ptr]
+                       i32, ptr]
+    lib.roi_tap_bounds.argtypes = [*geometry, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     lib.roi_align_backward_tiles_bf16.argtypes = [
-        ctypes.POINTER(ptr), *geometry, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        ctypes.POINTER(ptr), *geometry, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
     lib.roi_align_forward_bf16_plan.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.roi_align_forward_bf16_plan.restype = None
     for fn in (lib.roi_align_forward, lib.roi_align_forward_bf16, lib.roi_align_backward,
@@ -310,8 +321,8 @@ def _kernel_dtype(dtype: torch.dtype, what: str) -> int:
 
 def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tensor,
                               levels: torch.Tensor, strides: Sequence[int],
-                              output_size: int = 7,
-                              sampling_ratio: int = 2) -> torch.Tensor:
+                              output_size: int = 7, sampling_ratio: int = 2,
+                              aligned: bool = False) -> torch.Tensor:
     """:func:`multilevel_roi_align_plain` as kernel K2 of
     ``csrc/roi_align.cu``: one launch for all RoIs of all levels. A block
     folds its RoI's samples onto the cells they touch, stages those cells
@@ -320,7 +331,8 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
     through a persistent, warp-specialised kernel whose set-up and copies
     run beside its passes (:func:`k2_bf16_plan`). Deterministic (no
     atomics). Float32 features take C a multiple of 4, bfloat16 ones a
-    multiple of 8; levels 16-byte aligned."""
+    multiple of 8; levels 16-byte aligned. ``aligned`` selects the kernels'
+    aligned instances (the half-cell shift, no minimum extent)."""
     f0 = features[0]
     p, s = output_size, sampling_ratio
     _check_launch_args(rois, levels, len(features), strides, p, s)
@@ -344,7 +356,8 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
     fn = lib.roi_align_forward if f0.dtype == torch.float32 else lib.roi_align_forward_bf16
     with torch.cuda.device(rois.device):
         err = fn(*_level_args(features, strides), rois.data_ptr(), levels.data_ptr(),
-                 out.data_ptr(), b * r, r, c, p, s, _build.stream_handle(rois.device))
+                 out.data_ptr(), b * r, r, c, p, s, int(aligned),
+                 _build.stream_handle(rois.device))
     _build.check(err, "roi_align_forward")
     multilevel_roi_align_cuda.launches += 1
     return out
@@ -368,7 +381,8 @@ def k2_bf16_plan(channels: int, output_size: int, sampling_ratio: int) -> dict:
 
 def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tensor,
                                   levels: torch.Tensor, strides: Sequence[int],
-                                  sampling_ratio: int = 2) -> list[torch.Tensor]:
+                                  sampling_ratio: int = 2,
+                                  aligned: bool = False) -> list[torch.Tensor]:
     """:func:`multilevel_roi_align_bwd_plain` as kernel K3 of
     ``csrc/roi_align.cu``, by the route of ``grad``'s dtype.
 
@@ -403,14 +417,14 @@ def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tens
                                         dtype=torch.bfloat16, device=rois.device),
                             b, c, level_hw)
         if b and c:  # a tile that no RoI meets is written too: zeros
-            bounds = roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, s)
-            roi_align_bwd_tiles_cuda(grads, bounds, grad, rois, levels, strides, s)
+            bounds = roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, s, aligned)
+            roi_align_bwd_tiles_cuda(grads, bounds, grad, rois, levels, strides, s, aligned)
             multilevel_roi_align_bwd_cuda.launches += 1
         return grads
     flat = level_grad_buffer(b, c, level_hw, rois.device)
     if b * r and c:
         roi_align_bwd_accumulate_cuda(level_views(flat, b, c, level_hw), grad, rois, levels,
-                                      strides, s)
+                                      strides, s, aligned)
         multilevel_roi_align_bwd_cuda.launches += 1
     return level_views(flat, b, c, level_hw)
 
@@ -435,7 +449,8 @@ def level_grad_buffer(b: int, c: int, level_hw, device) -> torch.Tensor:
 
 def roi_align_bwd_accumulate_cuda(grads: Sequence[torch.Tensor], grad: torch.Tensor,
                                   rois: torch.Tensor, levels: torch.Tensor,
-                                  strides: Sequence[int], sampling_ratio: int = 2) -> None:
+                                  strides: Sequence[int], sampling_ratio: int = 2,
+                                  aligned: bool = False) -> None:
     """K3's float32 launch alone: adds the gradient of every RoI into the
     float32 ``grads`` (:func:`level_views` of :func:`level_grad_buffer`).
     Takes what :func:`multilevel_roi_align_bwd_cuda` has checked; counts
@@ -450,12 +465,13 @@ def roi_align_bwd_accumulate_cuda(grads: Sequence[torch.Tensor], grad: torch.Ten
     with torch.cuda.device(rois.device):
         err = _roi_align_lib().roi_align_backward(
             *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(), grad.data_ptr(),
-            b * r, r, c, p, sampling_ratio, _build.stream_handle(rois.device))
+            b * r, r, c, p, sampling_ratio, int(aligned), _build.stream_handle(rois.device))
     _build.check(err, "roi_align_backward")
 
 
 def roi_tap_cell_bounds(level_hw, rois: torch.Tensor, levels: torch.Tensor,
-                        strides: Sequence[int], p: int, s: int = 2) -> torch.Tensor:
+                        strides: Sequence[int], p: int, s: int = 2,
+                        aligned: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K3's bf16 pre-pass: per RoI, the first and
     last cell of its level that its nonzero taps touch along x and along y,
     ``[B, R, 4]`` int32 ``(x first, x last, y first, y last)``, an axis
@@ -463,7 +479,7 @@ def roi_tap_cell_bounds(level_hw, rois: torch.Tensor, levels: torch.Tensor,
     lies in ``[-1, size]`` and its bilinear weight is not 0: with the border
     rule's clamp, a sample just outside the level still touches its edge
     cell, so the range comes from the taps, not from the box."""
-    _, _, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s)
+    _, _, ys, xs = _sample_geometry(level_hw, rois, levels, strides, p, s, aligned)
     out = []
     for i0, i1, w0, w1, inb in (xs, ys):
         tap0, tap1 = inb & (w0 != 0), inb & (w1 != 0)
@@ -477,7 +493,8 @@ def roi_tap_cell_bounds(level_hw, rois: torch.Tensor, levels: torch.Tensor,
 
 
 def roi_tap_bounds_cuda(level_hw, rois: torch.Tensor, levels: torch.Tensor,
-                        strides: Sequence[int], p: int, s: int = 2) -> torch.Tensor:
+                        strides: Sequence[int], p: int, s: int = 2,
+                        aligned: bool = False) -> torch.Tensor:
     """:func:`roi_tap_cell_bounds` as K3's bf16 pre-pass
     (``csrc/roi_align.cu::roi_tap_bounds``): one warp a RoI runs the fold
     that K2 and K3 share and keeps its first and last cell. Also the
@@ -492,7 +509,7 @@ def roi_tap_bounds_cuda(level_hw, rois: torch.Tensor, levels: torch.Tensor,
                 (ctypes.c_int * n)(*[int(h) for h, _ in level_hw]),
                 (ctypes.c_int * n)(*[int(w) for _, w in level_hw]),
                 (ctypes.c_float * n)(*[float(x) for x in strides]), n, rois.data_ptr(),
-                levels.data_ptr(), bounds.data_ptr(), b * r, p, s,
+                levels.data_ptr(), bounds.data_ptr(), b * r, p, s, int(aligned),
                 _build.stream_handle(rois.device))
         _build.check(err, "roi_tap_bounds")
     return bounds
@@ -500,7 +517,8 @@ def roi_tap_bounds_cuda(level_hw, rois: torch.Tensor, levels: torch.Tensor,
 
 def roi_align_bwd_tiles_cuda(grads: Sequence[torch.Tensor], bounds: torch.Tensor,
                              grad: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
-                             strides: Sequence[int], sampling_ratio: int = 2) -> None:
+                             strides: Sequence[int], sampling_ratio: int = 2,
+                             aligned: bool = False) -> None:
     """K3's bf16 launch alone: writes every cell of the bf16 ``grads``
     (:func:`level_views` of one buffer; not filled), given the pre-pass's
     ``bounds``. Takes what :func:`multilevel_roi_align_bwd_cuda` has
@@ -513,7 +531,7 @@ def roi_align_bwd_tiles_cuda(grads: Sequence[torch.Tensor], bounds: torch.Tensor
     with torch.cuda.device(rois.device):
         err = _roi_align_lib().roi_align_backward_tiles_bf16(
             *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(),
-            bounds.data_ptr(), grad.data_ptr(), b, r, c, p, sampling_ratio,
+            bounds.data_ptr(), grad.data_ptr(), b, r, c, p, sampling_ratio, int(aligned),
             _build.stream_handle(rois.device))
     _build.check(err, "roi_align_backward_tiles_bf16")
 
@@ -522,7 +540,8 @@ class RoIAlignFunction(torch.autograd.Function):
     """Multilevel RoIAlign with its gradient: K2 forward and K3 backward on
     CUDA tensors, their plain versions on CPU tensors.
 
-    ``apply(rois, levels, strides, output_size, sampling_ratio, *features)``.
+    ``apply(rois, levels, strides, output_size, sampling_ratio, aligned,
+    *features)``.
     The backward takes the routing ``levels`` that the forward used, so the
     two route identically by construction, and it needs only the levels'
     shapes, not their values. The RoIs get no gradient (``None``), as the
@@ -530,12 +549,12 @@ class RoIAlignFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, rois, levels, strides, output_size, sampling_ratio, *features):
+    def forward(ctx, rois, levels, strides, output_size, sampling_ratio, aligned, *features):
         ctx.save_for_backward(rois, levels)
-        ctx.strides, ctx.sampling_ratio = tuple(strides), sampling_ratio
+        ctx.strides, ctx.sampling_ratio, ctx.aligned = tuple(strides), sampling_ratio, aligned
         ctx.level_hw = [tuple(f.shape[1:3]) for f in features]
         fwd = multilevel_roi_align_cuda if rois.is_cuda else multilevel_roi_align_plain
-        return fwd(features, rois, levels, strides, output_size, sampling_ratio)
+        return fwd(features, rois, levels, strides, output_size, sampling_ratio, aligned)
 
     @staticmethod
     def backward(ctx, grad):
@@ -543,19 +562,23 @@ class RoIAlignFunction(torch.autograd.Function):
         bwd = (multilevel_roi_align_bwd_cuda if rois.is_cuda
                else multilevel_roi_align_bwd_plain)
         grads = bwd(grad.contiguous(), ctx.level_hw, rois, levels, ctx.strides,
-                    ctx.sampling_ratio)
-        grads = [g if need else None for g, need in zip(grads, ctx.needs_input_grad[5:])]
-        return (None, None, None, None, None, *grads)
+                    ctx.sampling_ratio, ctx.aligned)
+        grads = [g if need else None for g, need in zip(grads, ctx.needs_input_grad[6:])]
+        return (None,) * 6 + tuple(grads)
 
 
 def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
                          strides: Sequence[int], output_size: int = 7,
                          sampling_ratio: int = 2, min_level: int | None = None,
+                         canonical_level: int = 4, canonical_scale: float = 224.0,
+                         aligned: bool = False,
                          max_span: tuple[float, float] | None = DEFAULT_MAX_SPAN,
                          ) -> torch.Tensor:
-    """RoIAlign over an FPN: routes each RoI to a level, then runs
-    :class:`RoIAlignFunction` (kernels K2 and K3 on CUDA tensors, their
-    plain versions on CPU tensors), differentiable in the features.
+    """RoIAlign over an FPN: routes each RoI to a level
+    (:func:`assign_fpn_levels` with ``canonical_level`` and
+    ``canonical_scale``), then runs :class:`RoIAlignFunction` (kernels K2
+    and K3 on CUDA tensors, their plain versions on CPU tensors),
+    differentiable in the features. ``aligned``: see the module.
 
     features: per-level ``[B, Hl, Wl, C]`` (NHWC), finest first; rois:
     ``[B, R, 4]`` image coordinates (padding rows give finite garbage).
@@ -564,9 +587,25 @@ def multilevel_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
     num_levels = len(features)
     if min_level is None:
         min_level = int(np.log2(strides[0]))
-    levels = assign_fpn_levels(rois, num_levels, min_level, max_span=max_span)
+    levels = assign_fpn_levels(rois, num_levels, min_level, canonical_level, canonical_scale,
+                               max_span=max_span)
     return RoIAlignFunction.apply(rois, levels, tuple(strides), output_size,
-                                  sampling_ratio, *features)
+                                  sampling_ratio, bool(aligned), *features)
+
+
+def roi_align(feature: torch.Tensor, rois: torch.Tensor, stride: int, output_size: int = 7,
+              sampling_ratio: int = 2, aligned: bool = False) -> torch.Tensor:
+    """Single-level RoIAlign (``detectron_tpu/ops/roi_align.py::roi_align``):
+    :func:`multilevel_roi_align` over one level, differentiable in
+    ``feature``. feature ``[B, H, W, C]``, rois ``[B, R, 4]`` -> ``[B, R,
+    P, P, C]``. On CUDA tensors it runs K2 forward and K3 backward, which
+    raise ``ValueError`` at the call, naming the limit, where they do not
+    take the inputs: float32 or bfloat16 with C a multiple of 4 or 8
+    (:data:`CHANNEL_MULTIPLE`), ``output_size * sampling_ratio`` at most
+    :data:`MAX_SAMPLES`. On CPU tensors their plain versions take
+    anything."""
+    return multilevel_roi_align([feature], rois, [stride], output_size=output_size,
+                                sampling_ratio=sampling_ratio, aligned=aligned)
 
 
 # ----------------------------------------------------------------- RoIPool

@@ -59,8 +59,8 @@ def blocks_per_sm(k):
 VARIANTS = {
     "kernel": ("the kernel as committed", []),
     "generic S": ("the instance with S at run time (taps from shared memory), not S=2's",
-                  [("return ratio == 2 ? launch_fwd<T, kSlice, 2>",
-                    "return ratio < 0 ? launch_fwd<T, kSlice, 2>")]),
+                  [("return ratio == 2 ? launch_fwd<T, kSlice, 2,",
+                    "return ratio < 0 ? launch_fwd<T, kSlice, 2,")]),
     "1 block a RoI": ("all of a RoI's slices in one block (the set-up once a RoI)",
                       [blocks_per_sm(1)]),
     "split to 4 an SM": ("slices split until 4 blocks an SM, not 8", [blocks_per_sm(4)]),
@@ -184,8 +184,8 @@ def bf16_constants(**values):
 BF16_VARIANTS = {
     "kernel": ("the kernel as committed", []),
     "generic S": ("the instance with S at run time (taps from shared memory), not S=2's",
-                  [("return ratio == 2 ? launch_fwd_bf16<kSlice, 2>",
-                    "return ratio < 0 ? launch_fwd_bf16<kSlice, 2>")]),
+                  [("return ratio == 2 ? launch_fwd_bf16<kSlice, 2,",
+                    "return ratio < 0 ? launch_fwd_bf16<kSlice, 2,")]),
     "bulk copies": ("one bulk copy a cell (cp.async.bulk), not 16-byte cp.async", BF16_BULK),
     "contiguous walk": ("each block a contiguous range of units, not units strided over the "
                         "blocks", BF16_CONTIGUOUS),
@@ -260,7 +260,7 @@ def forward_fn(lib, dtype):
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -270,7 +270,7 @@ def forward(fn, feats, rois, levels, p, out):
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
     err = fn(*ra._level_args(feats, cs.STRIDES), rois.data_ptr(), levels.data_ptr(),
-             out.data_ptr(), b * r, r, c, p, 2, _build.stream_handle(rois.device))
+             out.data_ptr(), b * r, r, c, p, 2, 0, _build.stream_handle(rois.device))
     _build.check(err, "roi_align_forward")
 
 

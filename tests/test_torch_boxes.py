@@ -63,6 +63,24 @@ def test_bbox_overlaps(offset):
 
 
 @pytest.mark.parametrize("offset", [0.0, 1.0])
+def test_pairwise_iou(offset):
+    """Elementwise IoU of aligned ``[2, 3, 40, 4]`` arrays (any leading
+    shape): exact matches, disjoint pairs, degenerate and inverted boxes
+    (the EPS floor on the union), within TOL of JAX's."""
+    rng = np.random.RandomState(5)
+    a = random_boxes(rng, 240, min_wh=-2.0).reshape(2, 3, 40, 4)
+    b = random_boxes(rng, 240, min_wh=-2.0).reshape(2, 3, 40, 4)
+    b[:, :, :6] = a[:, :, :6]  # exact matches
+    b[:, :, 6:10] = a[:, :, 6:10] + 2000.0  # disjoint
+    a[:, :, 10:12, 2:] = a[:, :, 10:12, :2]  # zero area on both sides
+    b[:, :, 10:12] = a[:, :, 10:12]
+    want = np.asarray(jboxes.pairwise_iou(jnp.asarray(a), jnp.asarray(b), offset))
+    got = tboxes.pairwise_iou(torch.tensor(a), torch.tensor(b), offset)
+    assert got.shape == (2, 3, 40) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("offset", [0.0, 1.0])
 def test_decode_with_clamp_and_clip(offset):
     rng = np.random.RandomState(1)
     anchors = random_boxes(rng, 256)

@@ -70,20 +70,21 @@ class _PlainFunction(ra.RoIAlignFunction):
     """RoIAlignFunction with the (counting) stand-ins on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, rois, levels, strides, output_size, sampling_ratio, *features):
+    def forward(ctx, rois, levels, strides, output_size, sampling_ratio, aligned, *features):
         ctx.save_for_backward(rois, levels)
-        ctx.strides, ctx.sampling_ratio = tuple(strides), sampling_ratio
+        ctx.strides, ctx.sampling_ratio, ctx.aligned = tuple(strides), sampling_ratio, aligned
         ctx.level_hw = [tuple(f.shape[1:3]) for f in features]
         return ra.multilevel_roi_align_cuda(features, rois, levels, strides, output_size,
-                                            sampling_ratio)
+                                            sampling_ratio, aligned)
 
     @staticmethod
     def backward(ctx, grad):
         rois, levels = ctx.saved_tensors
         grads = ra.multilevel_roi_align_bwd_cuda(grad.contiguous(), ctx.level_hw, rois,
-                                                 levels, ctx.strides, ctx.sampling_ratio)
-        return (None,) * 5 + tuple(g if need else None
-                                   for g, need in zip(grads, ctx.needs_input_grad[5:]))
+                                                 levels, ctx.strides, ctx.sampling_ratio,
+                                                 ctx.aligned)
+        return (None,) * 6 + tuple(g if need else None
+                                   for g, need in zip(grads, ctx.needs_input_grad[6:]))
 
 
 def _listing(fn):
@@ -96,17 +97,18 @@ def _listing(fn):
     return [(f"void {k}<32>(...)", 1, 0.0) for k in kernels]
 
 
-def _plain_accumulate(grads, grad, rois, levels, strides, sampling_ratio=2):
+def _plain_accumulate(grads, grad, rois, levels, strides, sampling_ratio=2, aligned=False):
     level_hw = [tuple(t.shape[1:3]) for t in grads]
     for acc, add in zip(grads, ra.multilevel_roi_align_bwd_plain(
-            grad, level_hw, rois, levels, strides, sampling_ratio)):
+            grad, level_hw, rois, levels, strides, sampling_ratio, aligned)):
         acc.add_(add)
 
 
-def _plain_tiles(grads, bounds, grad, rois, levels, strides, sampling_ratio=2):
+def _plain_tiles(grads, bounds, grad, rois, levels, strides, sampling_ratio=2,
+                 aligned=False):
     level_hw = [tuple(t.shape[1:3]) for t in grads]
     for out, level in zip(grads, ra.multilevel_roi_align_bwd_plain(
-            grad, level_hw, rois, levels, strides, sampling_ratio)):
+            grad, level_hw, rois, levels, strides, sampling_ratio, aligned)):
         out.copy_(level)
 
 
@@ -848,3 +850,83 @@ def test_wide_nms_phase_holds_k1_on_the_main_path(rehearsal, monkeypatch, capsys
     out = capsys.readouterr().out
     assert "[wide nms predict_wide] mask_rcnn rpn.post_nms_topk_test=100" in out
     assert "K1 boxes [(2, 500, 4)]" in out
+
+
+def test_op_api_phase_counts_its_launches_and_holds_each_call(rehearsal, monkeypatch, capsys):
+    """Phase 29 at the rehearsal's sizes: nms_wrapper.nms(impl="pallas")
+    once a problem (CPU tensors here: the sort and compaction of
+    ``nms_padded_batched`` around the counting stand-in of K1, since the
+    real dispatch raises on CPU tensors; ``tests/test_torch_nms_wrapper.py``
+    holds the dispatch), roi_align forward and gradient once each in both
+    dtypes, both P and both values of aligned, all counted and held; the
+    aligned stress kinds through phases 4 and 7's checks. The refusals need
+    the card's wrappers and are only recorded as called."""
+    from detectron_tpu_torch.ops import nms_wrapper
+
+    real_nms = nms_wrapper.nms
+
+    def card_nms(boxes, scores, thresh, max_out, valid=None, offset=0.0, impl="jnp"):
+        if impl != "pallas":
+            return real_nms(boxes, scores, thresh, max_out, valid=valid, offset=offset,
+                            impl=impl)
+        idx, ok = nms.nms_padded_batched(boxes[None], scores[None], valid[None], thresh,
+                                         max_out, offset, keep_fn=nms.greedy_keep_cuda)
+        return idx[0], ok[0]
+
+    monkeypatch.setattr(nms_wrapper, "nms", card_nms)
+    refusals = []
+    monkeypatch.setattr(cs, "check_refusals", lambda: refusals.append(True))
+    monkeypatch.setattr(cs, "OP_ROI_CASES", ((7, 24), (14, 8)))
+    monkeypatch.setattr(cs, "OP_STRESS_ROIS", 8)
+    counts, k2, k3 = cs.phase_op_api(c=16)
+    problems = len(cs.NMS_CASES) + len(cs.NMS_WIDE_CASES)
+    assert counts == {"greedy_nms": problems, "multilevel_roi_align": 8,
+                      "multilevel_roi_align_bwd": 8}
+    assert refusals == [True]
+    for cases in (k2, k3):
+        assert [(c["dtype"], c["case"]) for c in cases] == [
+            (dtype, f"P{p} R{r} one level aligned={aligned}")
+            for dtype in ("float32", "bfloat16") for p, r in cs.OP_ROI_CASES
+            for aligned in (False, True)]
+        assert {c["path"] for c in cases} == {"op_api"}
+        for c in cases:
+            assert c["max_abs_err"] == 0.0 and c["bound_by"] in ("bytes", "operations")
+    out = capsys.readouterr().out
+    assert "[op api] pairwise_iou [2, 1000] on the card: max |diff|" in out
+    assert out.count("impl='pallas' equal to impl='jnp': True") == problems
+    for kind in cs.ALIGNED_STRESS:
+        for p in (7, 14):
+            name = f"op api aligned stress: {kind}, P={p} R=8"
+            assert f"[K2 {name}] levels" in out and f"[K3 bf16 {name}] max |diff|" in out
+    # K3 bf16's pre-pass against roi_tap_cell_bounds, aligned: the main
+    # cases and the stress kinds
+    assert out.count("pre-pass bounds equal to roi_tap_cell_bounds: True") == 2 + 8
+    assert "[op api] zero extent along x:" in out and "[op api] zero extent along y:" in out
+
+
+@pytest.mark.parametrize("kind", cs.ALIGNED_STRESS)
+def test_aligned_stress_rois_have_their_shape(kind):
+    """Each of phase 29's stress kinds gives what its name says on P3 of
+    the full canvas (128 x 168 cells at stride 8)."""
+    stride, hw = 8, (128, 168)
+    rois = cs.aligned_stress_rois(np.random.RandomState(0), kind, 2, 128, hw, stride)
+    assert rois.shape == (2, 128, 4) and rois.dtype == np.float32
+    w = (rois[..., 2] - rois[..., 0]) / stride
+    h = (rois[..., 3] - rois[..., 1]) / stride
+    assert (w >= 0).all() and (h >= 0).all()
+    if kind == "zero extent":
+        assert ((w == 0) | (h == 0)).all() and ((w == 0) & (h == 0)).any()
+        on_edge = (rois[..., 0] / stride - 0.5) == np.floor(rois[..., 0] / stride - 0.5)
+        assert on_edge.any() and not on_edge.all()
+    elif kind == "all sub-cell":
+        assert (w < 1).all() and (h < 1).all()
+    elif kind == "shifted past the border":
+        # the shift puts the top-left corner in [-0.5, 0) cells, or the
+        # bottom-right one within half a cell of the far edge
+        x1 = rois[..., 0] / stride - 0.5
+        x2 = rois[..., 2] / stride - 0.5
+        assert ((x1 >= -0.5) & (x1 < 0)).sum() == 2 * 64
+        assert ((x2 > hw[1] - 1) & (x2 <= hw[1] - 0.5)).sum() == 2 * 64
+    else:
+        assert (rois[..., :2] <= 0).all() and (rois[..., 2] >= hw[1] * stride).all()
+        assert (rois[..., 3] >= hw[0] * stride).all()

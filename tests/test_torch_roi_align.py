@@ -246,17 +246,19 @@ def contract(values, slots, weights, ratio):
     return acc
 
 
-def k2_model(feats, rois, levels, strides, pool, ratio, stage_cells, ring_rows):
+def k2_model(feats, rois, levels, strides, pool, ratio, stage_cells, ring_rows,
+             aligned=False):
     """K2 in numpy, float32: per RoI the fold of each axis, the distinct
     cells staged ``chunk`` y rows at a time, pass x of each chunk into a ring
     of ``ring_rows`` rows, pass y of every output row whose taps have all
     arrived (and a check that each row it reads is still in the ring), and
-    the division by S^2."""
+    the division by S^2. ``aligned`` is the frame's (the kernels'
+    aligned instances run the same algorithm)."""
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
     level_hw = [f.shape[1:3] for f in feats]
     _, _, ys, xs = tra._sample_geometry(level_hw, torch.tensor(rois), torch.tensor(levels),
-                                        strides, pool, ratio)
+                                        strides, pool, ratio, aligned)
     axes = []
     for i0, i1, w0, w1, inb in (xs, ys):  # the border rule folded into the weights
         axes.append((i0.numpy(), i1.numpy(), torch.where(inb, w0, 0.0).numpy(),
