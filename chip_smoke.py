@@ -221,7 +221,23 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     through phases 4 and 7's checks (bitwise reruns, bf16 against the fp32
     kernel, K3 bf16's pre-pass against roi_tap_cell_bounds), zero-extent
     axes folded onto one or two cells; both values of aligned timed; C=6,
-    C=12 in bf16 and P x S = 65 refused at the call, naming the limit.
+    C=12 in bf16 and P x S = 65, once refused at the call, taken and held;
+30. the kernels' contracts (``phase_contracts``): K1's bf16 instance
+    through nms_wrapper.nms(impl="pallas") against impl="jnp" on one bf16
+    problem of each phase-3 shape (N up to 10000) and through
+    class_aware_nms on bf16 boxes (launches counted), then against its
+    plain walk exactly at every case's problems with and without max_keep
+    and at IoUs exactly at the bf16 thresholds 0.7 and 0.3, timed whole and
+    as its two launches; K2 and K3 in both dtypes on P3-P5 of the canvas
+    (batch 2; R=512 at P=7, 128 at P=14): C=30 float32 and C=36 bf16
+    (padded), a misaligned view of each level (copied), P x S = 112
+    (mask_pool_size=28, sampling_ratio=4), pool_size=33 and 10 levels (the
+    wide route), forward and gradient through multilevel_roi_align counted
+    and held within phases 4 and 7's limits, each timed with the copy it
+    costs (the wide cases at C=64, then timed alone at C=256); then Mask
+    R-CNN R-50-FPN at 1024x1344, batch 2, bf16 with model.fpn_channels=36:
+    built on the card, one predict call counted and one held
+    (``hold_path``).
 
 After each group of phases it logs the host seconds the group took
 (``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
@@ -597,7 +613,7 @@ def k2_bound(feats, rois, levels, p, s=2, strides=STRIDES, aligned=False):
     return b_ms, b_by, nbytes
 
 
-def k3_bound(g, level_hw):
+def k3_bound(g, level_hw, s=2):
     """K3's bound at these inputs: what the function must move, g read
     once and every level's gradient written once (both at g's bytes a
     value), RoIs and routing read once, at the card's memory rate, or its
@@ -606,7 +622,7 @@ def k3_bound(g, level_hw):
     b, r, p, _, c = g.shape
     nbytes = (g.numel() * g.element_size()
               + sum(b * h * w * c for h, w in level_hw) * g.element_size() + b * r * (16 + 4))
-    b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (4 * 4 * 3 + 1))
+    b_ms, b_by = bound_ms(nbytes, ops=b * r * p * p * c * (s * s * 4 * 3 + 1))
     return b_ms, b_by, nbytes
 
 
@@ -685,11 +701,16 @@ def check_k2_bf16(name, feats, rois, levels, p, fmax, s=2, strides=STRIDES, alig
     steps = bf16_steps(got, f32)
     n_off = int((got != f32).sum())
     same = torch.equal(got, again)
-    plan = ra.k2_bf16_plan(feats[0].shape[-1], p, s)
-    log(f"[K2 bf16 {name}] variant: {plan['slice']}-channel slices, the "
-        f"{'S=2' if s == 2 else 'generic S'} instance, ring {plan['ring_rows']} rows, "
-        f"stages of {plan['stage_cells']} cells, {plan['smem_bytes']} B dynamic shared memory, "
-        f"{plan['threads']} threads, {plan['blocks_per_sm']} blocks an SM")
+    cp = ra.padded_channels(feats[0].shape[-1], torch.bfloat16)
+    if ra.narrow_takes(ra.K2_BF16, cp, p, s, len(feats)):
+        plan = ra.k2_bf16_plan(cp, p, s)
+        log(f"[K2 bf16 {name}] variant: {plan['slice']}-channel slices, the "
+            f"{'S=2' if s == 2 else 'generic S'} instance, ring {plan['ring_rows']} rows, "
+            f"stages of {plan['stage_cells']} cells, {plan['smem_bytes']} B dynamic shared "
+            f"memory, {plan['threads']} threads, {plan['blocks_per_sm']} blocks an SM")
+    else:
+        log(f"[K2 bf16 {name}] variant: the wide route (C={cp}, P*S={p * s}, "
+            f"{len(feats)} levels)")
     log(f"[K2 bf16 {name}] max |diff| {diff:.3e} from the bf16 plain version (limit: one "
         f"bf16 step + {1e-5 * fmax:.3e}): {ok}; from the fp32 kernel on the upcast features "
         f"cast once: {steps} bf16 steps at most (limit 1), {n_off} of {got.numel()} values "
@@ -1393,13 +1414,13 @@ def roi_cell_bytes(feats, rois, levels, p, s, strides=STRIDES, aligned=False):
                                                                        strides, p, s, aligned)
 
 
-def check_k3(name, g, level_hw, rois, levels, strides=STRIDES, aligned=False):
+def check_k3(name, g, level_hw, rois, levels, strides=STRIDES, aligned=False, s=2):
     """K3 twice and its plain version on the same inputs: max |diff| against
     the plain version must be within 1e-5 x max |plain gradient|. Returns
     (max |diff|, max |diff| between the two K3 runs)."""
     from detectron_tpu_torch.ops import roi_align as ra
 
-    args = (g, level_hw, rois, levels, strides, 2, aligned)
+    args = (g, level_hw, rois, levels, strides, s, aligned)
     got = ra.multilevel_roi_align_bwd_cuda(*args)
     again = ra.multilevel_roi_align_bwd_cuda(*args)
     want = ra.multilevel_roi_align_bwd_plain(*args)
@@ -1427,25 +1448,29 @@ def tile_visits(bounds, tile) -> int:
     return int((tiles[..., 0] * tiles[..., 1] * (last >= 0).all(-1)).sum())
 
 
-def check_k3_bf16(name, g, level_hw, rois, levels, strides=STRIDES, aligned=False):
+def check_k3_bf16(name, g, level_hw, rois, levels, strides=STRIDES, aligned=False, s=2):
     """K3 with a bf16 ``g`` (bf16 level gradients) twice, its bf16 plain
     version, the fp32 kernel on the upcast ``g`` cast once, and K3's bf16
     pre-pass alone, on the same inputs: within one bf16 step plus the fp32
     limit of the plain version and of the fp32 kernel (1e-5 x max |plain
     gradient|: other summation orders, then one rounding); the two runs
-    bitwise equal (no atomics); the pre-pass's bounds equal to
+    bitwise equal where the narrow route ran (its tile kernel has no
+    atomics; the wide route adds by atomics, as the fp32 route does, and
+    its reruns are logged); the pre-pass's bounds equal to
     ``roi_tap_cell_bounds``. Returns (max |diff| against the plain version,
     bf16 steps from the fp32 kernel)."""
     from detectron_tpu_torch.ops import roi_align as ra
 
     p = g.shape[2]
-    args = (level_hw, rois, levels, strides, 2, aligned)
+    args = (level_hw, rois, levels, strides, s, aligned)
+    narrow = ra.narrow_takes(ra.K3_BF16, ra.padded_channels(g.shape[4], g.dtype), p, s,
+                             len(level_hw))
     got = ra.multilevel_roi_align_bwd_cuda(g, *args)
     again = ra.multilevel_roi_align_bwd_cuda(g, *args)
     want = ra.multilevel_roi_align_bwd_plain(g, *args)
     f32 = [x.to(torch.bfloat16) for x in ra.multilevel_roi_align_bwd_cuda(g.float(), *args)]
-    bounds = ra.roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, 2, aligned)
-    want_bounds = ra.roi_tap_cell_bounds(level_hw, rois, levels, strides, p, 2, aligned)
+    bounds = ra.roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, s, aligned)
+    want_bounds = ra.roi_tap_cell_bounds(level_hw, rois, levels, strides, p, s, aligned)
     torch.cuda.synchronize()
     if any(x.dtype != torch.bfloat16 for x in got):
         raise AssertionError(f"K3 bf16 {name}: level gradients {[x.dtype for x in got]}")
@@ -1463,10 +1488,10 @@ def check_k3_bf16(name, g, level_hw, rois, levels, strides=STRIDES, aligned=Fals
         f"steps at most); two runs bitwise equal: {same}; pre-pass bounds equal to "
         f"roi_tap_cell_bounds: {off == 0} ({off} of {bounds.shape[0] * bounds.shape[1]} RoIs "
         f"differ); (RoI, tile) visits {tile_visits(want_bounds, 8)} of 8x8 tiles, "
-        f"{tile_visits(want_bounds, 16)} of 16x16")
+        f"{tile_visits(want_bounds, 16)} of 16x16; the {'narrow' if narrow else 'wide'} route")
     if not (floor > 0.0 and ok and ok32):
         raise AssertionError(f"K3 bf16 {name}: beyond its limit")
-    if not same:
+    if narrow and not same:
         raise AssertionError(f"K3 bf16 {name}: two runs differ")
     if off:
         raise AssertionError(f"K3 bf16 {name}: the pre-pass's bounds differ from "
@@ -4090,8 +4115,8 @@ def phase_op_api(seed=29, c=256):
     the same inputs and at ALIGNED_STRESS through check_k2, check_k2_bf16,
     check_k3 and check_k3_bf16 (K3 bf16's pre-pass against
     roi_tap_cell_bounds), zero-extent boxes folded onto one or two cells,
-    both values of ``aligned`` timed, and the call-time refusals of what
-    the kernels do not take. Returns ({name: launches}, K2 cases, K3
+    both values of ``aligned`` timed, and what the narrow kernels once
+    refused at the call, taken (``check_former_refusals``). Returns ({name: launches}, K2 cases, K3
     cases)."""
     from detectron_tpu_torch.ops import boxes as box_ops
     from detectron_tpu_torch.ops import nms_wrapper
@@ -4245,34 +4270,397 @@ def phase_op_api(seed=29, c=256):
                         raise AssertionError(f"op api: a zero-extent RoI folds onto more than "
                                              f"two cells along {'xy'[axis]}")
 
-    check_refusals()
+    check_former_refusals()
     reset_counts()
     return counts, k2_cases, k3_cases
 
 
-def check_refusals():
-    """Single-level roi_align on the card refuses, at the call and naming
-    the limit, what K2 and K3 do not take: float32 C=6, bf16 C=12, and
-    P x S = 65 samples an axis."""
+def check_former_refusals():
+    """Single-level roi_align on the card takes what the narrow kernels
+    once refused at the call, float32 C=6, bf16 C=12 and P x S = 65 samples
+    an axis: forward and gradient against the plain versions within phases
+    4 and 7's limits."""
     from detectron_tpu_torch.ops import roi_align as ra
 
     dev = torch.device(DEVICE)
-    small = torch.zeros((1, 8, 8, 6), device=dev)
-    box = torch.tensor([[[0.0, 0.0, 32.0, 32.0]]], device=dev)
-    refusals = ((lambda: ra.roi_align(small, box, 8), "multiple of 4"),
-                (lambda: ra.roi_align(small[..., :4].repeat(1, 1, 1, 3).bfloat16(), box, 8),
-                 "multiple of 8"),
-                (lambda: ra.roi_align(small[..., :4].contiguous(), box, 8, output_size=13,
-                                      sampling_ratio=5), "1..64"))
-    for call, limit in refusals:
-        try:
-            call()
-        except ValueError as err:
-            if limit not in str(err):
-                raise AssertionError(f"op api: the refusal {err} does not name {limit!r}")
-            log(f"[op api] refused at the call: {err}")
+    rng = np.random.RandomState(291)
+    box = torch.tensor([[[0.0, 0.0, 32.0, 32.0], [3.5, 1.0, 60.0, 40.0]]], device=dev)
+    level = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    for c, dtype, p, s in ((6, torch.float32, 7, 2), (12, torch.bfloat16, 7, 2),
+                           (4, torch.float32, 13, 5)):
+        feat = torch.tensor(rng.randn(1, 8, 8, c).astype(np.float32), device=dev).to(dtype)
+        leaf = feat.clone().requires_grad_(True)
+        out = ra.roi_align(leaf, box, 8, output_size=p, sampling_ratio=s)
+        g = torch.tensor(rng.randn(*out.shape).astype(np.float32), device=dev).to(dtype)
+        (grad,) = torch.autograd.grad(out, leaf, grad_outputs=g)
+        want = ra.multilevel_roi_align_plain([feat], box, level, (8,), p, s)
+        (want_grad,) = ra.multilevel_roi_align_bwd_plain(g, [(8, 8)], box, level, (8,), s)
+        torch.cuda.synchronize()
+        floor = 1e-5 * float(feat.float().abs().max())
+        gfloor = 1e-5 * float(want_grad.float().abs().max())
+        if dtype == torch.bfloat16:
+            (diff, ok), (gdiff, gok) = within_bf16(out, want, floor), within_bf16(
+                grad, want_grad, gfloor)
         else:
-            raise AssertionError(f"op api: roi_align took what the kernels refuse ({limit})")
+            diff, gdiff = float((out - want).abs().max()), float((grad - want_grad).abs().max())
+            ok, gok = diff <= floor, gdiff <= gfloor
+        log(f"[op api] taken at the call: {str(dtype)[6:]} C={c} P={p} S={s}: forward max "
+            f"|diff| {diff:.3e}, gradient {gdiff:.3e}")
+        if not (ok and gok and out.shape == want.shape):
+            raise AssertionError(f"op api: roi_align {dtype} C={c} P x S={p * s} beyond its "
+                                 "limits")
+
+
+# ----------------------------------------------------------------- phase 30
+
+# K1 bf16 at phase 3's shapes: every NMS_CASES shape and the first two wide
+# ones (N = 8193 and 10000)
+CONTRACT_NMS_CASES = NMS_CASES + NMS_WIDE_CASES[:2]
+# the class-aware cases (81 classes shifted apart): detections, RetinaNet
+CONTRACT_CLASS_AWARE = ("det", "retinanet")
+# pairs whose IoU after the bf16 steps is exactly the bf16 threshold: inter
+# 70 of union 100 (bf16(0.7) = 0.69921875, rounded down) and 30 of 100
+# (bf16(0.3) = 0.30078125, rounded up: above 0.3 itself); apart from each
+# other and from nms_problems' clusters
+EXACT_PAIRS = (([0.0, 0.0, 10.0, 10.0], [0.0, 0.0, 10.0, 7.0]),
+               ([-64.0, 0.0, -54.0, 10.0], [-64.0, 0.0, -54.0, 3.0]))
+CONTRACT_LEVELS = (8, 16, 32)  # P3-P5 of the canvas
+TEN_LEVELS = tuple(2 ** i for i in range(1, 11))  # strides 2..1024: 512x672 down to 1x1
+# (name, C, dtypes, P, S, R an image, strides, misaligned): the inputs the
+# narrow instances did not take, each through padding, a copy or the wide
+# route (C=64 where the plain versions' [B, R, PS, PS, C] samples would
+# otherwise hold phase 30 past its 30 s)
+CONTRACT_ROI_CASES = (
+    ("C=30", 30, ("float32",), 7, 2, 512, CONTRACT_LEVELS, False),
+    ("C=30", 30, ("float32",), 14, 2, 128, CONTRACT_LEVELS, False),
+    ("C=36", 36, ("bfloat16",), 7, 2, 512, CONTRACT_LEVELS, False),
+    ("C=36", 36, ("bfloat16",), 14, 2, 128, CONTRACT_LEVELS, False),
+    ("misaligned view", 256, ("float32", "bfloat16"), 7, 2, 512, CONTRACT_LEVELS, True),
+    ("P*S=112", 64, ("float32", "bfloat16"), 28, 4, 128, CONTRACT_LEVELS, False),
+    ("pool_size=33", 64, ("float32", "bfloat16"), 33, 2, 512, CONTRACT_LEVELS, False),
+    ("10 levels", 64, ("float32", "bfloat16"), 7, 2, 512, TEN_LEVELS, False),
+)
+# (name, P, S, R an image, C): the wide cases again at the main path's
+# width, timed only
+CONTRACT_WIDE_TIMED = (("P*S=112", 28, 4, 128, 256), ("pool_size=33", 33, 2, 512, 256))
+CONTRACT_MODEL = ["model.dtype=bfloat16", "model.fpn_channels=36"]
+
+
+def contract_levels(rng, c, strides, misaligned, b=2):
+    """Seeded NHWC levels of the canvas at ``strides``, float32; with
+    ``misaligned`` each the view ``[..., 1:]`` of a C + 1 tensor."""
+    out = []
+    for st in strides:
+        h, w = max(CANVAS[0] // st, 1), max(CANVAS[1] // st, 1)
+        x = torch.tensor(rng.randn(b, h, w, c + int(misaligned)).astype(np.float32),
+                         device=DEVICE)
+        out.append(x[..., 1:] if misaligned else x)
+    return out
+
+
+def exact_pair_problems(g=2, n=300, seed=31):
+    """bf16 problems whose first two pairs sit exactly at the bf16
+    thresholds of EXACT_PAIRS, top-scored; the rest clustered."""
+    rng = np.random.RandomState(seed)
+    boxes, scores, valid, _ = nms_problems(rng, g, n, (512, 512), 20)
+    for k, (a, b) in enumerate(EXACT_PAIRS):
+        boxes[:, 2 * k], boxes[:, 2 * k + 1] = a, b
+    scores[:, :4] = [2.0, 1.9, 1.8, 1.7]
+    return [torch.tensor(x, device=DEVICE) for x in (boxes, scores, valid)]
+
+
+def phase_contracts(seed=30):
+    """Phase 30: what the card takes beyond the narrow instances.
+
+    K1 bf16: a path run (counts set to 0 just before, read just after) of
+    ``nms_wrapper.nms(impl="pallas")`` on one bf16 problem of each
+    CONTRACT_NMS_CASES shape and ``class_aware_nms`` on bf16 boxes at
+    CONTRACT_CLASS_AWARE's shapes, each against the plain walk exactly
+    (``impl="jnp"``); then the kernel against its plain walk exactly at
+    every case's G problems, with and without max_keep, and at IoUs exactly
+    at the bf16 thresholds 0.7 and 0.3, offsets 0 and 1; timed whole and as
+    its two launches. K2 and K3: a path run of CONTRACT_ROI_CASES through
+    ``multilevel_roi_align`` forward and gradient, each held against the
+    plain versions within phases 4 and 7's limits; K2 rerun bitwise and, in
+    bf16, within one step of the fp32 kernel; K3 bf16's pre-pass against
+    roi_tap_cell_bounds; each timed, the copy that padding or realigning
+    costs timed alone, and CONTRACT_WIDE_TIMED timed at C=256. Then Mask R-CNN R-50-FPN at CONTRACT_MODEL (phase
+    5's config, bf16, 36 FPN channels): built on the card, one predict call
+    counted and one held (``hold_path``). Returns (K1 bf16's entry cases,
+    its launches, K2 cases, K3 cases, {path: launches})."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.ops import nms, nms_wrapper
+    from detectron_tpu_torch.ops import roi_align as ra
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed)
+    tag = "[contracts]"
+    t_phase = time.perf_counter()
+
+    # K1 bf16: the problems, bf16 boxes (class shifts applied in bf16, as
+    # class_aware_nms applies them)
+    problems = []
+    for case in CONTRACT_NMS_CASES:
+        boxes, scores, valid, cls = nms_problems(rng, case["g"], case["n"], CANVAS,
+                                                 case["n_invalid"], case["classes"])
+        tb, ts, tv = (torch.tensor(x, device=dev) for x in (boxes, scores, valid))
+        tc = None if cls is None else torch.tensor(cls, device=dev)
+        problems.append((case, tb.bfloat16(), ts, tv, tc))
+
+    # the path: every call through the public functions, launches counted
+    torch.cuda.synchronize()
+    reset_counts()
+    singles = [nms_wrapper.nms(tb[0], ts[0], case["thresh"], case["max_out"], valid=tv[0],
+                               impl="pallas") for case, tb, ts, tv, _ in problems]
+    aware = [nms.class_aware_nms(tb, ts, tc, case["thresh"], case["max_out"], valid=tv)
+             for case, tb, ts, tv, tc in problems if case["name"] in CONTRACT_CLASS_AWARE]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    reset_counts()
+    want = {"greedy_nms": len(singles) + len(aware), "multilevel_roi_align": 0,
+            "multilevel_roi_align_bwd": 0}
+    log(f"{tag} K1 bf16 path: launches {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"contracts: K1 bf16 launches {counts}, want {want}")
+    k1_launches = counts["greedy_nms"]
+    for (case, tb, ts, tv, _), (idx, ok) in zip(problems, singles):
+        want_idx, want_ok = nms_wrapper.nms(tb[0], ts[0], case["thresh"], case["max_out"],
+                                            valid=tv[0], impl="jnp")
+        same = torch.equal(idx, want_idx) and torch.equal(ok, want_ok)
+        log(f"{tag} nms bf16 {case['name']}: N={case['n']}, {int(ok.sum())} kept; "
+            f"impl='pallas' equal to impl='jnp': {same}")
+        if not same:
+            raise AssertionError(f"contracts: nms bf16 {case['name']}: pallas != jnp")
+    aware_cases = [p for p in problems if p[0]["name"] in CONTRACT_CLASS_AWARE]
+    for (case, tb, ts, tv, tc), (idx, ok) in zip(aware_cases, aware):
+        span = tb.amax(dim=(1, 2)) - tb.amin(dim=(1, 2)) + 1.0
+        shifted = tb + (tc.to(tb.dtype) * span[:, None])[..., None]
+        want_idx, want_ok = nms.nms_padded_batched(shifted, ts, tv, case["thresh"],
+                                                   case["max_out"],
+                                                   keep_fn=nms.greedy_keep_plain)
+        same = torch.equal(idx, want_idx) and torch.equal(ok, want_ok)
+        log(f"{tag} class_aware_nms bf16 {case['name']}: G={case['g']} N={case['n']}, "
+            f"{int(ok.sum())} kept; equal to the plain walk: {same}")
+        if not same or shifted.dtype != torch.bfloat16:
+            raise AssertionError(f"contracts: class_aware_nms bf16 {case['name']} differs")
+
+    # the kernel against its plain walk at every case's G problems
+    k1_cases = []
+    for case, tb, ts, tv, tc in problems:
+        if tc is not None:
+            span = tb.amax(dim=(1, 2)) - tb.amin(dim=(1, 2)) + 1.0
+            tb = tb + (tc.to(tb.dtype) * span[:, None])[..., None]
+        sboxes, svalid = sorted_problems(tb, ts, tv)
+        g, n, thresh = case["g"], case["n"], case["thresh"]
+        m = min(case["max_out"], n)
+        full = nms.greedy_keep_cuda(sboxes, svalid, thresh)
+        keep = nms.greedy_keep_cuda(sboxes, svalid, thresh, max_keep=m)
+        plain = nms.greedy_keep_plain(sboxes, svalid, thresh)
+        torch.cuda.synchronize()
+        same = torch.equal(full, plain) and torch.equal(keep, plain & (plain.cumsum(1) <= m))
+        ms = cuda_ms(lambda: nms.greedy_keep_cuda(sboxes, svalid, thresh, max_keep=m), iters=10)
+        mask = nms.nms_mask_cuda(sboxes, thresh)
+        mask_ms = cuda_ms(lambda: nms.nms_mask_cuda(sboxes, thresh), iters=10)
+        scan_ms = cuda_ms(lambda: nms.nms_scan_cuda(mask, svalid, m), iters=10)
+        timed_plain = case["path"] == "train"
+        plain_ms = cuda_ms(lambda: nms.greedy_keep_plain(sboxes, svalid, thresh, max_keep=m),
+                           iters=1, warmup=0) if timed_plain else None
+        pos = torch.arange(n, device=dev)[None, :]
+        n_valid = svalid.sum(1, keepdim=True)
+        last = torch.where(keep, pos, torch.full_like(pos, -1)).amax(1, keepdim=True)
+        stop = torch.where(keep.sum(1, keepdim=True) >= m, last, torch.full_like(last, n - 1))
+        upto = torch.minimum(n_valid, stop + 1)
+        pairs = int(torch.where(keep, upto - 1 - pos, torch.zeros_like(pos)).sum())
+        # 8 bytes a bf16 box; per pair ~24 operations with the bf16 roundings
+        b_ms, b_by = bound_ms(nbytes=g * n * (8 + 1 + 1), ops=pairs * 24)
+        log(f"{tag} K1 bf16 {case['name']}: G={g} N={n} t={thresh} "
+            f"(bf16 {nms.threshold_in(thresh, torch.bfloat16)}) max_keep={m}: keep masks equal "
+            f"to the plain walk with and without max_keep: {same} ({int(keep.sum())} of "
+            f"{int(full.sum())} kept); kernel {ms:.4f} ms (mask {mask_ms:.4f} + scan "
+            f"{scan_ms:.4f})" + (f", plain {plain_ms:.3f} ms" if timed_plain else "")
+            + f", bound {b_ms:.6f} ms ({b_by})")
+        if not same:
+            raise AssertionError(f"contracts: K1 bf16 {case['name']} differs from its plain walk")
+        k1_cases.append(dict(case=case["name"], path=case["path"], dtype="bfloat16",
+                             max_keep=m, ms=ms, mask_ms=mask_ms, scan_ms=scan_ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        del mask
+    for thresh in (0.7, 0.3):
+        for offset in (0.0, 1.0):
+            tb, ts, tv = exact_pair_problems()
+            sboxes, svalid = sorted_problems(tb.bfloat16(), ts, tv)
+            got = nms.greedy_keep_cuda(sboxes, svalid, thresh, offset)
+            want_keep = nms.greedy_keep_plain(sboxes, svalid, thresh, offset)
+            torch.cuda.synchronize()
+            pairs_kept = got[:, :4].tolist()
+            log(f"{tag} K1 bf16 exact thresholds: t={thresh} offset={offset}: keep masks equal "
+                f"{torch.equal(got, want_keep)}; the pairs' flags {pairs_kept[0]}")
+            if not torch.equal(got, want_keep):
+                raise AssertionError(f"contracts: K1 bf16 at the exact threshold {thresh}")
+    log(f"{tag} K1 bf16 part: {time.perf_counter() - t_phase:.1f} s")
+
+    # K2 and K3: the path, counted
+    t_roi = time.perf_counter()
+    inputs = []
+    for name, c, dtypes, p, s, r, strides, misaligned in CONTRACT_ROI_CASES:
+        feats = contract_levels(rng, c, strides, misaligned)
+        rois = torch.tensor(roi_cases(rng, 2, r, CANVAS), device=dev)
+        g = torch.tensor(rng.randn(2, r, p, p, c).astype(np.float32), device=dev)
+        for dtype in dtypes:
+            inputs.append((name, getattr(torch, dtype), p, s, strides, feats, rois, g))
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = []
+    for name, dtype, p, s, strides, feats, rois, g in inputs:
+        leaves = [f.detach().to(dtype) for f in feats]
+        if name == "misaligned view" and dtype != torch.float32:  # the views of the cast, as misaligned as the float32 ones
+            leaves = [torch.cat([torch.zeros_like(x[..., :1]), x], -1)[..., 1:] for x in leaves]
+        leaves = [x.requires_grad_(True) for x in leaves]
+        out = ra.multilevel_roi_align(leaves, rois, strides, p, s,
+                                      min_level=int(np.log2(strides[0])),
+                                      max_span=(28.0, 44.0))
+        grads = torch.autograd.grad(out, leaves, grad_outputs=g.to(dtype))
+        outs.append(([x.detach() for x in leaves], out.detach(), grads))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    reset_counts()
+    want = {"greedy_nms": 0, "multilevel_roi_align": len(inputs),
+            "multilevel_roi_align_bwd": len(inputs)}
+    log(f"{tag} K2/K3 path: launches {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"contracts: K2/K3 launches {counts}, want {want}")
+    roi_launches = counts
+    k2_cases, k3_cases = [], []
+    for (name, dtype, p, s, strides, _, rois, g), (feats, out, grads) in zip(inputs, outs):
+        dname = str(dtype)[6:]
+        label = f"{name} {dname} P={p} S={s} R={rois.shape[1]} C={feats[0].shape[-1]}"
+        level_hw = [tuple(f.shape[1:3]) for f in feats]
+        levels = ra.assign_fpn_levels(rois, len(feats), int(np.log2(strides[0])),
+                                      max_span=(28.0, 44.0))
+        gd = g.to(dtype)
+        want = ra.multilevel_roi_align_plain(feats, rois, levels, strides, p, s)
+        want_grads = ra.multilevel_roi_align_bwd_plain(gd, level_hw, rois, levels, strides, s)
+        again = ra.multilevel_roi_align_cuda(feats, rois, levels, strides, p, s)
+        torch.cuda.synchronize()
+        floor = 1e-5 * max(float(f.float().abs().max()) for f in feats)
+        gfloor = 1e-5 * max(float(w.float().abs().max()) for w in want_grads)
+        if dtype == torch.bfloat16:
+            diff, ok = within_bf16(out, want, floor)
+            checks = [within_bf16(x, w, gfloor) for x, w in zip(grads, want_grads)]
+            f32 = ra.multilevel_roi_align_cuda([f.float() for f in feats], rois, levels,
+                                               strides, p, s).to(torch.bfloat16)
+            steps = bf16_steps(out, f32)
+        else:
+            diff = float((out - want).abs().max())
+            ok = diff <= floor
+            checks = [(float((x - w).abs().max()), float((x - w).abs().max()) <= gfloor)
+                      for x, w in zip(grads, want_grads)]
+            steps = 0
+        gdiff, gok = max(x[0] for x in checks), all(x[1] for x in checks)
+        same = torch.equal(out, again)
+        cp = ra.padded_channels(feats[0].shape[-1], dtype)
+        routes = ["narrow" if ra.narrow_takes(kind, cp, p, s, len(feats)) else "wide"
+                  for kind in ((ra.K2_BF16, ra.K3_BF16) if dtype == torch.bfloat16
+                               else (ra.K2_F32, ra.K3_F32))]
+        bounds_off = 0
+        if dtype == torch.bfloat16:
+            bounds = ra.roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, s)
+            bounds_off = int((bounds != ra.roi_tap_cell_bounds(level_hw, rois, levels, strides,
+                                                               p, s)).any(-1).sum())
+        log(f"{tag} {label}: K2 {routes[0]}, K3 {routes[1]} route; forward max |diff| "
+            f"{diff:.3e} (limit {'one bf16 step + ' if dtype == torch.bfloat16 else ''}"
+            f"{floor:.3e}), rerun bitwise equal {same}"
+            + (f", {steps} bf16 steps from the fp32 kernel" if dtype == torch.bfloat16 else "")
+            + f"; gradient {gdiff:.3e} ({gfloor:.3e})"
+            + (f"; pre-pass bounds off for {bounds_off} RoIs" if dtype == torch.bfloat16
+               else ""))
+        if not (ok and gok and same and steps <= 1 and bounds_off == 0
+                and out.dtype == dtype and all(x.dtype == dtype for x in grads)):
+            raise AssertionError(f"contracts: {label} beyond its limits")
+        del want, want_grads, again
+        # times: the whole call, and the copy that padding or realigning costs
+        fwd_ms = cuda_ms(lambda: ra.multilevel_roi_align_cuda(feats, rois, levels, strides, p,
+                                                              s), iters=5, warmup=1)
+        bwd_ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_cuda(gd, level_hw, rois, levels,
+                                                                  strides, s), iters=5,
+                         warmup=1)
+        copy_ms = 0.0
+        if cp != feats[0].shape[-1] or not feats[0].is_contiguous():
+            copy_ms = cuda_ms(lambda: [ra.kernel_ready(f, cp) for f in feats], iters=5)
+        k2_ms, k2_by, _ = k2_bound(feats, rois, levels, p, s, strides)
+        k3_ms, k3_by, _ = k3_bound(gd, level_hw, s)
+        log(f"{tag} {label}: K2 {fwd_ms:.4f} ms (bound {k2_ms:.4f}, {k2_by}), K3 "
+            f"{bwd_ms:.4f} ms (bound {k3_ms:.4f}, {k3_by}); the levels' copy "
+            f"{copy_ms:.4f} ms of it")
+        case = dict(case=label, path="contracts", dtype=dname, route=routes[0])
+        k2_cases.append(dict(case, ms=fwd_ms, copy_ms=copy_ms, plain_ms=None, bound_ms=k2_ms,
+                             bound_by=k2_by, max_abs_err=diff))
+        k3_cases.append(dict(case, route=routes[1], ms=bwd_ms, plain_ms=None, bound_ms=k3_ms,
+                             bound_by=k3_by, max_abs_err=gdiff))
+    del inputs, outs
+    # the wide route at the main path's width, C=256: timed only (its
+    # kernels are held above at C=64)
+    for name, p, s, r, c in CONTRACT_WIDE_TIMED:
+        feats = contract_levels(rng, c, CONTRACT_LEVELS, False)
+        rois = torch.tensor(roi_cases(rng, 2, r, CANVAS), device=dev)
+        levels = ra.assign_fpn_levels(rois, len(feats), 3, max_span=(28.0, 44.0))
+        level_hw = [tuple(f.shape[1:3]) for f in feats]
+        # made on the card: a host draw of this g (2 x 512 x 33 x 33 x 256)
+        # would take seconds
+        g = torch.randn((2, r, p, p, c), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(seed))
+        for dtype in (torch.float32, torch.bfloat16):
+            fs, gd = [f.to(dtype) for f in feats], g.to(dtype)
+            fwd_ms = cuda_ms(lambda: ra.multilevel_roi_align_cuda(
+                fs, rois, levels, CONTRACT_LEVELS, p, s), iters=5, warmup=1)
+            bwd_ms = cuda_ms(lambda: ra.multilevel_roi_align_bwd_cuda(
+                gd, level_hw, rois, levels, CONTRACT_LEVELS, s), iters=5, warmup=1)
+            k2_ms, k2_by, _ = k2_bound(fs, rois, levels, p, s, CONTRACT_LEVELS)
+            k3_ms, k3_by, _ = k3_bound(gd, level_hw, s)
+            log(f"{tag} {name} {str(dtype)[6:]} P={p} S={s} R={r} C={c}, timed only: K2 "
+                f"{fwd_ms:.4f} ms (bound {k2_ms:.4f}, {k2_by}), K3 {bwd_ms:.4f} ms (bound "
+                f"{k3_ms:.4f}, {k3_by})")
+        del feats, g, fs, gd
+    # the padding's copy at phase 5's levels (P2-P5), C=30
+    p2p5 = contract_levels(rng, 30, STRIDES, False)
+    pad_ms = cuda_ms(lambda: [ra.kernel_ready(f, 32) for f in p2p5])
+    log(f"{tag} padding C=30 to 32 at P2-P5 of the canvas, batch 2: {pad_ms:.4f} ms")
+    del p2p5
+    log(f"{tag} K2/K3 part: {time.perf_counter() - t_roi:.1f} s")
+
+    # Mask R-CNN at 36 FPN channels in bf16: builds, predicts, every launch held
+    t_model = time.perf_counter()
+    cfg = get_config(MASK_R50, CONTRACT_MODEL)
+    det = build_detector(cfg)  # the card: no refusal when built
+    params = raise_class_bias(det.init(seed), RAISED_CLASSES)
+    batch = slice_inputs(cfg, seed, det.device)
+    torch.cuda.synchronize()
+    reset_counts()
+    with kernel_dtypes() as seen:
+        dets, masks = det.predict_fn(params, batch)
+    torch.cuda.synchronize()
+    model_counts = read_counts()
+    reset_counts()
+    n_dets = int(dets.valid.sum())
+    log(f"{tag} mask_rcnn {' '.join(CONTRACT_MODEL)} at {tuple(cfg.data.image_size)}, batch "
+        f"{batch['image'].shape[0]}: launches {model_counts}, kernel input dtypes "
+        f"{dict(sorted((k, sorted(v)) for k, v in seen.items()))}, detections {n_dets}")
+    if (model_counts["greedy_nms"] != 2 or model_counts["multilevel_roi_align"] != 2
+            or seen.get("multilevel_roi_align") != {"bfloat16"}):
+        raise AssertionError(f"contracts: the 36-channel model launched {model_counts} on {seen}")
+    if not (n_dets and bool(torch.isfinite(dets.boxes).all())
+            and bool(torch.isfinite(masks.float()).all())):
+        raise AssertionError(f"contracts: {n_dets} detections, or non-finite outputs")
+    held = hold_path(lambda: det.predict_fn(params, batch), "contracts fpn_channels=36 bf16")
+    if held["multilevel_roi_align"][0] != 2 or held["greedy_nms"][0] != 2:
+        raise AssertionError(f"contracts: held {held}")
+    del det, params
+    log(f"{tag} model part: {time.perf_counter() - t_model:.1f} s; phase 30 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return k1_cases, k1_launches, k2_cases, k3_cases, dict(
+        contracts=roi_launches, predict_fpn36_bf16=model_counts)
+
 
 
 # -------------------------------------------------------------------- main
@@ -4309,6 +4697,23 @@ def kernel_entry(name, cases, launches, max_abs_err):
     }
 
 
+def k1_bf16_entry(cases, launches):
+    """K1's bf16 instance, an entry of its own: ``launches`` from phase 30's
+    path run (no model path hands K1 bf16 boxes: decode promotes them), the
+    times of its training-shape case (G=10, N=2000; phase 9's K1 shape),
+    its other cases listed beside."""
+    train = [c for c in cases if c["path"] == "train"]
+    return {
+        "name": "greedy_nms_bf16", "route": "cuda", **KERNELS["greedy_nms"],
+        "launches": launches, "launches_by_path": {"contracts": launches},
+        "max_abs_err": 0.0,
+        "ms": sum(c["ms"] for c in train), "plain_ms": sum(c["plain_ms"] for c in train),
+        "bound_ms": sum(c["bound_ms"] for c in train), "bound_by": train[0]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "cases": cases,
+    }
+
+
 def retinanet_phases(k1) -> dict:
     """Phases 13-18, each path in both dtypes; K1's bench cases are added
     to ``k1``. Returns ``{path: (launches, summary)}``."""
@@ -4334,7 +4739,7 @@ def retinanet_phases(k1) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", action="store_true",
-                        help="run phases 1-4, 7 and 29 only (the kernels against their plain "
+                        help="run phases 1-4, 7, 29 and 30 only (the kernels against their plain "
                              "versions, and their times), print their cases and stop; no "
                              "result line")
     args = parser.parse_args(argv)
@@ -4359,8 +4764,10 @@ def main(argv=None) -> int:
         k3 = phase_roi_align_bwd(rng, feats)
         del feats
         _, op_k2, op_k3 = phase_op_api()
-        print(json.dumps({"kernel_cases": {"greedy_nms": k1, "multilevel_roi_align": k2 + op_k2,
-                                           "multilevel_roi_align_bwd": k3 + op_k3}}),
+        k1_bf16, _, c_k2, c_k3, _ = phase_contracts()
+        print(json.dumps({"kernel_cases": {"greedy_nms": k1, "greedy_nms_bf16": k1_bf16,
+                                           "multilevel_roi_align": k2 + op_k2 + c_k2,
+                                           "multilevel_roi_align_bwd": k3 + op_k3 + c_k3}}),
               flush=True)
         print(card, flush=True)
         return 0
@@ -4409,6 +4816,10 @@ def main(argv=None) -> int:
     k2 += op_k2
     k3 += op_k3
     lap("phase 29")
+    k1_bf16, k1_bf16_launches, c_k2, c_k3, contract_launches = phase_contracts()
+    k2 += c_k2
+    k3 += c_k3
+    lap("phase 30")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -4423,7 +4834,8 @@ def main(argv=None) -> int:
                 **{path: counts[name] for path, counts in remat_launches.items()},
                 **{path: counts[name] for path, counts in dp_launches.items()},
                 **{path: counts[name] for path, counts in wide_launches.items()},
-                "op_api": op_launches[name]}
+                "op_api": op_launches[name],
+                **{path: counts[name] for path, counts in contract_launches.items()}}
 
     kernels = [
         kernel_entry("greedy_nms", k1, launches("greedy_nms"), 0.0),
@@ -4431,6 +4843,7 @@ def main(argv=None) -> int:
                      max(c["max_abs_err"] for c in k2 if c["dtype"] == "float32")),
         kernel_entry("multilevel_roi_align_bwd", k3, launches("multilevel_roi_align_bwd"),
                      max(c["max_abs_err"] for c in k3 if c["dtype"] == "float32")),
+        k1_bf16_entry(k1_bf16, k1_bf16_launches),
     ]
     # the end-to-end numbers of both dtypes, side by side
     print(json.dumps({"dtypes": {

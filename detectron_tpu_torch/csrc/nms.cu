@@ -8,7 +8,7 @@
 // kept, and every later box's keep flag is 0 (the caller keeps only the
 // first max_keep kept boxes in any case).
 //
-// What bounds it on the H100: not bytes (16 bytes a box) and not IoU
+// What bounds it on the H100: not bytes (16 bytes a box, 8 in bf16) and not IoU
 // arithmetic (~16 fp32 operations a pair, N^2/2 pairs), but the greedy
 // chain itself: box i's fate depends on every kept box before it, so a
 // problem is a sequential walk, and the walk's time is the latency of each
@@ -73,7 +73,21 @@
 // _iou_block so that keep sets are equal: the same operation order, IEEE
 // division, and the _rn intrinsics, which the compiler never contracts
 // into fused multiply-adds.
+//
+// Boxes come in float32 or bf16, as the JAX kernel takes them in their own
+// dtype and computes _iou_block in it. The mask kernel is a template on the
+// box type (float4, or four bf16 in a uint2: 8 bytes a box); the scans read
+// only bits and are the same for both. bf16 IoUs are what PyTorch's and
+// XLA's bf16 elementwise operations give: every step of bbox_overlaps
+// computed in fp32 and rounded to bf16 (nearest even) in the same order --
+// each difference, each `+ offset`, the intersection, each area, the sum of
+// the areas, the union, the 1e-8 floor (itself rounded) and the division.
+// Maxima, minima and the clamps at 0 are exact. The threshold is rounded to
+// bf16 by the caller, as both frameworks round a Python number compared
+// with a bf16 tensor. The float32 instance is the same code as before the
+// bf16 one existed (rnd<float4> is the identity).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,13 +103,39 @@ constexpr int kWideStageWords = 8192;  // the wide scan's stage of live words, 6
 constexpr int kWideMaxWords = 20000;   // the wide scan's removed words, 160 KB
 constexpr int kMaxDevices = 64;
 
+// A box as four floats: a float4 as it is; four bf16 in a uint2 (x1 in the
+// low half of .x) widened exactly (the bf16 bits are the float's top half).
+__device__ __forceinline__ float4 load_box(const float4 b) { return b; }
+
+__device__ __forceinline__ float4 load_box(const uint2 b) {
+  return make_float4(__uint_as_float(b.x << 16), __uint_as_float(b.x & 0xffff0000u),
+                     __uint_as_float(b.y << 16), __uint_as_float(b.y & 0xffff0000u));
+}
+
+// An fp32 result rounded to the boxes' type: as it is for float32 boxes, to
+// bf16 (nearest even) for bf16 ones.
+template <typename Box>
+__device__ __forceinline__ float rnd(float x);
+
+template <>
+__device__ __forceinline__ float rnd<float4>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float rnd<uint2>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename Box>
 __device__ __forceinline__ float box_area(const float4 b, float offset) {
-  float w = fmaxf(__fadd_rn(__fsub_rn(b.z, b.x), offset), 0.0f);
-  float h = fmaxf(__fadd_rn(__fsub_rn(b.w, b.y), offset), 0.0f);
-  return __fmul_rn(w, h);
+  float w = fmaxf(rnd<Box>(__fadd_rn(rnd<Box>(__fsub_rn(b.z, b.x)), offset)), 0.0f);
+  float h = fmaxf(rnd<Box>(__fadd_rn(rnd<Box>(__fsub_rn(b.w, b.y)), offset)), 0.0f);
+  return rnd<Box>(__fmul_rn(w, h));
 }
 
 // IoU of row box a (the earlier, higher-scored one) and column box b.
+template <typename Box>
 __device__ __forceinline__ float iou(const float4 a, float area_a,
                                      const float4 b, float area_b,
                                      float offset) {
@@ -103,19 +143,22 @@ __device__ __forceinline__ float iou(const float4 a, float area_a,
   float iy1 = fmaxf(a.y, b.y);
   float ix2 = fminf(a.z, b.z);
   float iy2 = fminf(a.w, b.w);
-  float iw = fmaxf(__fadd_rn(__fsub_rn(ix2, ix1), offset), 0.0f);
-  float ih = fmaxf(__fadd_rn(__fsub_rn(iy2, iy1), offset), 0.0f);
-  float inter = __fmul_rn(iw, ih);
-  // 0 / max(union, 1e-8) is +0 exactly; most pairs do not overlap, and the
-  // IEEE division would send a zero numerator down its range-checked path
+  float iw = fmaxf(rnd<Box>(__fadd_rn(rnd<Box>(__fsub_rn(ix2, ix1)), offset)), 0.0f);
+  float ih = fmaxf(rnd<Box>(__fadd_rn(rnd<Box>(__fsub_rn(iy2, iy1)), offset)), 0.0f);
+  float inter = rnd<Box>(__fmul_rn(iw, ih));
+  // 0 / max(union, 1e-8) is +0 exactly (in bf16 too); most pairs do not
+  // overlap, and the IEEE division would send a zero numerator down its
+  // range-checked path
   if (inter == 0.0f) return 0.0f;
-  float uni = __fsub_rn(__fadd_rn(area_a, area_b), inter);
-  return __fdiv_rn(inter, fmaxf(uni, 1e-8f));
+  float uni = rnd<Box>(__fsub_rn(rnd<Box>(__fadd_rn(area_a, area_b)), inter));
+  return rnd<Box>(__fdiv_rn(inter, fmaxf(uni, rnd<Box>(1e-8f))));
 }
 
+// Box: float4 (float32 boxes) or uint2 (bf16 boxes).
+template <typename Box>
 __global__ void __launch_bounds__(kBlock)
-    nms_mask_kernel(const float4* __restrict__ boxes,  // [G, N]
-                    u64* __restrict__ mask,             // [G, 64 * W, W]
+    nms_mask_kernel(const Box* __restrict__ boxes,  // [G, N]
+                    u64* __restrict__ mask,          // [G, 64 * W, W]
                     int n, int words, float thresh, float offset) {
   // tile index -> (rb, cb), row by row over the upper triangle
   int rb = 0, rest = blockIdx.x;
@@ -127,33 +170,33 @@ __global__ void __launch_bounds__(kBlock)
   const int g = blockIdx.y;
   const int t = threadIdx.x;
   const int i = rb * kBlock + t;
-  const float4* gboxes = boxes + (size_t)g * n;
+  const Box* gboxes = boxes + (size_t)g * n;
 
   __shared__ float4 col[kBlock];
   __shared__ float col_area[kBlock];
   const int j0 = cb * kBlock;
   const int ncol = min(kBlock, n - j0);
   // the row box's load is in flight with the column boxes'
-  const float4 a = i < n ? gboxes[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 a = i < n ? load_box(gboxes[i]) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (t < ncol) {
-    float4 b = gboxes[j0 + t];
+    float4 b = load_box(gboxes[j0 + t]);
     col[t] = b;
-    col_area[t] = box_area(b, offset);
+    col_area[t] = box_area<Box>(b, offset);
   }
   __syncthreads();
   if (i >= n) return;
 
-  const float area_a = box_area(a, offset);
+  const float area_a = box_area<Box>(a, offset);
   u64 bits = 0ull;
   if (cb > rb && ncol == kBlock) {  // a full tile right of the diagonal: no bounds
 #pragma unroll 16
     for (int k = 0; k < kBlock; ++k) {
-      bits |= static_cast<u64>(iou(a, area_a, col[k], col_area[k], offset) > thresh) << k;
+      bits |= static_cast<u64>(iou<Box>(a, area_a, col[k], col_area[k], offset) > thresh) << k;
     }
   } else {
     const int start = (cb == rb) ? t + 1 : 0;  // only j > i
     for (int k = start; k < ncol; ++k) {
-      if (iou(a, area_a, col[k], col_area[k], offset) > thresh) bits |= 1ull << k;
+      if (iou<Box>(a, area_a, col[k], col_area[k], offset) > thresh) bits |= 1ull << k;
     }
   }
   mask[((size_t)g * kBlock * words + i) * words + cb] = bits;
@@ -515,6 +558,21 @@ cudaError_t allow_scan_smem() {
   return cudaSuccess;
 }
 
+template <typename Box>
+int launch_mask(const void* boxes, void* mask, int g, int n, float thresh, float offset,
+                void* stream) {
+  if (g <= 0 || n <= 0) return 0;
+  const int words = (n + kBlock - 1) / kBlock;
+  if (words > kWideMaxWords || g > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  // W (W + 1) / 2 tiles a problem: 200,010,000 at kWideMaxWords, and within
+  // gridDim.x's 2^31 - 1 up to W = 65535; the product overflows an int from
+  // W = 46341, so it is taken in 64 bits
+  dim3 grid(static_cast<unsigned>(static_cast<long long>(words) * (words + 1) / 2), g);
+  nms_mask_kernel<Box><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Box*>(boxes), static_cast<u64*>(mask), n, words, thresh, offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // boxes: [G, N, 4] float32, score-sorted per problem, 16-byte aligned; mask:
@@ -523,16 +581,14 @@ cudaError_t allow_scan_smem() {
 // launch.
 extern "C" int nms_mask(const void* boxes, void* mask, int g, int n, float thresh,
                         float offset, void* stream) {
-  if (g <= 0 || n <= 0) return 0;
-  const int words = (n + kBlock - 1) / kBlock;
-  if (words > kWideMaxWords || g > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // W (W + 1) / 2 tiles a problem: 200,010,000 at kWideMaxWords, and within
-  // gridDim.x's 2^31 - 1 up to W = 65535; the product overflows an int from
-  // W = 46341, so it is taken in 64 bits
-  dim3 grid(static_cast<unsigned>(static_cast<long long>(words) * (words + 1) / 2), g);
-  nms_mask_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<u64*>(mask), n, words, thresh, offset);
-  return static_cast<int>(cudaGetLastError());
+  return launch_mask<float4>(boxes, mask, g, n, thresh, offset, stream);
+}
+
+// nms_mask for bf16 boxes ([G, N, 4] bf16, 8-byte aligned), the IoU rounded
+// to bf16 step by step; thresh is a bf16 value (the caller rounds it).
+extern "C" int nms_mask_bf16(const void* boxes, void* mask, int g, int n, float thresh,
+                             float offset, void* stream) {
+  return launch_mask<uint2>(boxes, mask, g, n, thresh, offset, stream);
 }
 
 // mask: nms_mask's output, 16-byte aligned; valid: [G, N] uint8; keep: [G, N]

@@ -163,8 +163,9 @@
 // still takes 4 channels at a time (4 bf16 in 8 bytes) and converts them to
 // fp32 where pass x reads them. The cells are staged as they are (a 16-byte
 // cp.async carries 8 channels; cp.async cannot convert), so its slices are
-// 64, 32 or 8 channels and the wrappers take a bf16 C a multiple of 8 (K3
-// bf16 likewise: 16-byte copies of g, 16-byte stores of 8 channels). Its
+// 64, 32 or 8 channels and the kernels take a bf16 C a multiple of 8 (K3
+// bf16 likewise: 16-byte copies of g, 16-byte stores of 8 channels; the
+// wrappers pad any other C with zero channels). Its
 // design differs from the fp32 kernel's: halving the bytes left the time of
 // the fp32 kernel's chain almost where it was (PERF.md), so the bf16 kernel
 // is persistent and warp-specialised, the set-up and the copies of the next
@@ -1518,6 +1519,199 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   }
 }
 
+// ------------------------------------------------------------ wide route
+//
+// The instances above hold a RoI's per-axis tables (samples, folds, taps)
+// in static shared memory sized by kMaxSamples, its levels in a by-value
+// table of kMaxLevels, and K3 stages a RoI's whole g (P*P cells) in shared
+// memory: they take P*S <= 64, at most 8 levels, and what their shared
+// memory holds (K3 fp32 at P=56, S=2 would need 250 KB). Every other input
+// the JAX function takes goes through these kernels, which keep no table
+// at all: a thread owns one output value's 4 channels (K2) or one upstream
+// gradient value's 4 channels (K3), computes its bin's samples where it
+// needs them (roi_frame, sample_coord, bilinear: the same arithmetic), and
+// finds its level in a table in device memory of any length. K2's sums
+// are the narrow kernels' in their order (per y tap, the x taps of the bin
+// in sample order, i0 before i1, zero weights skipped; then / S^2), so a
+// value equals theirs bit for bit; K3 adds each sample's four corner
+// contributions, g / S^2 * (wy * wx) as the plain version forms them, into
+// fp32 level gradients with 16-byte atomics. What bounds them is neither
+// bytes nor operations but the gather (K2 reads (2S)^2 cells an output,
+// from L1 and L2) and the atomics (K3); no configuration in configs/ takes
+// this route.
+
+// The level table: [4][num_levels] int64, rows pointer, height, width and
+// the stride's float bits.
+struct WideLevel {
+  const void* ptr;
+  int h, w;
+  float stride;
+};
+
+__device__ __forceinline__ WideLevel wide_level(const long long* __restrict__ table,
+                                                int num_levels, int l) {
+  WideLevel lv;
+  lv.ptr = reinterpret_cast<const void*>(table[l]);
+  lv.h = static_cast<int>(table[num_levels + l]);
+  lv.w = static_cast<int>(table[2 * num_levels + l]);
+  lv.stride = __int_as_float(static_cast<int>(table[3 * num_levels + l]));
+  return lv;
+}
+
+// Output value (n, p, q, c4) of every thread, over the whole batch.
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+    roi_align_forward_wide_kernel(const long long* __restrict__ table, int num_levels,
+                                  const float4* __restrict__ rois,
+                                  const int* __restrict__ levels, T* __restrict__ out,
+                                  long long total, int rois_per_image, int channels, int pool,
+                                  int ratio) {
+  using V4 = typename Vec4<T>::type;
+  const int row4 = channels / 4;
+  const float count = static_cast<float>(ratio * ratio);
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int c4 = static_cast<int>(e % row4);
+    const long long pq = e / row4;
+    const int q = static_cast<int>(pq % pool);
+    const int p = static_cast<int>(pq / pool % pool);
+    const long long n = pq / pool / pool;
+    const WideLevel lv = wide_level(table, num_levels, levels[n]);
+    const RoiFrame f = roi_frame<kAligned>(rois[n], lv.stride, pool);
+    const V4* feat = reinterpret_cast<const V4*>(static_cast<const T*>(lv.ptr) +
+                                                 static_cast<size_t>(n / rois_per_image) * lv.h *
+                                                     lv.w * channels) +
+                     c4;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int ky = p * ratio; ky < (p + 1) * ratio; ++ky) {
+      int y[2];
+      float wy[2];
+      bilinear(sample_coord(f.y1, f.bin_h, ky, ratio), lv.h, &y[0], &y[1], &wy[0], &wy[1]);
+      for (int ey = 0; ey < 2; ++ey) {
+        if (wy[ey] == 0.0f) continue;
+        const V4* line = feat + static_cast<size_t>(y[ey]) * lv.w * row4;
+        float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int kx = q * ratio; kx < (q + 1) * ratio; ++kx) {
+          int x0, x1;
+          float wx0, wx1;
+          bilinear(sample_coord(f.x1, f.bin_w, kx, ratio), lv.w, &x0, &x1, &wx0, &wx1);
+          if (wx0 != 0.0f) fma4(t, to_float4(line[static_cast<size_t>(x0) * row4]), wx0);
+          if (wx1 != 0.0f) fma4(t, to_float4(line[static_cast<size_t>(x1) * row4]), wx1);
+        }
+        fma4(acc, t, wy[ey]);
+      }
+    }
+    store4(reinterpret_cast<V4*>(out) + e,
+           make_float4(acc.x / count, acc.y / count, acc.z / count, acc.w / count));
+  }
+}
+
+// Upstream gradient value (n, p, q, c4) of every thread: its S x S samples'
+// corner contributions added into the fp32 level gradients of `table`.
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+    roi_align_backward_wide_kernel(const long long* __restrict__ table, int num_levels,
+                                   const float4* __restrict__ rois,
+                                   const int* __restrict__ levels,
+                                   const T* __restrict__ grad_out, long long total,
+                                   int rois_per_image, int channels, int pool, int ratio) {
+  using V4 = typename Vec4<T>::type;
+  const int row4 = channels / 4;
+  const float count = static_cast<float>(ratio * ratio);
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int c4 = static_cast<int>(e % row4);
+    const long long pq = e / row4;
+    const int q = static_cast<int>(pq % pool);
+    const int p = static_cast<int>(pq / pool % pool);
+    const long long n = pq / pool / pool;
+    const WideLevel lv = wide_level(table, num_levels, levels[n]);
+    const RoiFrame f = roi_frame<kAligned>(rois[n], lv.stride, pool);
+    float4 g = to_float4(reinterpret_cast<const V4*>(grad_out)[e]);
+    g = make_float4(g.x / count, g.y / count, g.z / count, g.w / count);
+    float4* grad = reinterpret_cast<float4*>(
+                       static_cast<float*>(const_cast<void*>(lv.ptr)) +
+                       static_cast<size_t>(n / rois_per_image) * lv.h * lv.w * channels) +
+                   c4;
+    for (int ky = p * ratio; ky < (p + 1) * ratio; ++ky) {
+      int y[2];
+      float wy[2];
+      bilinear(sample_coord(f.y1, f.bin_h, ky, ratio), lv.h, &y[0], &y[1], &wy[0], &wy[1]);
+      for (int kx = q * ratio; kx < (q + 1) * ratio; ++kx) {
+        int x[2];
+        float wx[2];
+        bilinear(sample_coord(f.x1, f.bin_w, kx, ratio), lv.w, &x[0], &x[1], &wx[0], &wx[1]);
+        for (int ey = 0; ey < 2; ++ey) {
+          for (int ex = 0; ex < 2; ++ex) {
+            const float w = __fmul_rn(wy[ey], wx[ex]);
+            if (w == 0.0f) continue;
+            atomicAdd(grad + (static_cast<size_t>(y[ey]) * lv.w + x[ex]) * row4,
+                      make_float4(__fmul_rn(g.x, w), __fmul_rn(g.y, w), __fmul_rn(g.z, w),
+                                  __fmul_rn(g.w, w)));
+          }
+        }
+      }
+    }
+  }
+}
+
+// K3 bf16's pre-pass for the wide route, one warp a RoI: the first and last
+// cell of each axis's nonzero taps, as roi_tap_bounds_kernel gives them,
+// from a min and a max over the warp.
+template <bool kAligned>
+__global__ void __launch_bounds__(32 * kBoundsWarps)
+    roi_tap_bounds_wide_kernel(const long long* __restrict__ table, int num_levels,
+                               const float4* __restrict__ rois,
+                               const int* __restrict__ levels, int4* __restrict__ bounds,
+                               int num_rois, int pool, int ratio) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const int n = blockIdx.x * kBoundsWarps + threadIdx.x / 32;
+  if (n >= num_rois) return;  // warp-uniform
+  const WideLevel lv = wide_level(table, num_levels, levels[n]);
+  const RoiFrame f = roi_frame<kAligned>(rois[n], lv.stride, pool);
+  const int samples = pool * ratio;
+  int first[2], last[2];
+  for (int a = 0; a < 2; ++a) {
+    int lo = 0x7fffffff, hi = -1;
+    for (int k = lane; k < samples; k += 32) {
+      int i0, i1;
+      float w0, w1;
+      bilinear(sample_coord(a ? f.y1 : f.x1, a ? f.bin_h : f.bin_w, k, ratio),
+               a ? lv.h : lv.w, &i0, &i1, &w0, &w1);
+      if (w0 != 0.0f) {
+        lo = min(lo, i0);
+        hi = max(hi, i0);
+      }
+      if (w1 != 0.0f) {
+        lo = min(lo, i1);
+        hi = max(hi, i1);
+      }
+    }
+    hi = __reduce_max_sync(full, hi);
+    lo = __reduce_min_sync(full, lo);
+    first[a] = hi < 0 ? 0 : lo;
+    last[a] = hi;
+  }
+  if (lane == 0) bounds[n] = make_int4(first[0], last[0], first[1], last[1]);
+}
+
+// fp32 -> bf16, nearest even, 4 values a thread.
+__global__ void __launch_bounds__(kThreads)
+    cast_bf16_kernel(const float4* __restrict__ src, uint2* __restrict__ dst, long long n4) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    store4(dst + i, src[i]);
+  }
+}
+
+// Blocks of a grid-stride launch over `total` items: enough to fill the
+// card several times over, within gridDim.x.
+unsigned wide_blocks(long long total) {
+  return static_cast<unsigned>(std::max(1ll, std::min((total + kThreads - 1) / kThreads,
+                                                      static_cast<long long>(1) << 20)));
+}
+
 // ------------------------------------------------------------ launching
 
 template <typename T, typename Ptr>
@@ -1877,6 +2071,65 @@ int tiles_entry(void* const* grads, const int* heights, const int* widths,
   }
 }
 
+// Whether the narrow instances take an input: kind 0 K2 fp32, 1 K2 bf16,
+// 2 K3 fp32, 3 K3 bf16 (the pre-pass and the tile kernel), 4 the pre-pass
+// alone; C already a multiple of 4 (bf16: 8). The rest go the wide route.
+bool narrow_takes(int kind, int channels, int pool, int ratio, int num_levels) {
+  if (bad_args(num_levels, pool, ratio)) return false;
+  switch (kind) {
+    case 0: {
+      const auto bytes = [](int p, int r, int slice) { return fwd_smem_bytes(p, r, slice, 4); };
+      return pick_slice({64, 32, 4}, channels, pool, ratio, kFwdSmemLimit, bytes) != 0;
+    }
+    case 1:
+      return channels % 8 == 0 && bf16_slice(channels, pool, ratio) != 0;
+    case 2:
+      return pick_slice({32, 16, 8, 4}, channels, pool, ratio, kBwdSmemLimit,
+                        bwd_smem_bytes) != 0;
+    case 3: {
+      if (channels % 8) return false;
+      if (channels % kWideSlice == 0 &&
+          tile_smem_bytes(kWideTile, pool, kWideSlice) <= kWideSmemLimit) {
+        return true;
+      }
+      const auto bytes = [](int p, int, int slice) { return tile_smem_bytes(kTile, p, slice); };
+      return pick_slice({32, 16, 8}, channels, pool, ratio, kTileSmemLimit, bytes) != 0;
+    }
+    case 4:
+      return true;
+    default:
+      return false;
+  }
+}
+
+template <typename T, bool kAligned>
+int forward_wide_entry(const void* table, int num_levels, const void* rois, const void* levels,
+                       void* out, int num_rois, int rois_per_image, int channels, int pool,
+                       int ratio, void* stream) {
+  const long long total = static_cast<long long>(num_rois) * pool * pool * (channels / 4);
+  if (total <= 0) return 0;
+  roi_align_forward_wide_kernel<T, kAligned>
+      <<<wide_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const long long*>(table), num_levels, static_cast<const float4*>(rois),
+          static_cast<const int*>(levels), static_cast<T*>(out), total, rois_per_image,
+          channels, pool, ratio);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kAligned>
+int backward_wide_entry(const void* table, int num_levels, const void* rois,
+                        const void* levels, const void* grad_out, int num_rois,
+                        int rois_per_image, int channels, int pool, int ratio, void* stream) {
+  const long long total = static_cast<long long>(num_rois) * pool * pool * (channels / 4);
+  if (total <= 0) return 0;
+  roi_align_backward_wide_kernel<T, kAligned>
+      <<<wide_blocks(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const long long*>(table), num_levels, static_cast<const float4*>(rois),
+          static_cast<const int*>(levels), static_cast<const T*>(grad_out), total,
+          rois_per_image, channels, pool, ratio);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Every entry that runs a kernel takes `aligned` (0 or 1) before the stream:
@@ -1984,4 +2237,76 @@ extern "C" int roi_align_backward_tiles_bf16(void* const* grads, const int* heig
                  : tiles_entry<false>(grads, heights, widths, strides, num_levels, rois, levels,
                                       bounds, grad_out, num_images, rois_per_image, channels,
                                       pool, ratio, stream);
+}
+
+// The wide route (see the section's note): every input the narrow instances
+// do not take (roi_align_narrow), any level count, any P * S. table: device
+// memory, [4][num_levels] int64 (level pointers, heights, widths, the
+// strides' float bits); C a multiple of 4; levels and g 16-byte aligned.
+// bf16: 1 for bf16 features and output (K2) or upstream gradient (K3).
+
+// Whether the narrow instances take C channels at P and S over num_levels
+// levels: kind 0 K2 float32, 1 K2 bf16, 2 K3 float32, 3 K3 bf16 (pre-pass
+// and tile kernel), 4 the pre-pass alone. 1: they do; 0: the wide route.
+extern "C" int roi_align_narrow(int kind, int channels, int pool, int ratio, int num_levels) {
+  return narrow_takes(kind, channels, pool, ratio, num_levels) ? 1 : 0;
+}
+
+// K2 on the wide route: out [num_rois, P, P, C] of the features' type.
+extern "C" int roi_align_forward_wide(const void* table, int num_levels, const void* rois,
+                                      const void* levels, void* out, int num_rois,
+                                      int rois_per_image, int channels, int pool, int ratio,
+                                      int bf16, int aligned, void* stream) {
+  if (num_levels < 1 || pool < 1 || ratio < 1 || channels % 4 || rois_per_image <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto entry =
+      bf16 ? (aligned ? forward_wide_entry<__nv_bfloat16, true>
+                      : forward_wide_entry<__nv_bfloat16, false>)
+           : (aligned ? forward_wide_entry<float, true> : forward_wide_entry<float, false>);
+  return entry(table, num_levels, rois, levels, out, num_rois, rois_per_image, channels, pool,
+               ratio, stream);
+}
+
+// K3 on the wide route: adds the gradient of every RoI into the zero-filled
+// fp32 level gradients of `table`, from grad_out [num_rois, P, P, C] fp32
+// or (bf16) bf16.
+extern "C" int roi_align_backward_wide(const void* table, int num_levels, const void* rois,
+                                       const void* levels, const void* grad_out, int num_rois,
+                                       int rois_per_image, int channels, int pool, int ratio,
+                                       int bf16, int aligned, void* stream) {
+  if (num_levels < 1 || pool < 1 || ratio < 1 || channels % 4 || rois_per_image <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto entry =
+      bf16 ? (aligned ? backward_wide_entry<__nv_bfloat16, true>
+                      : backward_wide_entry<__nv_bfloat16, false>)
+           : (aligned ? backward_wide_entry<float, true> : backward_wide_entry<float, false>);
+  return entry(table, num_levels, rois, levels, grad_out, num_rois, rois_per_image, channels,
+               pool, ratio, stream);
+}
+
+// roi_tap_bounds on the wide route (the table's pointers are not read).
+extern "C" int roi_tap_bounds_wide(const void* table, int num_levels, const void* rois,
+                                   const void* levels, void* bounds, int num_rois, int pool,
+                                   int ratio, int aligned, void* stream) {
+  if (num_levels < 1 || pool < 1 || ratio < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rois <= 0) return 0;
+  const auto kernel = aligned ? roi_tap_bounds_wide_kernel<true> : roi_tap_bounds_wide_kernel<false>;
+  kernel<<<(num_rois + kBoundsWarps - 1) / kBoundsWarps, 32 * kBoundsWarps, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(table), num_levels, static_cast<const float4*>(rois),
+      static_cast<const int*>(levels), static_cast<int4*>(bounds), num_rois, pool, ratio);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dst [n] bf16 = src [n] fp32 rounded to nearest even; n a multiple of 4,
+// both 16-byte aligned (dst 8-byte). The wide route's K3 bf16 writes its
+// level gradients so, each rounded once after every RoI's sum.
+extern "C" int cast_bf16(const void* src, void* dst, long long n, void* stream) {
+  if (n % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  cast_bf16_kernel<<<wide_blocks(n / 4), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(src), static_cast<uint2*>(dst), n / 4);
+  return static_cast<int>(cudaGetLastError());
 }

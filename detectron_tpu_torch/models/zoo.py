@@ -94,7 +94,7 @@ class Detector:
         if self.device.type == "cuda":
             check_nms_contract(cfg, len(retina.RETINA_STRIDES))
             if self.is_two_stage and cfg.roi.pool_type != "pool":
-                check_roi_align_contract(cfg, self.dtype, len(frcnn.ROI_STRIDES))
+                check_roi_align_contract(cfg, self.dtype)
         self.module.to(device=self.device).eval()
 
     def init(self, seed: int = 0) -> dict:

@@ -58,27 +58,44 @@ def greedy_keep_plain(sboxes: torch.Tensor, svalid: torch.Tensor,
 @functools.cache
 def _nms_lib() -> ctypes.CDLL:
     lib = _build.load("nms")
-    lib.nms_mask.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    for fn in (lib.nms_mask, lib.nms_mask_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.nms_scan.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for fn in (lib.nms_mask, lib.nms_scan):
+    for fn in (lib.nms_mask, lib.nms_mask_bf16, lib.nms_scan):
         fn.restype = ctypes.c_int
     return lib
+
+
+# The box dtypes K1 has an instance for: the JAX config's model.dtype takes
+# float32 and bfloat16, and the JAX kernel computes the IoU in the boxes' dtype.
+BOX_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def threshold_in(thresh: float, dtype: torch.dtype) -> float:
+    """``thresh`` as ``iou > thresh`` compares it with IoUs of ``dtype``:
+    PyTorch and JAX both round a Python number to a bf16 tensor's dtype
+    (0.7 -> 0.69921875); float32 is what the kernel's ``float`` gives."""
+    return float(torch.tensor(thresh, dtype=dtype)) if dtype == torch.bfloat16 else thresh
 
 
 def nms_mask_cuda(sboxes: torch.Tensor, thresh: float, offset: float = 0.0) -> torch.Tensor:
     """The first launch of K1: every IoU bit of the upper triangle, as
     ``int64 [G, 64 * W, W]`` words (``W = ceil(N / 64)``; the rows past N
-    are padding that the scan never reads). Takes what
-    :func:`greedy_keep_cuda` has checked; counts nothing (the pair counts
-    as one launch of K1)."""
+    are padding that the scan never reads), by the instance of the boxes'
+    dtype (bf16: the IoU rounded to bf16 step by step, against ``thresh``
+    rounded to bf16). Takes what :func:`greedy_keep_cuda` has checked;
+    counts nothing (the pair counts as one launch of K1)."""
     g, n = sboxes.shape[:2]
     words = -(-n // 64)
     mask = torch.empty((g, 64 * words, words), dtype=torch.int64, device=sboxes.device)
+    lib = _nms_lib()
+    entry = lib.nms_mask_bf16 if sboxes.dtype == torch.bfloat16 else lib.nms_mask
     with torch.cuda.device(sboxes.device):
-        err = _nms_lib().nms_mask(sboxes.data_ptr(), mask.data_ptr(), g, n, thresh,
-                                  offset, _build.stream_handle(sboxes.device))
+        err = entry(sboxes.data_ptr(), mask.data_ptr(), g, n,
+                    threshold_in(thresh, sboxes.dtype), offset,
+                    _build.stream_handle(sboxes.device))
     _build.check(err, "nms_mask")
     return mask
 
@@ -104,21 +121,24 @@ def greedy_keep_cuda(sboxes: torch.Tensor, svalid: torch.Tensor,
     """:func:`greedy_keep_plain` as the CUDA kernel pair of ``csrc/nms.cu``:
     one launch of all IoU bit masks, one launch of the sequential scans
     (each problem's stops at ``max_keep`` kept boxes), for all G problems
-    at once. Never synchronises with the host. N up to
+    at once. Never synchronises with the host. Boxes float32 or bfloat16
+    (:data:`BOX_DTYPES`; the IoU in the boxes' dtype, as the JAX kernel
+    computes it); a view or a misaligned tensor is copied once. N up to
     :data:`NMS_MAX_BOXES`; the mask takes ``G * 64W * W * 8`` bytes
     (about ``G * N**2 / 8``), and its allocation raises where the card's
     memory does not hold it."""
+    if sboxes.dtype not in BOX_DTYPES or svalid.dtype != torch.bool:
+        raise TypeError(f"greedy_keep_cuda takes float32 or bfloat16 boxes and bool valid, "
+                        f"not {sboxes.dtype} boxes and {svalid.dtype} valid")
     if not (sboxes.is_cuda and svalid.device == sboxes.device):
         raise ValueError("greedy_keep_cuda takes CUDA tensors on one device")
-    if sboxes.dtype != torch.float32 or svalid.dtype != torch.bool:
-        raise TypeError("greedy_keep_cuda takes float32 boxes and bool valid")
     if sboxes.dim() != 3 or sboxes.shape[2] != 4 or svalid.shape != sboxes.shape[:2]:
         raise ValueError(f"shapes {tuple(sboxes.shape)} / {tuple(svalid.shape)}: "
                          "want boxes [G, N, 4] and valid [G, N]")
-    if not (sboxes.is_contiguous() and svalid.is_contiguous()):
-        raise ValueError("greedy_keep_cuda takes contiguous tensors")
-    if sboxes.data_ptr() % 16:
-        raise ValueError("greedy_keep_cuda reads boxes as float4: 16-byte alignment")
+    # the kernel reads a box as one float4 (float32) or uint2 (bf16)
+    if not sboxes.is_contiguous() or sboxes.data_ptr() % (4 * sboxes.element_size()):
+        sboxes = sboxes.clone(memory_format=torch.contiguous_format)
+    svalid = svalid.contiguous()
     if max_keep is not None and max_keep < 0:
         raise ValueError(f"max_keep={max_keep}: want None or >= 0")
     keep = nms_scan_cuda(nms_mask_cuda(sboxes, thresh, offset), svalid, max_keep)

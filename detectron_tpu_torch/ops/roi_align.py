@@ -26,9 +26,11 @@ output (forward) and the level gradients (backward) come in the features'
 dtype, every sum is float32, and a bf16 result is the float32 result on
 the upcast inputs rounded once. The Pallas backward rounds each level's
 gradient to bf16 after every RoI's window; the port rounds it once, after
-all RoIs (a stated divergence, the more accurate of the two).
-:func:`check_roi_align_contract` states what the kernels take, for a
-config, before a detector runs.
+all RoIs (a stated divergence, the more accurate of the two). On the card
+the kernels take every input the plain versions take (any C, level
+layout, ``output_size * sampling_ratio`` and level count: padding, a
+copy, or the wide route's kernels); :func:`check_roi_align_contract`
+refuses, when a detector is built, only a dtype without an instance.
 """
 
 from __future__ import annotations
@@ -230,38 +232,37 @@ def multilevel_roi_align_bwd_plain(grad: torch.Tensor, level_hw, rois: torch.Ten
             for o, n, (h, w) in zip(offsets, sizes, level_hw)]
 
 
-# What K2 and K3 take (csrc/roi_align.cu: kMaxLevels, kMaxSamples, and the
-# channel multiple of each instance's 16-byte copies or float4 atomics).
+# The narrow instances of K2 and K3 (csrc/roi_align.cu: kMaxLevels,
+# kMaxSamples, and what their shared memory holds) take at most this many
+# levels and P * S samples along an axis; every other input goes through the
+# wide route's kernels, which take any (roi_align_narrow says which).
 MAX_LEVELS = 8
-MAX_SAMPLES = 64  # output_size * sampling_ratio along one axis
+MAX_SAMPLES = 64
+# The channel multiple of each dtype's instances (16-byte copies, float4
+# atomics): the wrappers pad C up to it with zero channels.
 CHANNEL_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
+# roi_align_narrow's kinds
+K2_F32, K2_BF16, K3_F32, K3_BF16, K3_BOUNDS = range(5)
 
 
-def check_roi_align_contract(cfg, dtype: torch.dtype, num_levels: int = 4) -> None:
-    """Raises ``ValueError`` where ``cfg`` (computing in ``dtype``, pooling
-    from ``num_levels`` FPN levels) asks kernels K2 and K3 for what they do
-    not take, naming the limit and the config key, so that a detector on
-    the card fails when it is built and not in the middle of a call. The
-    plain versions, on the CPU, take anything."""
+def check_roi_align_contract(cfg, dtype: torch.dtype) -> None:
+    """Raises ``ValueError``, naming the config key, where ``cfg`` (computing
+    in ``dtype``) asks kernels K2 and K3 for what they cannot run, so that a
+    detector on the card fails when it is built and not in the middle of a
+    call: a dtype without an instance (``model.dtype``: float32 and bfloat16
+    have one, as the JAX config takes no other), or a pool size or sampling
+    ratio below 1, which no RoIAlign computes. Every channel count, pool
+    size, sampling ratio and level count runs on the card (the wide route
+    past the narrow instances); no limit remains but the card's memory."""
     if dtype not in CHANNEL_MULTIPLE:
         raise ValueError(f"model.dtype: the RoIAlign kernels take float32 or bfloat16, "
                          f"not {dtype}")
-    multiple = CHANNEL_MULTIPLE[dtype]
-    channels = cfg.model.fpn_channels
-    if channels % multiple:
-        raise ValueError(f"model.fpn_channels={channels}: the {dtype} RoIAlign kernels take "
-                         f"channels in multiples of {multiple}")
-    sizes = [("roi.pool_size", cfg.roi.pool_size)]
+    sizes = [("roi.pool_size", cfg.roi.pool_size), ("roi.sampling_ratio", cfg.roi.sampling_ratio)]
     if cfg.model.name == "mask_rcnn":
         sizes.append(("roi.mask_pool_size", cfg.roi.mask_pool_size))
-    ratio = cfg.roi.sampling_ratio
     for key, size in sizes:
-        if not (size >= 1 and ratio >= 1 and size * ratio <= MAX_SAMPLES):
-            raise ValueError(f"{key}={size} x roi.sampling_ratio={ratio} = {size * ratio} "
-                             f"samples an axis: the RoIAlign kernels take 1..{MAX_SAMPLES}")
-    if not 1 <= num_levels <= MAX_LEVELS:
-        raise ValueError(f"{num_levels} pooled FPN levels: the RoIAlign kernels take "
-                         f"1..{MAX_LEVELS}")
+        if size < 1:
+            raise ValueError(f"{key}={size}: RoIAlign needs at least 1")
 
 
 @functools.cache
@@ -279,29 +280,67 @@ def _roi_align_lib() -> ctypes.CDLL:
         ctypes.POINTER(ptr), *geometry, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
     lib.roi_align_forward_bf16_plan.argtypes = [i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
     lib.roi_align_forward_bf16_plan.restype = None
+    lib.roi_align_narrow.argtypes = [i32] * 5
+    # the wide route: (table, levels), rois, routing, out or g, then as above, bf16, aligned
+    for fn in (lib.roi_align_forward_wide, lib.roi_align_backward_wide):
+        fn.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    lib.roi_tap_bounds_wide.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+    lib.cast_bf16.argtypes = [ptr, ptr, ctypes.c_longlong, ptr]
     for fn in (lib.roi_align_forward, lib.roi_align_forward_bf16, lib.roi_align_backward,
-               lib.roi_tap_bounds, lib.roi_align_backward_tiles_bf16):
+               lib.roi_tap_bounds, lib.roi_align_backward_tiles_bf16, lib.roi_align_narrow,
+               lib.roi_align_forward_wide, lib.roi_align_backward_wide,
+               lib.roi_tap_bounds_wide, lib.cast_bf16):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_launch_args(rois, levels, num_levels, strides, p, s):
-    """Checks what K2 and K3 share: RoIs, routing, level count, sizes."""
-    if not 1 <= num_levels <= MAX_LEVELS or len(strides) != num_levels:
-        raise ValueError(f"{num_levels} levels and {len(strides)} strides: "
-                         f"want 1..{MAX_LEVELS} of each")
-    if not (rois.is_cuda and rois.dtype == torch.float32 and rois.dim() == 3
-            and rois.shape[2] == 4 and rois.is_contiguous()
-            and rois.data_ptr() % 16 == 0):
-        raise ValueError("rois: a contiguous, 16-byte aligned float32 [B, R, 4] "
-                         "CUDA tensor")
-    if not (levels.device == rois.device and levels.dtype == torch.int32
-            and levels.shape == rois.shape[:2] and levels.is_contiguous()):
-        raise ValueError("levels: a contiguous int32 [B, R] tensor on the RoIs' "
-                         "device")
-    if p * s > MAX_SAMPLES or p < 1 or s < 1:
-        raise ValueError(f"output_size * sampling_ratio = {p * s}: the kernel "
-                         f"takes 1..{MAX_SAMPLES} samples per axis")
+def narrow_takes(kind: int, channels: int, p: int, s: int, num_levels: int) -> bool:
+    """Whether the narrow instances of ``kind`` (``K2_F32`` .. ``K3_BOUNDS``)
+    take ``channels`` (a multiple of the dtype's) at P and S over
+    ``num_levels`` levels: at most :data:`MAX_LEVELS` levels and
+    :data:`MAX_SAMPLES` samples an axis, and a channel slice whose shared
+    memory fits (the library's ``roi_align_narrow``). Else the wide
+    route."""
+    if num_levels > MAX_LEVELS or p * s > MAX_SAMPLES:
+        return False
+    return bool(_roi_align_lib().roi_align_narrow(kind, channels, p, s, num_levels))
+
+
+def kernel_ready(t: torch.Tensor, channels: int | None = None) -> torch.Tensor:
+    """``t`` as the kernels read it: contiguous, 16-byte aligned and, with
+    ``channels``, its last dimension padded to that many with zero
+    channels. A tensor that is all that already is returned as it is; any
+    other is copied once, into a fresh allocation (the caching allocator's
+    are 512-byte aligned)."""
+    if channels is not None and t.shape[-1] != channels:
+        return torch.nn.functional.pad(t, (0, channels - t.shape[-1]))
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def padded_channels(c: int, dtype: torch.dtype) -> int:
+    """C rounded up to the channel multiple of ``dtype``'s instances."""
+    multiple = CHANNEL_MULTIPLE[dtype]
+    return -(-c // multiple) * multiple
+
+
+def _launch_args(rois, levels, num_levels, strides, p, s):
+    """Checks what K2 and K3 share (RoIs, routing, level count, sizes) and
+    returns the RoIs and routing as the kernels read them: float32 RoIs,
+    int32 routing, both contiguous and aligned."""
+    if num_levels < 1 or len(strides) != num_levels:
+        raise ValueError(f"{num_levels} levels and {len(strides)} strides: want as many "
+                         "strides as levels, at least one")
+    if not (rois.is_cuda and rois.is_floating_point() and rois.dim() == 3
+            and rois.shape[2] == 4):
+        raise ValueError("rois: a floating-point [B, R, 4] CUDA tensor")
+    if not (levels.device == rois.device and levels.shape == rois.shape[:2]):
+        raise ValueError("levels: a [B, R] tensor on the RoIs' device")
+    if p < 1 or s < 1:
+        raise ValueError(f"output_size={p}, sampling_ratio={s}: RoIAlign needs at least 1 of "
+                         "each")
+    return kernel_ready(rois.float()), kernel_ready(levels.to(torch.int32))
 
 
 def _level_args(tensors, strides):
@@ -310,6 +349,18 @@ def _level_args(tensors, strides):
             (ctypes.c_int * n)(*[t.shape[1] for t in tensors]),
             (ctypes.c_int * n)(*[t.shape[2] for t in tensors]),
             (ctypes.c_float * n)(*[float(x) for x in strides]), n)
+
+
+def level_table(ptrs, level_hw, strides, device) -> torch.Tensor:
+    """The wide route's level table in device memory: ``[4, n]`` int64 rows
+    of level pointers, heights, widths and the strides' float32 bits, any
+    ``n``. Filled in pinned host memory and copied without a host sync."""
+    host = torch.empty((4, len(level_hw)), dtype=torch.int64, pin_memory=True)
+    host[0] = torch.tensor([int(x) for x in ptrs], dtype=torch.int64)
+    host[1] = torch.tensor([int(h) for h, _ in level_hw], dtype=torch.int64)
+    host[2] = torch.tensor([int(w) for _, w in level_hw], dtype=torch.int64)
+    host[3] = torch.tensor([float(x) for x in strides]).view(torch.int32).to(torch.int64)
+    return host.to(device, non_blocking=True)
 
 
 def _kernel_dtype(dtype: torch.dtype, what: str) -> int:
@@ -330,40 +381,77 @@ def multilevel_roi_align_cuda(features: Sequence[torch.Tensor], rois: torch.Tens
     features (read as they are, summed in float32, written bf16) go
     through a persistent, warp-specialised kernel whose set-up and copies
     run beside its passes (:func:`k2_bf16_plan`). Deterministic (no
-    atomics). Float32 features take C a multiple of 4, bfloat16 ones a
-    multiple of 8; levels 16-byte aligned. ``aligned`` selects the kernels'
-    aligned instances (the half-cell shift, no minimum extent)."""
-    f0 = features[0]
+    atomics). ``aligned`` selects the kernels' aligned instances (the
+    half-cell shift, no minimum extent).
+
+    Takes every input the plain version takes, in float32 or bfloat16: a C
+    that is not a multiple of 4 (bf16: 8) is padded with zero channels and
+    the output sliced back; a level that is a view or misaligned is copied
+    once (:func:`kernel_ready`); more than :data:`MAX_LEVELS` levels, more
+    than :data:`MAX_SAMPLES` samples an axis, or sizes whose shared memory
+    the narrow instances do not hold go through the wide route's kernel
+    (:func:`narrow_takes`), which gives the same values."""
     p, s = output_size, sampling_ratio
-    _check_launch_args(rois, levels, len(features), strides, p, s)
+    rois, levels = _launch_args(rois, levels, len(features), strides, p, s)
+    f0 = features[0]
     b, r = rois.shape[:2]
     c = f0.shape[-1]
-    multiple = _kernel_dtype(f0.dtype, "features")
+    _kernel_dtype(f0.dtype, "features")
     for f in features:
         if not (f.is_cuda and f.device == rois.device and f.dtype == f0.dtype
-                and f.dim() == 4 and f.shape[0] == b and f.shape[3] == c
-                and f.is_contiguous()):
-            raise ValueError("features: contiguous NHWC CUDA tensors of one dtype on the "
-                             "RoIs' device, one batch and channel count")
-    if c % multiple or any(f.data_ptr() % 16 for f in features):
-        # so that every cell's slice is whole 16-byte copies
-        raise ValueError(f"features: K2 copies 16 bytes at a time and takes {f0.dtype} C a "
-                         f"multiple of {multiple} (C={c}) and 16-byte aligned levels")
-    out = torch.empty((b, r, p, p, c), dtype=f0.dtype, device=rois.device)
+                and f.dim() == 4 and f.shape[0] == b and f.shape[3] == c):
+            raise ValueError("features: NHWC CUDA tensors of one dtype on the RoIs' device, "
+                             "one batch and channel count")
     if b * r == 0 or c == 0:
-        return out
-    lib = _roi_align_lib()
-    fn = lib.roi_align_forward if f0.dtype == torch.float32 else lib.roi_align_forward_bf16
-    with torch.cuda.device(rois.device):
-        err = fn(*_level_args(features, strides), rois.data_ptr(), levels.data_ptr(),
-                 out.data_ptr(), b * r, r, c, p, s, int(aligned),
-                 _build.stream_handle(rois.device))
-    _build.check(err, "roi_align_forward")
+        return torch.empty((b, r, p, p, c), dtype=f0.dtype, device=rois.device)
+    out = roi_align_forward_padded(features, rois, levels, strides, p, s, aligned)
     multilevel_roi_align_cuda.launches += 1
     return out
 
 
 multilevel_roi_align_cuda.launches = 0
+
+
+def roi_align_forward_padded(features, rois, levels, strides, p, s, aligned):
+    """K2's one launch on checked inputs (RoIs and routing kernel-ready):
+    the levels padded to the dtype's channel multiple and made kernel-ready,
+    the route picked (:func:`narrow_takes`), then :func:`roi_align_fwd_launch`;
+    the output sliced back to the features' C."""
+    c = features[0].shape[-1]
+    cp = padded_channels(c, features[0].dtype)
+    feats = [kernel_ready(f, cp) for f in features]
+    kind = K2_BF16 if feats[0].dtype == torch.bfloat16 else K2_F32
+    narrow = narrow_takes(kind, cp, p, s, len(feats))
+    out = roi_align_fwd_launch(narrow, feats, rois, levels, strides, p, s, aligned)
+    return out if cp == c else out[..., :c]
+
+
+def roi_align_fwd_launch(narrow: bool, features, rois, levels, strides, p, s,
+                         aligned) -> torch.Tensor:
+    """K2's launch alone, on kernel-ready inputs (C a multiple of the
+    dtype's): the narrow instance of the features' dtype, or the wide
+    route's kernel. Returns ``[B, R, P, P, C]``; counts nothing."""
+    f0 = features[0]
+    b, r = rois.shape[:2]
+    c = f0.shape[-1]
+    bf16 = f0.dtype == torch.bfloat16
+    out = torch.empty((b, r, p, p, c), dtype=f0.dtype, device=rois.device)
+    lib = _roi_align_lib()
+    stream = _build.stream_handle(rois.device)
+    with torch.cuda.device(rois.device):
+        if narrow:
+            fn = lib.roi_align_forward_bf16 if bf16 else lib.roi_align_forward
+            err = fn(*_level_args(features, strides), rois.data_ptr(), levels.data_ptr(),
+                     out.data_ptr(), b * r, r, c, p, s, int(aligned), stream)
+        else:
+            table = level_table([f.data_ptr() for f in features],
+                                [f.shape[1:3] for f in features], strides, rois.device)
+            err = lib.roi_align_forward_wide(table.data_ptr(), len(features), rois.data_ptr(),
+                                             levels.data_ptr(), out.data_ptr(), b * r, r, c,
+                                             p, s, int(bf16), int(aligned), stream)
+    _build.check(err, "roi_align_forward" + ("" if narrow else "_wide"))
+    return out
+
 
 K2_BF16_PLAN = ("slice", "ring_rows", "stage_cells", "smem_bytes", "threads", "blocks_per_sm")
 
@@ -371,9 +459,9 @@ K2_BF16_PLAN = ("slice", "ring_rows", "stage_cells", "smem_bytes", "threads", "b
 def k2_bf16_plan(channels: int, output_size: int, sampling_ratio: int) -> dict:
     """How K2's bf16 kernel runs ``channels`` channels at P and S (its C
     entry ``roi_align_forward_bf16_plan``): the channel slice of a work item
-    (0: refused), the rows of its fp32 ring, the cells of a stage, a
-    block's dynamic shared memory, its threads and the blocks an SM. Loads
-    the kernel library."""
+    (0: not this kernel, the wide route), the rows of its fp32 ring, the
+    cells of a stage, a block's dynamic shared memory, its threads and the
+    blocks an SM. Loads the kernel library."""
     plan = (ctypes.c_int * len(K2_BF16_PLAN))()
     _roi_align_lib().roi_align_forward_bf16_plan(channels, output_size, sampling_ratio, plan)
     return dict(zip(K2_BF16_PLAN, plan))
@@ -386,50 +474,80 @@ def multilevel_roi_align_bwd_cuda(grad: torch.Tensor, level_hw, rois: torch.Tens
     """:func:`multilevel_roi_align_bwd_plain` as kernel K3 of
     ``csrc/roi_align.cu``, by the route of ``grad``'s dtype.
 
-    float32 (C a multiple of 4): one zero fill of all levels' float32
-    gradients, then one launch that builds each RoI's gradient window on
-    chip and adds it into them, one 16-byte atomic add per touched cell and
-    4 channels (the order in which overlapping RoIs add, and so the last
-    bits, varies from run to run).
+    float32: one zero fill of all levels' float32 gradients, then one
+    launch that builds each RoI's gradient window on chip and adds it into
+    them, one 16-byte atomic add per touched cell and 4 channels (the order
+    in which overlapping RoIs add, and so the last bits, varies from run to
+    run).
 
-    bfloat16 (C a multiple of 8): the pre-pass :func:`roi_tap_bounds_cuda`
-    (each RoI's cell range of nonzero taps), then one launch,
-    :func:`roi_align_bwd_tiles_cuda`, in which a block sums a tile of one
-    level over the RoIs that meet it, in float32 and ascending order, and
-    writes it to bf16 once: no fill, no atomics, no cast pass, and the
-    result is bitwise deterministic. ``grad`` 16-byte aligned."""
+    bfloat16: the pre-pass :func:`roi_tap_bounds_cuda` (each RoI's cell
+    range of nonzero taps), then one launch, :func:`roi_align_bwd_tiles_cuda`,
+    in which a block sums a tile of one level over the RoIs that meet it,
+    in float32 and ascending order, and writes it to bf16 once: no fill, no
+    atomics, no cast pass, and the result is bitwise deterministic.
+
+    Takes every input the plain version takes, as K2 does: C padded to the
+    dtype's multiple (each level gradient sliced back), a misaligned or
+    non-contiguous ``grad`` copied once, and where the narrow instances do
+    not take the sizes (:func:`narrow_takes`) the wide route: a zero fill,
+    :func:`roi_align_bwd_wide_cuda` (every sample's corners added by
+    16-byte atomics into float32 level gradients) and, for a bf16 ``grad``,
+    :func:`cast_bf16_cuda` (each level rounded to bf16 once)."""
     s = sampling_ratio
     p = grad.shape[2] if grad.dim() == 5 else 0
-    _check_launch_args(rois, levels, len(level_hw), strides, p, s)
+    rois, levels = _launch_args(rois, levels, len(level_hw), strides, p, s)
     b, r = rois.shape[:2]
-    if not (grad.is_cuda and grad.device == rois.device
-            and grad.shape[:4] == (b, r, p, p) and grad.is_contiguous()):
-        raise ValueError("grad: a contiguous [B, R, P, P, C] CUDA tensor on the RoIs' "
-                         "device")
-    multiple = _kernel_dtype(grad.dtype, "grad")
-    if grad.shape[4] % multiple or grad.data_ptr() % 16:
-        # so that every cell of grad is whole float4s, or 16-byte bf16 copies
-        raise ValueError(f"grad: K3 reads {grad.dtype} C in multiples of {multiple} "
-                         f"(C={grad.shape[4]}) from a 16-byte aligned tensor")
-    c = grad.shape[4]
-    if grad.dtype == torch.bfloat16:
-        grads = level_views(torch.empty(b * c * sum(int(h) * int(w) for h, w in level_hw),
-                                        dtype=torch.bfloat16, device=rois.device),
-                            b, c, level_hw)
-        if b and c:  # a tile that no RoI meets is written too: zeros
-            bounds = roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, s, aligned)
-            roi_align_bwd_tiles_cuda(grads, bounds, grad, rois, levels, strides, s, aligned)
-            multilevel_roi_align_bwd_cuda.launches += 1
-        return grads
-    flat = level_grad_buffer(b, c, level_hw, rois.device)
-    if b * r and c:
-        roi_align_bwd_accumulate_cuda(level_views(flat, b, c, level_hw), grad, rois, levels,
-                                      strides, s, aligned)
+    if not (grad.is_cuda and grad.device == rois.device and grad.shape[:4] == (b, r, p, p)):
+        raise ValueError("grad: a [B, R, P, P, C] CUDA tensor on the RoIs' device")
+    _kernel_dtype(grad.dtype, "grad")
+    grads, launched = roi_align_backward_padded(grad, level_hw, rois, levels, strides, s,
+                                                aligned)
+    if launched:
         multilevel_roi_align_bwd_cuda.launches += 1
-    return level_views(flat, b, c, level_hw)
+    return grads
 
 
 multilevel_roi_align_bwd_cuda.launches = 0
+
+
+def roi_align_backward_padded(grad, level_hw, rois, levels, strides, s, aligned):
+    """K3 on checked inputs (RoIs and routing kernel-ready): ``grad`` padded
+    to the dtype's channel multiple and made kernel-ready, the route picked
+    (:func:`narrow_takes`), its launches, and each level gradient sliced
+    back to ``grad``'s C. Returns (the per-level gradients, whether K3
+    launched)."""
+    b, r, p, _, c = grad.shape
+    cp = padded_channels(c, grad.dtype)
+    g = kernel_ready(grad, cp)
+    n = len(level_hw)
+    launched = False
+    if grad.dtype == torch.bfloat16:
+        if not narrow_takes(K3_BF16, cp, p, s, n):
+            flat = level_grad_buffer(b, cp, level_hw, rois.device)
+            out = torch.empty(flat.shape, dtype=torch.bfloat16, device=rois.device)
+            if b and cp:
+                if r:
+                    roi_align_bwd_wide_cuda(level_views(flat, b, cp, level_hw), g, rois,
+                                            levels, strides, s, aligned)
+                cast_bf16_cuda(flat, out)
+                launched = True
+        else:
+            out = torch.empty(b * cp * sum(int(h) * int(w) for h, w in level_hw),
+                              dtype=torch.bfloat16, device=rois.device)
+            if b and cp:  # a tile that no RoI meets is written too: zeros
+                bounds = roi_tap_bounds_cuda(level_hw, rois, levels, strides, p, s, aligned)
+                roi_align_bwd_tiles_cuda(level_views(out, b, cp, level_hw), bounds, g, rois,
+                                         levels, strides, s, aligned)
+                launched = True
+    else:
+        out = level_grad_buffer(b, cp, level_hw, rois.device)
+        if b * r and cp:
+            accumulate = (roi_align_bwd_accumulate_cuda if narrow_takes(K3_F32, cp, p, s, n)
+                          else roi_align_bwd_wide_cuda)
+            accumulate(level_views(out, b, cp, level_hw), g, rois, levels, strides, s, aligned)
+            launched = True
+    grads = level_views(out, b, cp, level_hw)
+    return (grads if cp == c else [x[..., :c] for x in grads]), launched
 
 
 def level_views(flat: torch.Tensor, b: int, c: int, level_hw) -> list[torch.Tensor]:
@@ -441,8 +559,9 @@ def level_views(flat: torch.Tensor, b: int, c: int, level_hw) -> list[torch.Tens
 
 
 def level_grad_buffer(b: int, c: int, level_hw, device) -> torch.Tensor:
-    """K3's zero fill (the float32 route): one zero fp32 buffer for all
-    levels' gradients (:func:`level_views` gives the per-level tensors)."""
+    """K3's zero fill (the float32 route and the wide route): one zero fp32
+    buffer for all levels' gradients (:func:`level_views` gives the
+    per-level tensors)."""
     return torch.zeros(b * c * sum(int(h) * int(w) for h, w in level_hw), dtype=torch.float32,
                        device=device)
 
@@ -453,8 +572,8 @@ def roi_align_bwd_accumulate_cuda(grads: Sequence[torch.Tensor], grad: torch.Ten
                                   aligned: bool = False) -> None:
     """K3's float32 launch alone: adds the gradient of every RoI into the
     float32 ``grads`` (:func:`level_views` of :func:`level_grad_buffer`).
-    Takes what :func:`multilevel_roi_align_bwd_cuda` has checked; counts
-    nothing."""
+    Takes what :func:`multilevel_roi_align_bwd_cuda` has checked and made
+    kernel-ready, at sizes the narrow instance takes; counts nothing."""
     if grad.dtype != torch.float32:
         raise ValueError(f"roi_align_bwd_accumulate_cuda takes a float32 grad, not "
                          f"{grad.dtype}: a bfloat16 grad goes through "
@@ -467,6 +586,37 @@ def roi_align_bwd_accumulate_cuda(grads: Sequence[torch.Tensor], grad: torch.Ten
             *_level_args(grads, strides), rois.data_ptr(), levels.data_ptr(), grad.data_ptr(),
             b * r, r, c, p, sampling_ratio, int(aligned), _build.stream_handle(rois.device))
     _build.check(err, "roi_align_backward")
+
+
+def roi_align_bwd_wide_cuda(grads: Sequence[torch.Tensor], grad: torch.Tensor,
+                            rois: torch.Tensor, levels: torch.Tensor, strides: Sequence[int],
+                            sampling_ratio: int = 2, aligned: bool = False) -> None:
+    """K3's wide-route launch alone: adds every sample's four corner
+    contributions of ``grad`` (float32 or bf16) into the float32 ``grads``
+    (:func:`level_views` of :func:`level_grad_buffer`), by 16-byte atomics.
+    Any level count and P * S; takes what :func:`multilevel_roi_align_bwd_cuda`
+    has checked and made kernel-ready; counts nothing."""
+    b, r = rois.shape[:2]
+    p, c = grad.shape[2], grad.shape[4]
+    with torch.cuda.device(rois.device):
+        table = level_table([t.data_ptr() for t in grads], [t.shape[1:3] for t in grads],
+                            strides, rois.device)
+        err = _roi_align_lib().roi_align_backward_wide(
+            table.data_ptr(), len(grads), rois.data_ptr(), levels.data_ptr(), grad.data_ptr(),
+            b * r, r, c, p, sampling_ratio, int(grad.dtype == torch.bfloat16), int(aligned),
+            _build.stream_handle(rois.device))
+    _build.check(err, "roi_align_backward_wide")
+
+
+def cast_bf16_cuda(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """The wide route's last launch for a bf16 ``grad``: ``dst`` (bf16) =
+    ``src`` (float32, as many values, a multiple of 4) rounded to nearest
+    even, as ``.to(torch.bfloat16)``: each level gradient rounded once.
+    Counts nothing."""
+    with torch.cuda.device(src.device):
+        err = _roi_align_lib().cast_bf16(src.data_ptr(), dst.data_ptr(), src.numel(),
+                                         _build.stream_handle(src.device))
+    _build.check(err, "cast_bf16")
 
 
 def roi_tap_cell_bounds(level_hw, rois: torch.Tensor, levels: torch.Tensor,
@@ -497,20 +647,29 @@ def roi_tap_bounds_cuda(level_hw, rois: torch.Tensor, levels: torch.Tensor,
                         aligned: bool = False) -> torch.Tensor:
     """:func:`roi_tap_cell_bounds` as K3's bf16 pre-pass
     (``csrc/roi_align.cu::roi_tap_bounds``): one warp a RoI runs the fold
-    that K2 and K3 share and keeps its first and last cell. Also the
-    library's entry for checking the pre-pass alone; counts nothing."""
-    _check_launch_args(rois, levels, len(level_hw), strides, p, s)
+    that K2 and K3 share and keeps its first and last cell; past the narrow
+    instance's levels or samples, the wide route's pre-pass (a min and a
+    max over the warp's samples). Also the library's entry for checking the
+    pre-pass alone; counts nothing."""
+    rois, levels = _launch_args(rois, levels, len(level_hw), strides, p, s)
     b, r = rois.shape[:2]
     n = len(level_hw)
     bounds = torch.empty((b, r, 4), dtype=torch.int32, device=rois.device)
     if b * r:
+        lib = _roi_align_lib()
+        stream = _build.stream_handle(rois.device)
         with torch.cuda.device(rois.device):
-            err = _roi_align_lib().roi_tap_bounds(
-                (ctypes.c_int * n)(*[int(h) for h, _ in level_hw]),
-                (ctypes.c_int * n)(*[int(w) for _, w in level_hw]),
-                (ctypes.c_float * n)(*[float(x) for x in strides]), n, rois.data_ptr(),
-                levels.data_ptr(), bounds.data_ptr(), b * r, p, s, int(aligned),
-                _build.stream_handle(rois.device))
+            if narrow_takes(K3_BOUNDS, 8, p, s, n):
+                err = lib.roi_tap_bounds(
+                    (ctypes.c_int * n)(*[int(h) for h, _ in level_hw]),
+                    (ctypes.c_int * n)(*[int(w) for _, w in level_hw]),
+                    (ctypes.c_float * n)(*[float(x) for x in strides]), n, rois.data_ptr(),
+                    levels.data_ptr(), bounds.data_ptr(), b * r, p, s, int(aligned), stream)
+            else:
+                table = level_table([0] * n, level_hw, strides, rois.device)
+                err = lib.roi_tap_bounds_wide(table.data_ptr(), n, rois.data_ptr(),
+                                              levels.data_ptr(), bounds.data_ptr(), b * r, p, s,
+                                              int(aligned), stream)
         _build.check(err, "roi_tap_bounds")
     return bounds
 
@@ -522,7 +681,8 @@ def roi_align_bwd_tiles_cuda(grads: Sequence[torch.Tensor], bounds: torch.Tensor
     """K3's bf16 launch alone: writes every cell of the bf16 ``grads``
     (:func:`level_views` of one buffer; not filled), given the pre-pass's
     ``bounds``. Takes what :func:`multilevel_roi_align_bwd_cuda` has
-    checked; counts nothing."""
+    checked and made kernel-ready, at sizes the narrow instance takes;
+    counts nothing."""
     if not (grad.is_cuda and bounds.is_cuda and all(x.is_cuda for x in grads)):
         raise ValueError("roi_align_bwd_tiles_cuda: grads, bounds and grad must be CUDA "
                          "tensors")
@@ -599,11 +759,9 @@ def roi_align(feature: torch.Tensor, rois: torch.Tensor, stride: int, output_siz
     :func:`multilevel_roi_align` over one level, differentiable in
     ``feature``. feature ``[B, H, W, C]``, rois ``[B, R, 4]`` -> ``[B, R,
     P, P, C]``. On CUDA tensors it runs K2 forward and K3 backward, which
-    raise ``ValueError`` at the call, naming the limit, where they do not
-    take the inputs: float32 or bfloat16 with C a multiple of 4 or 8
-    (:data:`CHANNEL_MULTIPLE`), ``output_size * sampling_ratio`` at most
-    :data:`MAX_SAMPLES`. On CPU tensors their plain versions take
-    anything."""
+    take what the plain versions take, in float32 or bfloat16 (any C, any
+    layout of ``feature``, any ``output_size * sampling_ratio``); on CPU
+    tensors it runs the plain versions."""
     return multilevel_roi_align([feature], rois, [stride], output_size=output_size,
                                 sampling_ratio=sampling_ratio, aligned=aligned)
 

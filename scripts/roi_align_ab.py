@@ -18,6 +18,9 @@ whether their machine code is the same.
 2. ``cuobjdump -sass`` of the library: each kernel instance's instructions
    (addresses and encodings dropped), matched by name between the trees
    with the change's ``aligned`` template argument ``false`` taken out;
+   the same for K1's library (``csrc/nms.cu``), the change's float32
+   instance of a mask kernel templated on the box type matched with the
+   parent's kernel (``nms_sass``);
 3. the four kernels timed at PERF.md's training shapes (B=2, the P2-P5
    levels of a 1024x1344 canvas, C=256; R=512 at P=7 and R=128 at P=14
    an image, chip_smoke.py's RoIs routed with the span (28, 44)) by
@@ -131,12 +134,12 @@ def probe_source(tree: Path) -> str:
 # run in a tree: its own build of its kernels, then the RoIAlign library's path
 TREE_BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
               "from detectron_tpu_torch import _build; _build.build(); "
-              "print(_build.library_path('roi_align'))")
+              "print(_build.library_path('roi_align')); print(_build.library_path('nms'))")
 
 
 def build(trees, out: Path):
     """Each tree's own build of its kernels and its probe, all at once.
-    Returns {tree: (RoIAlign library, probe)}."""
+    Returns {tree: [RoIAlign library, probe, NMS library]}."""
     sys.path.insert(0, str(HERE))
     from detectron_tpu_torch import _build
 
@@ -150,7 +153,7 @@ def build(trees, out: Path):
         procs.append((tree, "library", None, subprocess.Popen(
             [sys.executable, "-c", TREE_BUILD, str(tree)], cwd=tree, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
-    paths = {tree: [None, None] for tree in trees}
+    paths = {tree: [None, None, None] for tree in trees}
     for tree, what, target, proc in procs:
         report, _ = proc.communicate()
         if proc.returncode != 0:
@@ -158,7 +161,8 @@ def build(trees, out: Path):
         if what == "probe":
             paths[tree][1] = target
         else:
-            paths[tree][0] = Path(report.strip().splitlines()[-1])
+            paths[tree][0], paths[tree][2] = (Path(x) for x in
+                                              report.strip().splitlines()[-2:])
     return paths
 
 
@@ -190,10 +194,14 @@ def sass(lib: Path, aligned_arg: bool) -> dict:
     names = subprocess.run([str(cuda / "bin/cu++filt")], input="\n".join(mangled),
                            check=True, capture_output=True, text=True).stdout.splitlines()
     out = {}
-    for name, body in zip(names, parts[2::2]):
+    for symbol, name, body in zip(mangled, names, parts[2::2]):
         code = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip()
                 for line in body.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
-        code = [re.sub(r"\s*/\* 0x[0-9a-f]+ \*/", "", c) for c in code]
+        # calls into the function's own subroutines (the IEEE division's slow
+        # path) name them after the function's symbol, which a template
+        # argument changes
+        code = [re.sub(r"\s*/\* 0x[0-9a-f]+ \*/", "", c).replace(symbol, "<self>")
+                for c in code]
         if aligned_arg:
             if "true>" in name or "(bool)1>" in name:
                 continue
@@ -201,6 +209,20 @@ def sass(lib: Path, aligned_arg: bool) -> dict:
             name = re.sub(r"<(false|\(bool\)0)>", "", name)
         # a function template's name carries its return type
         out[re.sub(r"^void ", "", name)] = code
+    return out
+
+
+def nms_sass(lib: Path) -> dict:
+    """{kernel instance: instructions} of an NMS library, the float32 mask
+    kernel under one name in both trees: the change's mask kernel is a
+    template on the box type, whose float4 instance is the parent's kernel
+    and whose uint2 (bf16) instance has no counterpart there."""
+    out = {}
+    for name, code in sass(lib, False).items():
+        if "<uint2>" in name:
+            continue
+        out[name.replace("nms_mask_kernel<float4>(const T1 *",
+                         "nms_mask_kernel(const float4 *")] = code
     return out
 
 
@@ -280,6 +302,14 @@ def main(argv=None) -> int:
                 f"aligned=False instance {'the same' if equal else 'DIFFERENT'}")
         result["sass_same"] = same
         result["sass_missing"] = sorted(set(code["parent"]) - set(code["change"]))
+        # K1: the float32 instance of the change's templated mask kernel, and
+        # the scans, against the parent's
+        k1 = {k: nms_sass(paths[t][2]) for k, t in trees.items()}
+        k1_same = {name: k1["change"].get(name) == body for name, body in k1["parent"].items()}
+        for name, equal in sorted(k1_same.items()):
+            log(f"[sass] K1 {name}: {len(k1['parent'][name])} instructions, the change's "
+                f"{'the same' if equal else 'DIFFERENT'}")
+        result["k1_sass_same"] = k1_same
         runs = {k: [] for k in trees}
         for _ in range(args.rounds):
             for k in ("parent", "change", "change", "parent"):

@@ -137,7 +137,10 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(ra, "roi_tap_bounds_cuda", ra.roi_tap_cell_bounds)
     # the profiler sees no card here: the listing a bf16 K2 or K3 call gives there
     monkeypatch.setattr(cs, "device_kernels", _listing)
-    # the bf16 K2 kernel's plan is the library's, which needs the card
+    # the routes and the bf16 K2 kernel's plan are the library's, which needs
+    # the card: the narrow instances' rule on levels and samples stands in
+    monkeypatch.setattr(ra, "narrow_takes", lambda kind, c, p, s, n: n <= ra.MAX_LEVELS
+                        and p * s <= ra.MAX_SAMPLES)
     monkeypatch.setattr(ra, "k2_bf16_plan", lambda c, p, s: dict(
         slice=64 if c % 64 == 0 else 32 if c % 32 == 0 else 8, ring_rows=16, stage_cells=128,
         smem_bytes=94208, threads=448, blocks_per_sm=2))
@@ -859,8 +862,8 @@ def test_op_api_phase_counts_its_launches_and_holds_each_call(rehearsal, monkeyp
     real dispatch raises on CPU tensors; ``tests/test_torch_nms_wrapper.py``
     holds the dispatch), roi_align forward and gradient once each in both
     dtypes, both P and both values of aligned, all counted and held; the
-    aligned stress kinds through phases 4 and 7's checks. The refusals need
-    the card's wrappers and are only recorded as called."""
+    aligned stress kinds through phases 4 and 7's checks. The former
+    refusals need the card's wrappers and are only recorded as called."""
     from detectron_tpu_torch.ops import nms_wrapper
 
     real_nms = nms_wrapper.nms
@@ -875,7 +878,7 @@ def test_op_api_phase_counts_its_launches_and_holds_each_call(rehearsal, monkeyp
 
     monkeypatch.setattr(nms_wrapper, "nms", card_nms)
     refusals = []
-    monkeypatch.setattr(cs, "check_refusals", lambda: refusals.append(True))
+    monkeypatch.setattr(cs, "check_former_refusals", lambda: refusals.append(True))
     monkeypatch.setattr(cs, "OP_ROI_CASES", ((7, 24), (14, 8)))
     monkeypatch.setattr(cs, "OP_STRESS_ROIS", 8)
     counts, k2, k3 = cs.phase_op_api(c=16)
@@ -930,3 +933,63 @@ def test_aligned_stress_rois_have_their_shape(kind):
     else:
         assert (rois[..., :2] <= 0).all() and (rois[..., 2] >= hw[1] * stride).all()
         assert (rois[..., 3] >= hw[0] * stride).all()
+
+
+def test_contracts_phase_counts_its_launches_and_holds_each_call(rehearsal, monkeypatch,
+                                                                 capsys):
+    """Phase 30 at the rehearsal's sizes: K1 on bf16 boxes through
+    nms_wrapper.nms(impl="pallas") once a shape and class_aware_nms at the
+    class-aware shapes, counted, then against the plain walk at every case;
+    K2 and K3 through multilevel_roi_align forward and gradient once a case
+    and dtype, counted and held, the routes named; the 36-channel bf16
+    model built, counted and held. The kernels are the plain versions here
+    (counting stand-ins): what is rehearsed is the phase's control flow,
+    its counts and its checks."""
+    from detectron_tpu_torch.ops import nms_wrapper
+
+    real_nms = nms_wrapper.nms
+
+    def card_nms(boxes, scores, thresh, max_out, valid=None, offset=0.0, impl="jnp"):
+        if impl != "pallas":
+            return real_nms(boxes, scores, thresh, max_out, valid=valid, offset=offset,
+                            impl=impl)
+        idx, ok = nms.nms_padded_batched(boxes[None], scores[None], valid[None], thresh,
+                                         max_out, offset, keep_fn=nms.greedy_keep_cuda)
+        return idx[0], ok[0]
+
+    monkeypatch.setattr(nms_wrapper, "nms", card_nms)
+    monkeypatch.setattr(cs, "CONTRACT_NMS_CASES", tuple(
+        dict(case, g=2, n=max(case["n"] // 40, 70), n_invalid=case["n_invalid"] // 40,
+             max_out=case["max_out"] // 10) for case in cs.CONTRACT_NMS_CASES))
+    monkeypatch.setattr(cs, "CONTRACT_ROI_CASES", tuple(
+        (name, 12 if c >= 64 else c, dtypes, p, s, 8, strides, mis)
+        for name, c, dtypes, p, s, r, strides, mis in cs.CONTRACT_ROI_CASES))
+    monkeypatch.setattr(cs, "CONTRACT_WIDE_TIMED", (("P*S=112", 28, 4, 4, 12),))
+    k1, k1_launches, k2, k3, launches = cs.phase_contracts()
+    assert k1_launches == len(cs.CONTRACT_NMS_CASES) + len(cs.CONTRACT_CLASS_AWARE)
+    assert [c["case"] for c in k1] == [c["name"] for c in cs.CONTRACT_NMS_CASES]
+    assert {c["dtype"] for c in k1} == {"bfloat16"}
+    assert [c["plain_ms"] is not None for c in k1] == [
+        c["path"] == "train" for c in cs.CONTRACT_NMS_CASES]
+    n_roi = sum(len(case[2]) for case in cs.CONTRACT_ROI_CASES)
+    assert launches["contracts"] == {"greedy_nms": 0, "multilevel_roi_align": n_roi,
+                                     "multilevel_roi_align_bwd": n_roi}
+    assert launches["predict_fpn36_bf16"]["multilevel_roi_align"] == 2
+    assert len(k2) == len(k3) == n_roi
+    assert {c["path"] for c in k2 + k3} == {"contracts"}
+    routes = {c["case"].split(" P=")[0]: c["route"] for c in k2}
+    assert routes["10 levels float32"] == "wide" and routes["C=30 float32"] == "narrow"
+    assert routes["P*S=112 bfloat16"] == "wide"
+    entry = cs.k1_bf16_entry(k1, k1_launches)
+    assert entry["name"] == "greedy_nms_bf16" and entry["launches"] == k1_launches
+    assert entry["ms"] > 0 and entry["plain_ms"] > 0 and entry["bound_by"] in (
+        "bytes", "operations")
+    out = capsys.readouterr().out
+    assert out.count("impl='pallas' equal to impl='jnp': True") == len(cs.CONTRACT_NMS_CASES)
+    assert out.count("equal to the plain walk: True") == len(cs.CONTRACT_CLASS_AWARE)
+    assert out.count("keep masks equal to the plain walk with and without max_keep: True") \
+        == len(cs.CONTRACT_NMS_CASES)
+    assert out.count("K1 bf16 exact thresholds") == 4
+    assert "[contracts] mask_rcnn model.dtype=bfloat16 model.fpn_channels=36" in out
+    assert out.count("R=4 C=12, timed only: K2") == 2
+    assert "[contracts fpn_channels=36 bf16] each launch held" in out

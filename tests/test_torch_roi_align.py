@@ -6,7 +6,6 @@ path on the card by chip_smoke.py."""
 
 import functools
 import os
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -450,21 +449,42 @@ CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
     ("roi.mask_pool_size=40", torch.bfloat16, "roi.mask_pool_size=40"),
     ("roi.sampling_ratio=5", torch.float32, "roi.mask_pool_size=14 x roi.sampling_ratio=5"),
 ])
-def test_contract_check_names_the_limit_and_key(override, dtype, key):
-    cfg = get_config(None, ["model.name=mask_rcnn", override])
-    with pytest.raises(ValueError, match=re.escape(key)):
-        tra.check_roi_align_contract(cfg, dtype)
+def test_contract_check_names_the_limit_and_key(override, dtype, key, monkeypatch):
+    """The configs the narrow kernels once refused (C not a multiple of 4 or
+    8, P x S past 64) now pass the check and build a detector for the card
+    (faked: no card is asked for anything else); the kernels take them by
+    padding or by the wide route."""
+    from detectron_tpu_torch.models import zoo
+
+    cfg = get_config(None, ["model.name=mask_rcnn", override, f"model.dtype={str(dtype)[6:]}"])
+    tra.check_roi_align_contract(cfg, dtype)
+    monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)
+    det = zoo.build_detector(cfg)
+    assert det.device.type == "cuda" and det.dtype == dtype
+    # the keys the refusal named hold the refused values in the built config
+    for part in key.split(" x "):
+        name, value = part.split("=")
+        section, leaf = name.split(".")
+        assert str(cfg[section][leaf]) == value
 
 
 def test_contract_check_passes_what_the_kernels_take():
+    """Any channel count, pool size and level count passes; what is refused
+    is a dtype without an instance (model.dtype) and a size below 1, named
+    by its key."""
     cfg = get_config(None, ["model.name=mask_rcnn", "model.fpn_channels=36"])
-    tra.check_roi_align_contract(cfg, torch.float32)  # a multiple of 4
+    tra.check_roi_align_contract(cfg, torch.float32)
     faster = get_config(None, ["model.name=faster_rcnn", "roi.mask_pool_size=40"])
-    tra.check_roi_align_contract(faster, torch.bfloat16)  # no mask head
-    with pytest.raises(ValueError, match="9 pooled FPN levels"):
-        tra.check_roi_align_contract(cfg, torch.float32, num_levels=9)
+    tra.check_roi_align_contract(faster, torch.bfloat16)
+    big = get_config(None, ["model.name=mask_rcnn", "roi.mask_pool_size=56",
+                            "roi.sampling_ratio=8", "model.fpn_channels=3"])
+    tra.check_roi_align_contract(big, torch.bfloat16)
     with pytest.raises(ValueError, match="model.dtype"):
         tra.check_roi_align_contract(cfg, torch.float16)
+    zero = get_config(None, ["model.name=mask_rcnn", "roi.sampling_ratio=0"])
+    with pytest.raises(ValueError, match="roi.sampling_ratio=0"):
+        tra.check_roi_align_contract(zero, torch.float32)
 
 
 @pytest.mark.parametrize("name", sorted(os.listdir(CONFIGS)))
@@ -486,15 +506,21 @@ def test_contract_holds_for_every_config_the_port_builds(name, dtype):
 
 
 def test_detector_on_the_card_checks_the_contract(monkeypatch):
-    """A CUDA detector refuses, when it is built, a config the kernels do
-    not take (here faked: no card is asked for anything else)."""
+    """A CUDA detector runs the check when it is built (here faked: no card
+    is asked for anything else): a width the narrow kernels do not divide
+    builds, and the check is called with the model's dtype."""
     from detectron_tpu_torch.models import zoo
 
     monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(torch.nn.Module, "to", lambda self, *a, **k: self)
+    checked = []
+    real = zoo.check_roi_align_contract
+    monkeypatch.setattr(zoo, "check_roi_align_contract",
+                        lambda *a: checked.append(a) or real(*a))
     cfg = get_config(None, ["model.name=mask_rcnn", "model.dtype=bfloat16",
                             "model.fpn_channels=36"])
-    with pytest.raises(ValueError, match="model.fpn_channels=36"):
-        zoo.build_detector(cfg)
+    det = zoo.build_detector(cfg)
+    assert det.device.type == "cuda" and [a[1] for a in checked] == [torch.bfloat16]
 
 
 def test_retinanet_on_the_card_needs_no_contract(monkeypatch):
