@@ -1107,45 +1107,87 @@ def check_no_host_sync(fn, label, tag="slice"):
     return issue_ms, done_ms
 
 
+def span_medians(root: str, run, repeats: int) -> tuple:
+    """Device milliseconds of each stage of ``run()``'s calls, from the
+    program's own spans (``utils/spans.py``): ``repeats`` + 1 calls under
+    the profiler (host activity only: the spans time the device with CUDA
+    events), the median of each child span of the root span ``root`` over
+    the calls after the first (a warm-up), in the stages' order. Returns
+    them, the root span's median and the median device ms of ``repeats``
+    more calls without the profiler (CUDA events around the call): the
+    profiler's cost per op lengthens a host-bound call, so the stages of
+    such a call sum to more than the call takes unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from detectron_tpu_torch.utils import spans
+
+    spans.take()  # what earlier profiles left
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(repeats + 1):
+            run()
+    records = spans.take()
+    calls = sorted({r.call for r in records if r.parent is None and r.name == root})[1:]
+    samples, roots = {}, []
+    for r in records:
+        if r.call in calls and r.parent == root:
+            samples.setdefault(r.name, []).append(r.device_ms)
+        elif r.call in calls and r.parent is None:
+            roots.append(r.device_ms)
+    plain = []
+    for _ in range(repeats):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain.append(ev[0].elapsed_time(ev[1]))
+    return ({n: float(np.median(v)) for n, v in samples.items()}, float(np.median(roots)),
+            float(np.median(plain)))
+
+
+def log_stages(label: str, parts: dict, root_ms: float, plain_ms: float, repeats: int):
+    """One line: the stages' device ms (under the profiler) with their
+    shares, the root span's, what lies in it outside every stage, and the
+    call's device ms without the profiler."""
+    total = sum(parts.values())
+    log(f"[{label}] under torch.profiler (host activity), median of {repeats}, device ms "
+        f"(share of {total:.2f} ms): "
+        + "; ".join(f"{n} {t:.3f} ({100 * t / total:.1f}%)" for n, t in parts.items())
+        + f"; root span {root_ms:.2f} ms, {root_ms - total:.2f} of it outside the stages; "
+        f"the call without the profiler {plain_ms:.2f} ms")
+
+
 def stage_breakdown(det, batch, cfg, repeats=3):
-    """Device milliseconds of each stage of faster_rcnn_eval_forward, timed
-    with CUDA events between the stage calls (median of ``repeats``).
-    Returns them and the last repeat's proposals and box-head outputs."""
+    """Device milliseconds of each stage of predict_fn (the spans of
+    faster_rcnn_eval_forward, median of ``repeats``). Returns them and, from
+    one more (untimed) direct call of the stages, its proposals and
+    box-head outputs."""
     from detectron_tpu_torch.models import faster_rcnn as fr
 
+    parts, root_ms, plain_ms = span_medians("predict", lambda: det.predict_fn(None, batch),
+                                            repeats)
+    log_stages(f"stages {cfg.model.dtype}", parts, root_ms, plain_ms, repeats)
     m = det.module
-    image_hw = batch["image_hw"]
     anchors = m.anchors(batch["image"].shape[1:3], det.device)
-    names = ("backbone+fpn", "rpn head", "proposals (K1)", "box: align (K2) + head",
-             "detections (K1)", "mask: align (K2) + head + select")
-    samples = {n: [] for n in names}
     with torch.no_grad():
-        for _ in range(repeats + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-            ev[0].record()
-            levels = m.features(batch["image"])
-            ev[1].record()
-            scores, deltas = m.rpn(levels)
-            ev[2].record()
-            props = fr.proposals_from_rpn(scores, deltas, anchors, image_hw, cfg)
-            ev[3].record()
-            cls_logits, reg = m.box(levels, props.boxes)
-            ev[4].record()
-            dets = fr.fastrcnn_inference(cls_logits, reg, props.boxes, props.valid,
-                                         image_hw, cfg)
-            ev[5].record()
-            mask_logits = m.mask(levels, dets.boxes)
-            k = torch.clamp(dets.classes.long() - 1, 0, mask_logits.shape[-1] - 1)
-            torch.sigmoid(torch.take_along_dim(mask_logits, k[:, :, None, None, None], -1))
-            ev[6].record()
-            torch.cuda.synchronize()
-            for i, n in enumerate(names):
-                samples[n].append(ev[i].elapsed_time(ev[i + 1]))
-    parts = {n: float(np.median(v[1:])) for n, v in samples.items()}  # first: warm-up
-    total = sum(parts.values())
-    log(f"[stages {cfg.model.dtype}] median of {repeats}, device ms (share of {total:.2f} ms): "
-        + "; ".join(f"{n} {t:.3f} ({100 * t / total:.1f}%)" for n, t in parts.items()))
+        levels = m.features(batch["image"])
+        scores, deltas = m.rpn(levels)
+        props = fr.proposals_from_rpn(scores, deltas, anchors, batch["image_hw"], cfg)
+        cls_logits, reg = m.box(levels, props.boxes)
     return parts, (props, cls_logits, reg)
+
+
+def device_work(events, name=lambda e: e.name) -> list:
+    """The device's own work among the profiler's ``events`` (kernels,
+    copies, fills; ``name(e)`` gives an event's name): the card's profiler
+    also lists each host range (``record_function``, the program's
+    ``detectron/`` spans) as a device event over the work inside it, which
+    is no work of its own."""
+    from detectron_tpu_torch.utils import spans
+
+    return [e for e in events if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)
+            and not name(e).startswith(spans.PREFIX)]
 
 
 def profile_call(fn, label, top=8):
@@ -1160,7 +1202,7 @@ def profile_call(fn, label, top=8):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     reset_counts()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = device_work(prof.key_averages(), lambda e: e.key)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0.0:
         log("[profile] the profiler recorded no device time: busy share not measured")
@@ -1519,8 +1561,8 @@ def device_kernels(fn, attempts=3) -> list:
                 prof.step()
         # the step's own range is listed with the device time inside it
         listing = [(e.key, e.count, e.self_device_time_total / 1e3)
-                   for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep")]
+                   for e in device_work(prof.key_averages(), lambda e: e.key)
+                   if not e.key.startswith("ProfilerStep")]
         if listing:
             return listing
     return []
@@ -1788,30 +1830,14 @@ def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
 
 
 def train_breakdown(state, batch, repeats=3, tag="train"):
-    """Device milliseconds of the stages of train_step itself (median of
-    ``repeats`` after one warm-up): a CUDA event is recorded at every
-    stage boundary that train_step and faster_rcnn_train_forward mark."""
+    """Device milliseconds of the stages of train_step (the spans of
+    train_step and its forward, median of ``repeats`` after one warm-up)."""
     from detectron_tpu_torch.train.state import train_step
 
-    samples = {}
-    for _ in range(repeats + 1):
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def mark(stage):
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            events.append((stage, event))
-
-        train_step(state, batch, mark=mark)
-        torch.cuda.synchronize()
-        for (_, a), (stage, b) in zip(events, events[1:]):
-            samples.setdefault(stage, []).append(a.elapsed_time(b))
+    parts, root_ms, plain_ms = span_medians("train_step", lambda: train_step(state, batch),
+                                            repeats)
     reset_counts()
-    parts = {n: float(np.median(v[1:])) for n, v in samples.items()}
-    total = sum(parts.values())
-    log(f"[{tag} stages] median of {repeats}, device ms (share of {total:.2f} ms): " + "; ".join(
-        f"{n} {t:.3f} ({100 * t / total:.1f}%)" for n, t in parts.items()))
+    log_stages(f"{tag} stages", parts, root_ms, plain_ms, repeats)
     return parts
 
 
@@ -2204,8 +2230,8 @@ def device_busy_in(prof, span):
         return 0.0, 0.0, 0
     t0, t1 = host[0].time_range.start, host[0].time_range.end
     # the range's own projection onto the device timeline carries its name
-    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1)) for e in events
-                   if e.device_type.name == "CUDA" and e.name != span
+    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1))
+                   for e in device_work(events) if e.name != span
                    and e.time_range.end > t0 and e.time_range.start < t1)
     busy, reached = 0.0, t0
     for a, b in spans:

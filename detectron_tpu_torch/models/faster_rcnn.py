@@ -32,6 +32,7 @@ from detectron_tpu_torch.ops.nms import class_aware_nms
 from detectron_tpu_torch.ops.roi_align import (multilevel_roi_align, multilevel_roi_pool,
                                                roi_max_span)
 from detectron_tpu_torch.parallel.mesh import global_sum, rank_rows
+from detectron_tpu_torch.utils.spans import span
 
 RPN_STRIDES = (4, 8, 16, 32, 64)  # P2..P6
 ROI_STRIDES = (4, 8, 16, 32)  # box/mask heads pool from P2..P5
@@ -294,87 +295,90 @@ def frcnn_box_losses(cls_logits, reg, roi_targets: RoiTargets, cfg):
     return {"loss_cls": cls_loss, "loss_box": box_loss}
 
 
-def _no_mark(stage: str) -> None:
-    pass
-
-
 def faster_rcnn_train_forward(model: TwoStageDetector, images, image_hw, gt_boxes,
                               gt_classes, draws, cfg, anchors_pl=None, gt_masks=None,
                               mark=None):
     """One training forward: the loss dict of the RPN, the box head and,
     with ``gt_masks``, the mask head. ``draws`` is a :class:`TrainDraws`
-    or a ``torch.Generator`` to make one from. ``mark``, if given, is
-    called with each stage's name once the stage's work has been issued,
-    so that a caller can time the stages (with CUDA events, say)."""
-    mark = mark or _no_mark
-    if anchors_pl is None:
-        anchors_pl = model.anchors(images.shape[1:3], images.device)
-    anchors_all = torch.cat(anchors_pl, dim=0)
-    if isinstance(draws, torch.Generator):
-        draws = make_train_draws(
-            draws, images.shape[0], anchors_all.shape[0],
-            cfg.rpn.post_nms_topk_train + gt_boxes.shape[1])
-    mark("anchors+draws")
-
-    levels = model.features(images)
-    mark("backbone+fpn")
-    scores_pl, deltas_pl = model.rpn(levels)
-    mark("rpn head")
-    loss_dict = rpn_losses(scores_pl, deltas_pl, anchors_all, gt_boxes, gt_classes,
-                           draws, cfg)
-    mark("rpn targets+loss")
-    props = proposals_from_rpn([s.detach() for s in scores_pl],
-                               [d.detach() for d in deltas_pl],
-                               anchors_pl, image_hw, cfg, train=True)
-    mark("proposals (K1)")
-    tgt = sample_rois(
-        props.boxes, props.valid, gt_boxes, gt_classes, draws.roi_fg, draws.roi_bg,
-        sample_size=cfg.roi.batch_per_image,
-        positive_fraction=cfg.roi.positive_fraction,
-        positive_iou=cfg.roi.positive_iou,
-        negative_iou_hi=cfg.roi.negative_iou_hi,
-        negative_iou_lo=cfg.roi.negative_iou_lo,
-        box_weights=cfg.roi.bbox_reg_weights)
-    mark("roi sampling")
-    cls_logits, reg = model.box(levels, tgt.rois)
-    loss_dict.update(frcnn_box_losses(cls_logits, reg, tgt, cfg))
-    mark("box: align (K2) + head + loss")
+    or a ``torch.Generator`` to make one from. Each stage is a span
+    (``utils/spans.py``); ``mark``, if given, is called with each stage's
+    name once the stage's work has been issued, so that a caller can time
+    the stages (with CUDA events, say)."""
+    with span("anchors+draws", mark):
+        if anchors_pl is None:
+            anchors_pl = model.anchors(images.shape[1:3], images.device)
+        anchors_all = torch.cat(anchors_pl, dim=0)
+        if isinstance(draws, torch.Generator):
+            draws = make_train_draws(
+                draws, images.shape[0], anchors_all.shape[0],
+                cfg.rpn.post_nms_topk_train + gt_boxes.shape[1])
+    with span("backbone+fpn", mark):
+        levels = model.features(images)
+    with span("rpn head", mark):
+        scores_pl, deltas_pl = model.rpn(levels)
+    with span("rpn targets+loss", mark):
+        loss_dict = rpn_losses(scores_pl, deltas_pl, anchors_all, gt_boxes, gt_classes,
+                               draws, cfg)
+    with span("proposals (K1)", mark):
+        props = proposals_from_rpn([s.detach() for s in scores_pl],
+                                   [d.detach() for d in deltas_pl],
+                                   anchors_pl, image_hw, cfg, train=True)
+    with span("roi sampling", mark):
+        tgt = sample_rois(
+            props.boxes, props.valid, gt_boxes, gt_classes, draws.roi_fg, draws.roi_bg,
+            sample_size=cfg.roi.batch_per_image,
+            positive_fraction=cfg.roi.positive_fraction,
+            positive_iou=cfg.roi.positive_iou,
+            negative_iou_hi=cfg.roi.negative_iou_hi,
+            negative_iou_lo=cfg.roi.negative_iou_lo,
+            box_weights=cfg.roi.bbox_reg_weights)
+    with span("box: align (K2) + head + loss", mark):
+        cls_logits, reg = model.box(levels, tgt.rois)
+        loss_dict.update(frcnn_box_losses(cls_logits, reg, tgt, cfg))
 
     if model.include_mask and gt_masks is not None:
-        # the mask loss sees only fg RoIs, and the sampler puts the selected
-        # fg in the front slots: the mask head runs on the fg capacity
-        cap = max(int(cfg.roi.batch_per_image * cfg.roi.positive_fraction), 1)
-        rois_m = tgt.rois[:, :cap]
-        mask_logits = model.mask(levels, rois_m)
-        mask_targets = crop_gt_masks_batched(gt_masks, gt_boxes, rois_m,
-                                             tgt.matched_idx[:, :cap],
-                                             resolution=cfg.mask.resolution)
-        b, s = tgt.labels[:, :cap].shape
-        mask_weights = tgt.box_weights[:, :cap].reshape(-1)
-        loss_dict["loss_mask"] = losses.mask_bce_loss(
-            mask_logits.reshape(b * s, *mask_logits.shape[2:]),
-            mask_targets.reshape(b * s, *mask_targets.shape[2:]),
-            tgt.labels[:, :cap].reshape(-1), mask_weights,
-            normalizer=global_sum(mask_weights.sum()).clamp_min(1.0))
-        mark("mask: targets + align (K2) + head + loss")
+        with span("mask: targets + align (K2) + head + loss", mark):
+            # the mask loss sees only fg RoIs, and the sampler puts the selected
+            # fg in the front slots: the mask head runs on the fg capacity
+            cap = max(int(cfg.roi.batch_per_image * cfg.roi.positive_fraction), 1)
+            rois_m = tgt.rois[:, :cap]
+            mask_logits = model.mask(levels, rois_m)
+            mask_targets = crop_gt_masks_batched(gt_masks, gt_boxes, rois_m,
+                                                 tgt.matched_idx[:, :cap],
+                                                 resolution=cfg.mask.resolution)
+            b, s = tgt.labels[:, :cap].shape
+            mask_weights = tgt.box_weights[:, :cap].reshape(-1)
+            loss_dict["loss_mask"] = losses.mask_bce_loss(
+                mask_logits.reshape(b * s, *mask_logits.shape[2:]),
+                mask_targets.reshape(b * s, *mask_targets.shape[2:]),
+                tgt.labels[:, :cap].reshape(-1), mask_weights,
+                normalizer=global_sum(mask_weights.sum()).clamp_min(1.0))
     return loss_dict
 
 
 def faster_rcnn_eval_forward(model: TwoStageDetector, images, image_hw, cfg,
                              anchors_pl=None, with_masks: bool = False):
     """One eval pass: ``(Detections, mask probabilities [B, D, 28, 28] |
-    None)``. ``images`` are NHWC ``[B, H, W, 3]``, ``image_hw`` ``[B, 2]``."""
+    None)``. ``images`` are NHWC ``[B, H, W, 3]``, ``image_hw`` ``[B, 2]``.
+    Each stage is a span (``utils/spans.py``)."""
     if anchors_pl is None:
         anchors_pl = model.anchors(images.shape[1:3], images.device)
-    levels = model.features(images)
-    scores_pl, deltas_pl = model.rpn(levels)
-    props = proposals_from_rpn(scores_pl, deltas_pl, anchors_pl, image_hw, cfg)
-    cls_logits, reg = model.box(levels, props.boxes)
-    dets = fastrcnn_inference(cls_logits, reg, props.boxes, props.valid,
-                              image_hw, cfg)
+    with span("backbone+fpn"):
+        levels = model.features(images)
+    with span("rpn head"):
+        scores_pl, deltas_pl = model.rpn(levels)
+    with span("proposals (K1)"):
+        props = proposals_from_rpn(scores_pl, deltas_pl, anchors_pl, image_hw, cfg)
+    with span("box: align (K2) + head"):
+        cls_logits, reg = model.box(levels, props.boxes)
+    with span("detections (K1)"):
+        dets = fastrcnn_inference(cls_logits, reg, props.boxes, props.valid,
+                                  image_hw, cfg)
     if not (with_masks and model.include_mask):
         return dets, None
-    mask_logits = model.mask(levels, dets.boxes)  # [B, D, 28, 28, K-1]
-    k = torch.clamp(dets.classes.long() - 1, 0, mask_logits.shape[-1] - 1)
-    own = torch.take_along_dim(mask_logits, k[:, :, None, None, None], dim=-1)[..., 0]
-    return dets, torch.sigmoid(own)
+    with span("mask: align (K2) + head + select"):
+        mask_logits = model.mask(levels, dets.boxes)  # [B, D, 28, 28, K-1]
+        k = torch.clamp(dets.classes.long() - 1, 0, mask_logits.shape[-1] - 1)
+        own = torch.take_along_dim(mask_logits, k[:, :, None, None, None], dim=-1)[..., 0]
+        probs = torch.sigmoid(own)
+    return dets, probs

@@ -39,6 +39,7 @@ from detectron_tpu_torch.ops import boxes as box_ops
 from detectron_tpu_torch.ops.anchors import AnchorGenerator
 from detectron_tpu_torch.ops.nms import class_aware_nms
 from detectron_tpu_torch.parallel.mesh import global_sum
+from detectron_tpu_torch.utils.spans import span
 
 RETINA_STRIDES = (8, 16, 32, 64, 128)  # P3..P7
 
@@ -181,22 +182,18 @@ def retinanet_loss(outputs, anchors, gt_boxes, gt_classes, cfg) -> dict:
     return {"loss_cls": cls_loss, "loss_box": box_loss}
 
 
-def _no_mark(stage: str) -> None:
-    pass
-
-
 def retinanet_train_forward(model: RetinaNet, images, gt_boxes, gt_classes, cfg,
                             mark=None) -> dict:
-    """One training forward: the loss dict. ``mark``, if given, is called
-    with each stage's name once the stage's work has been issued."""
-    mark = mark or _no_mark
-    anchors = torch.cat(model.anchors(images.shape[1:3], images.device), 0)
-    levels = model.features(images)
-    mark("backbone+fpn")
-    outputs = model.head_outputs(levels)
-    mark("head")
-    loss_dict = retinanet_loss(outputs, anchors, gt_boxes, gt_classes, cfg)
-    mark("anchor targets+loss")
+    """One training forward: the loss dict. Each stage is a span
+    (``utils/spans.py``); ``mark``, if given, is called with each stage's
+    name once the stage's work has been issued."""
+    with span("backbone+fpn", mark):
+        anchors = torch.cat(model.anchors(images.shape[1:3], images.device), 0)
+        levels = model.features(images)
+    with span("head", mark):
+        outputs = model.head_outputs(levels)
+    with span("anchor targets+loss", mark):
+        loss_dict = retinanet_loss(outputs, anchors, gt_boxes, gt_classes, cfg)
     return loss_dict
 
 

@@ -30,6 +30,7 @@ from detectron_tpu_torch.models.resnet import ResNet
 from detectron_tpu_torch.ops.anchors import AnchorGenerator
 from detectron_tpu_torch.ops.boxes import true_div
 from detectron_tpu_torch.ops.ps_roi_pool import ps_roi_pool
+from detectron_tpu_torch.utils.spans import span
 
 RFCN_STRIDE = 16  # the trunk's stride: C4, or the a-trous C5
 
@@ -148,38 +149,37 @@ def rfcn_train_forward(model: RFCN, images, image_hw, gt_boxes, gt_classes, draw
     :class:`faster_rcnn.TrainDraws` sized to the one RPN level's anchors, or
     a ``torch.Generator`` to make one from. ``mark``: as in
     :func:`faster_rcnn.faster_rcnn_train_forward`."""
-    mark = mark or frcnn._no_mark
-    anchors_pl = model.anchors(images.shape[1:3], images.device)
-    if isinstance(draws, torch.Generator):
-        draws = frcnn.make_train_draws(
-            draws, images.shape[0], anchors_pl[0].shape[0],
-            cfg.rpn.post_nms_topk_train + gt_boxes.shape[1])
-    mark("anchors+draws")
-    feat = model.features(images)
-    mark("backbone+trunk")
-    scores_pl, deltas_pl = model.rpn(feat)
-    mark("rpn head")
-    loss_dict = frcnn.rpn_losses(scores_pl, deltas_pl, anchors_pl[0], gt_boxes, gt_classes,
-                                 draws, cfg)
-    mark("rpn targets+loss")
-    props = frcnn.proposals_from_rpn([s.detach() for s in scores_pl],
-                                     [d.detach() for d in deltas_pl],
-                                     anchors_pl, image_hw, cfg, train=True)
-    mark("proposals (K1)")
-    tgt = sample_rois(
-        props.boxes, props.valid, gt_boxes, gt_classes, draws.roi_fg, draws.roi_bg,
-        sample_size=cfg.roi.batch_per_image,
-        positive_fraction=cfg.roi.positive_fraction,
-        positive_iou=cfg.roi.positive_iou,
-        negative_iou_hi=cfg.roi.negative_iou_hi,
-        negative_iou_lo=cfg.roi.negative_iou_lo,
-        box_weights=cfg.roi.bbox_reg_weights)
-    mark("roi sampling")
-    table = model.ps_maps(feat)
-    mark("ps maps")
-    cls_logits, reg = model.vote(table, tgt.rois)
-    loss_dict.update(frcnn.frcnn_box_losses(cls_logits, reg, tgt, cfg))
-    mark("psroipool + vote + loss")
+    with span("anchors+draws", mark):
+        anchors_pl = model.anchors(images.shape[1:3], images.device)
+        if isinstance(draws, torch.Generator):
+            draws = frcnn.make_train_draws(
+                draws, images.shape[0], anchors_pl[0].shape[0],
+                cfg.rpn.post_nms_topk_train + gt_boxes.shape[1])
+    with span("backbone+trunk", mark):
+        feat = model.features(images)
+    with span("rpn head", mark):
+        scores_pl, deltas_pl = model.rpn(feat)
+    with span("rpn targets+loss", mark):
+        loss_dict = frcnn.rpn_losses(scores_pl, deltas_pl, anchors_pl[0], gt_boxes,
+                                     gt_classes, draws, cfg)
+    with span("proposals (K1)", mark):
+        props = frcnn.proposals_from_rpn([s.detach() for s in scores_pl],
+                                         [d.detach() for d in deltas_pl],
+                                         anchors_pl, image_hw, cfg, train=True)
+    with span("roi sampling", mark):
+        tgt = sample_rois(
+            props.boxes, props.valid, gt_boxes, gt_classes, draws.roi_fg, draws.roi_bg,
+            sample_size=cfg.roi.batch_per_image,
+            positive_fraction=cfg.roi.positive_fraction,
+            positive_iou=cfg.roi.positive_iou,
+            negative_iou_hi=cfg.roi.negative_iou_hi,
+            negative_iou_lo=cfg.roi.negative_iou_lo,
+            box_weights=cfg.roi.bbox_reg_weights)
+    with span("ps maps", mark):
+        table = model.ps_maps(feat)
+    with span("psroipool + vote + loss", mark):
+        cls_logits, reg = model.vote(table, tgt.rois)
+        loss_dict.update(frcnn.frcnn_box_losses(cls_logits, reg, tgt, cfg))
     return loss_dict
 
 

@@ -33,6 +33,7 @@ from detectron_tpu_torch.models import retinanet as retina
 from detectron_tpu_torch.models import rfcn as rfcn_mod
 from detectron_tpu_torch.ops.nms import check_nms_contract
 from detectron_tpu_torch.ops.roi_align import check_roi_align_contract
+from detectron_tpu_torch.utils.spans import span
 
 MODEL_NAMES = ("faster_rcnn", "mask_rcnn", "retinanet", "rfcn")
 
@@ -153,18 +154,21 @@ class Detector:
         return sum(loss_dict.values()), loss_dict
 
     def predict_fn(self, params, batch):
-        """Returns ``(Detections, mask_probs | None)``."""
-        images = torch.as_tensor(batch["image"], dtype=torch.float32, device=self.device)
-        image_hw = torch.as_tensor(batch["image_hw"], dtype=torch.float32,
-                                   device=self.device)
-        kwargs = {"with_masks": self.with_masks} if self.is_two_stage else {}
-        with torch.no_grad():
-            if params is None:
-                out = self.module(images, image_hw, **kwargs)
-            else:
-                params = {k: v.to(self.device) for k, v in params.items()}
-                out = functional_call(self.module, params, (images, image_hw), kwargs,
-                                      strict=True)
+        """Returns ``(Detections, mask_probs | None)``. The call is the span
+        ``predict`` (``utils/spans.py``); the two-stage eval forward's stages
+        are its children."""
+        with span("predict"):
+            images = torch.as_tensor(batch["image"], dtype=torch.float32, device=self.device)
+            image_hw = torch.as_tensor(batch["image_hw"], dtype=torch.float32,
+                                       device=self.device)
+            kwargs = {"with_masks": self.with_masks} if self.is_two_stage else {}
+            with torch.no_grad():
+                if params is None:
+                    out = self.module(images, image_hw, **kwargs)
+                else:
+                    params = {k: v.to(self.device) for k, v in params.items()}
+                    out = functional_call(self.module, params, (images, image_hw), kwargs,
+                                          strict=True)
         return out if self.is_two_stage else (out, None)
 
 

@@ -43,6 +43,7 @@ from detectron_tpu_torch.models.zoo import build_detector
 from detectron_tpu_torch.parallel import broadcast_state, join_group, make_mesh, make_train_step
 from detectron_tpu_torch.train import checkpoint as ckpt
 from detectron_tpu_torch.train.state import create_train_state
+from detectron_tpu_torch.utils import spans
 from detectron_tpu_torch.utils.metrics import MetricsWriter
 from detectron_tpu_torch.utils.timer import Timer
 from detectron_tpu_torch.utils.torch_weights import maybe_load_pretrained
@@ -55,7 +56,8 @@ def parse_args(argv=None):
     ap.add_argument("--restore", action="store_true",
                     help="resume from the latest checkpoint in output_dir")
     ap.add_argument("--profile", action="store_true",
-                    help="write a torch.profiler trace of steps 10-15")
+                    help="write a torch.profiler trace of steps 10-15 and print "
+                         "each stage's mean device and host ms over them")
     return ap.parse_args(argv)
 
 
@@ -77,6 +79,20 @@ def batch_iterator(cfg, process_shard=(0, 1)):
                              cfg.model.num_classes, max_gt=cfg.train.max_gt_boxes)
     for batch in Loader(ds, cfg, train=True, seed=cfg.train.seed, process_shard=process_shard):
         yield {k: v for k, v in batch.items() if not k.startswith("_")}
+
+
+def print_stage_means(records) -> None:
+    """Each span's mean device and host milliseconds over the profiled
+    steps (``utils/spans.py``), in the steps' order; device ms are "not
+    measured" off the card."""
+    by_name = {}
+    for r in records:
+        by_name.setdefault(r.name, []).append(r)
+    for name, recs in by_name.items():
+        dev = [r.device_ms for r in recs if r.device_ms is not None]
+        device = f"{np.mean(dev):.3f} ms" if len(dev) == len(recs) else "not measured"
+        print(f"stage {name}: device {device}, host {np.mean([r.host_ms for r in recs]):.3f} "
+              f"ms, mean of {len(recs)}", flush=True)
 
 
 def run(cfg, restore: bool = False, profile: bool = False, device=None) -> dict:
@@ -111,14 +127,15 @@ def run(cfg, restore: bool = False, profile: bool = False, device=None) -> dict:
     try:
         for step in range(start, cfg.train.max_steps):
             if profile and lead and step == start + 10:
+                spans.take()  # what ran before the profile
                 prof = torch.profiler.profile()
                 prof.__enter__()
             timer.tic("data")
             batch = det.batch_to_device(next(data_iter))
             timer.toc("data")
-            timer.tic("step")
+            timer.tic("issue")  # host time to issue the step: no synchronise
             metrics = step_fn(state, batch)
-            timer.toc("step")
+            timer.toc("issue")
             if cfg.train.debug_nans:
                 bad = sorted(k for k, v in metrics.items() if not bool(torch.isfinite(v).all()))
                 if bad:
@@ -128,6 +145,7 @@ def run(cfg, restore: bool = False, profile: bool = False, device=None) -> dict:
                 prof.__exit__(None, None, None)
                 prof.export_chrome_trace(os.path.join(cfg.output_dir, "profile.json"))
                 print(f"profiler trace written to {cfg.output_dir}/profile.json")
+                print_stage_means(spans.take())
                 prof = None
             if (step + 1) % cfg.train.log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}

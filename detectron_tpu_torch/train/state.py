@@ -30,6 +30,7 @@ from typing import Callable
 import torch
 
 from detectron_tpu_torch.models.zoo import Detector
+from detectron_tpu_torch.utils.spans import span
 
 
 def warmup_step_decay_schedule(cfg):
@@ -132,8 +133,10 @@ def train_step(state: TrainState, batch, draws=None, mark=None, reduce_grads=Non
 
     ``draws``: the ``TrainDraws`` to sample with (Faster / Mask R-CNN and
     R-FCN; sized to their RPN's anchors), or None for a generator seeded
-    from ``train.seed`` and the step. ``mark``: None, or a callable
-    given each stage's name once its work is issued: the forward's stages
+    from ``train.seed`` and the step. The step is a span
+    (``utils/spans.py``), and so is each of its stages. ``mark``: None, or
+    a callable given each stage's name once its work is issued: the
+    forward's stages
     (``faster_rcnn_train_forward``, ``retinanet_train_forward``,
     ``rfcn_train_forward``), then
     ``"backward"`` (with ``reduce_grads``, ``"gradient all-reduce"``) and
@@ -143,32 +146,30 @@ def train_step(state: TrainState, batch, draws=None, mark=None, reduce_grads=Non
     (``parallel.make_train_step``). Returns the loss dict with
     ``loss_total``, as detached tensors on the device.
     """
-    det = state.detector
-    cfg = det.cfg
-    lr = state.schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    if draws is None:
-        draws = step_generator(cfg, state.step, det.device)
-    state.optimizer.zero_grad(set_to_none=True)
-    total, loss_dict = det.loss_fn(None, batch, draws, mark=mark)
-    total.backward()
-    params = [p for group in state.optimizer.param_groups for p in group["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if mark is not None:
-        mark("backward")
-    if reduce_grads is not None:
-        reduce_grads([p.grad for p in params])
-        if mark is not None:
-            mark("gradient all-reduce")
-    if cfg.train.grad_clip_norm > 0:
-        clip_by_global_norm([p.grad for p in params], cfg.train.grad_clip_norm)
-    state.optimizer.step()
-    if mark is not None:
-        mark("optimizer")
-    state.step += 1
+    with span("train_step"):
+        det = state.detector
+        cfg = det.cfg
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        if draws is None:
+            draws = step_generator(cfg, state.step, det.device)
+        state.optimizer.zero_grad(set_to_none=True)
+        total, loss_dict = det.loss_fn(None, batch, draws, mark=mark)
+        with span("backward", mark):
+            total.backward()
+            params = [p for group in state.optimizer.param_groups for p in group["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        if reduce_grads is not None:
+            with span("gradient all-reduce", mark):
+                reduce_grads([p.grad for p in params])
+        with span("optimizer", mark):
+            if cfg.train.grad_clip_norm > 0:
+                clip_by_global_norm([p.grad for p in params], cfg.train.grad_clip_norm)
+            state.optimizer.step()
+        state.step += 1
     metrics = {k: v.detach() for k, v in loss_dict.items()}
     metrics["loss_total"] = total.detach()
     return metrics

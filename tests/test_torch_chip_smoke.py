@@ -28,6 +28,7 @@ import detectron_tpu_torch.config
 from detectron_tpu_torch.models import zoo
 from detectron_tpu_torch.ops import nms
 from detectron_tpu_torch.ops import roi_align as ra
+from detectron_tpu_torch.utils import spans
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,6 +51,9 @@ class _Event:
 
     def query(self):
         return False  # as on the card while the spin kernel holds the stream
+
+    def synchronize(self):
+        pass
 
     def elapsed_time(self, other):
         return (other.t - self.t) * 1e3
@@ -121,6 +125,7 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(spans, "_timed_on_device", lambda: True)  # the spans' events too
     monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
     monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cpu"))
     for mod, name, plain in ((nms, "greedy_keep_cuda", nms.greedy_keep_plain),
@@ -456,9 +461,10 @@ class _Range:
 
 
 class _ProfiledEvent:
-    def __init__(self, name, device, start, end):
+    def __init__(self, name, device, start, end, is_user_annotation=False):
         self.name, self.time_range = name, _Range(start, end)
         self.device_type = type("Device", (), {"name": device})
+        self.is_user_annotation = is_user_annotation
 
 
 class _Profile:
@@ -486,6 +492,22 @@ def test_device_busy_counts_the_loop_alone():
     loop_ms, busy_ms, n = cs.device_busy_in(prof, "eval_loop")
     assert (loop_ms, busy_ms, n) == (2.0, 0.9, 4)
     assert cs.device_busy_in(_Profile([]), "eval_loop") == (0.0, 0.0, 0)
+
+
+def test_device_busy_skips_the_shadows_of_host_ranges():
+    """The device-side shadows of the program's spans and of any other
+    host range are not work: only the kernels inside them count, in the
+    busy share and in a profiled call's kernel listing."""
+    prof = _Profile([
+        _ProfiledEvent("eval_loop", "CPU", 1000.0, 3000.0),
+        _ProfiledEvent("detectron/predict", "CPU", 1100.0, 2900.0),
+        _ProfiledEvent("detectron/predict", "CUDA", 1100.0, 2900.0),  # a span's shadow
+        _ProfiledEvent("detectron/backbone+fpn", "CUDA", 1100.0, 2000.0, True),
+        _ProfiledEvent("fetch", "CUDA", 2500.0, 2900.0, True),  # another range's
+        _ProfiledEvent("conv", "CUDA", 1500.0, 1700.0),
+    ])
+    assert cs.device_busy_in(prof, "eval_loop") == (2.0, 0.2, 1)
+    assert [e.name for e in cs.device_work(prof.events())] == ["conv"]
 
 
 def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):

@@ -326,8 +326,10 @@ def test_driver_debug_nans_stops_at_a_non_finite_loss(tmp_path, monkeypatch, deb
         assert np.isnan(driver.run(cfg, device="cpu")["loss_mask"])
 
 
-def test_driver_flags_and_profile_window(tmp_path):
-    """train.py's flags; --profile writes a trace of steps 10-15."""
+def test_driver_flags_and_profile_window(tmp_path, capsys):
+    """train.py's flags; --profile writes a trace of steps 10-15 and prints
+    each stage span's mean over them (device ms not measured off the
+    card); the log's host time to issue a step is "issue"."""
     args = driver.parse_args(["--config", "c.yaml", "--cfg", "a=1", "b=2", "--restore",
                               "--profile"])
     assert (args.config, args.cfg, args.restore, args.profile) == (
@@ -338,6 +340,11 @@ def test_driver_flags_and_profile_window(tmp_path):
     driver.run(cfg, profile=True, device="cpu")
     assert (tmp_path / "profile.json").stat().st_size > 0
     assert ckpt.latest_step(str(tmp_path)) == 15
+    out = capsys.readouterr().out
+    for stage in ("train_step", "anchors+draws", "mask: targets + align (K2) + head + loss",
+                  "backward", "gradient all-reduce", "optimizer"):
+        assert f"stage {stage}: device not measured, host " in out and "mean of 5" in out
+    assert "| issue: " in out and "| step: " not in out
 
 
 def test_driver_refuses_unported_data():
