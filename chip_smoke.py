@@ -237,7 +237,16 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     costs (the wide cases at C=64, then timed alone at C=256); then Mask
     R-CNN R-50-FPN at 1024x1344, batch 2, bf16 with model.fpn_channels=36:
     built on the card, one predict call counted and one held
-    (``hold_path``).
+    (``hold_path``);
+31. frozen BatchNorm, its ReLU and the residual add in one pass
+    (``phase_frozen_bn``, csrc/frozen_bn.cu): at each distinct pass of a
+    ResNet-50 forward at batch 16, 1024x1344 (the bulk cell's), in each
+    form (affine; identity residual; downsample residual with its own
+    norm), dtype and layout: the kernel against its plain twin bit for bit,
+    forward and backward, each timed beside its bytes bound and the eager
+    chain it replaced, summed over one forward (and the backward of
+    layer2-4); then its launches over one bf16 Mask R-CNN R-50-FPN predict
+    call (49) and one R-101 training step (100 forward, 90 backward).
 
 After each group of phases it logs the host seconds the group took
 (``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
@@ -4689,6 +4698,187 @@ def phase_contracts(seed=30):
 
 
 
+# ---------------------------------------------------------------- phase 31
+
+FROZEN_BN_BATCH = 16  # the bulk cell's batch, at CANVAS
+FROZEN_BN_LAYOUTS = (("bfloat16", "channels_last"), ("float32", "nchw"),
+                     ("bfloat16", "nchw"), ("float32", "channels_last"))
+
+
+def frozen_bn_passes(depth="resnet50") -> list:
+    """Each frozen-norm pass of one ResNet forward at CANVAS, in order:
+    ``(name, form, C, H, W)`` (the downsample norm rides in its block's
+    ``bn3`` pass)."""
+    from detectron_tpu_torch.models.resnet import STAGE_BLOCKS
+
+    h, w = (CANVAS[0] + 1) // 2, (CANVAS[1] + 1) // 2  # the 7x7/2 stem
+    out = [("stem", "affine", 64, h, w)]
+    h, w = (h + 1) // 2, (w + 1) // 2  # the 3x3/2 max-pool
+    features = 64
+    for stage, blocks in enumerate(STAGE_BLOCKS[depth]):
+        for i in range(blocks):
+            name = f"layer{stage + 1}.{i}"
+            out.append((f"{name}.bn1", "affine", features, h, w))
+            if stage > 0 and i == 0:
+                h, w = (h + 1) // 2, (w + 1) // 2  # the 3x3's stride
+            out.append((f"{name}.bn2", "affine", features, h, w))
+            out.append((f"{name}.bn3", "downsample" if i == 0 else "identity",
+                        4 * features, h, w))
+        features *= 2
+    return out
+
+
+def frozen_bn_bytes(form, n, elem, backward=False) -> float:
+    """What one pass must move: the affine reads x and writes y; a residual
+    form also reads r or d; the backward reads g and y and writes gx, and
+    gr in a residual form."""
+    tensors = (3 + (form != "affine")) if backward else (2 + (form != "affine"))
+    return tensors * n * elem
+
+
+def frozen_bn_case(rng, form, c, h, w, dtype, layout, batch):
+    """The kernel against its plain twin, bit for bit, forward and backward,
+    at one shape; each timed, beside its bytes bound and the eager chain
+    (the scale and bias from the four buffers, then the plain twin)."""
+    from detectron_tpu_torch.ops import frozen_bn as fb
+
+    dev = torch.device(DEVICE)
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    shape = (batch, c, h, w)
+
+    def tensor():
+        return torch.randn(shape, device=dev, dtype=dt).contiguous(memory_format=fmt)
+
+    def buffers():
+        return [torch.tensor(v.astype(np.float32), device=dev)
+                for v in (1 + 0.3 * rng.randn(c), 0.3 * rng.randn(c), 0.5 * rng.randn(c),
+                          0.5 + rng.rand(c))]
+
+    def scale_bias(weight, bias, mean, var):
+        scale = weight * torch.rsqrt(var + 1e-5)
+        return scale.to(dt), (bias - mean * scale).to(dt)
+
+    x, g, r = tensor(), tensor(), tensor() if form != "affine" else None
+    norms = [buffers()] + ([buffers()] if form == "downsample" else [])
+
+    def call_args():  # the scale and bias worked out anew, as the eager chain did
+        sb = [scale_bias(*nb) for nb in norms] + [(None, None)]
+        return (x, *sb[0], r, *sb[1])
+
+    args = call_args()
+    code = fb.FORMS.index(form)
+    y = fb.frozen_bn_act_cuda(*args)
+    want = fb.frozen_bn_act_plain(*args)
+    gx, gr = fb.frozen_bn_act_backward_cuda(g, y, args[1], args[4], code)
+    wx, wr = fb.frozen_bn_act_backward_plain(g, want, args[1], args[4], code)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+
+    def same(a, b):
+        return a is None and b is None or torch.equal(a.contiguous().view(bits),
+                                                      b.contiguous().view(bits))
+
+    n, elem = x.numel(), x.element_size()
+    return dict(form=form, c=c, h=h, w=w, batch=batch, dtype=dtype, layout=layout,
+                bitwise=bool(same(y, want) and same(gx, wx) and same(gr, wr)
+                             and y.is_contiguous(memory_format=fmt)),
+                ms=cuda_ms(lambda: fb.frozen_bn_act_cuda(*args)),
+                plain_ms=cuda_ms(lambda: fb.frozen_bn_act_plain(*call_args())),
+                bound_ms=bound_ms(frozen_bn_bytes(form, n, elem), 0.0)[0],
+                bwd_ms=cuda_ms(lambda: fb.frozen_bn_act_backward_cuda(g, y, args[1], args[4],
+                                                                      code)),
+                bwd_plain_ms=cuda_ms(lambda: fb.frozen_bn_act_backward_plain(
+                    g, y, args[1], args[4], code)),
+                bwd_bound_ms=bound_ms(frozen_bn_bytes(form, n, elem, True), 0.0)[0],
+                bound_by="bytes")
+
+
+def phase_frozen_bn(seed=31):
+    """Phase 31: frozen BatchNorm, its ReLU and the residual add in one pass
+    (``csrc/frozen_bn.cu``). At every distinct pass of a ResNet-50 forward
+    at batch FROZEN_BN_BATCH and CANVAS, in each form, dtype and layout
+    (FROZEN_BN_LAYOUTS): the kernel against its plain twin bit for bit,
+    forward and backward (gx, and gr in the residual forms); each timed
+    beside its bytes bound and the eager chain it replaced; summed over one
+    forward. Then the launches of one Mask R-CNN R-50-FPN predict call and
+    one R-101 training step in bf16 at batch 2 (a pass a norm but the
+    downsamples': 49 and 100 forward; 90 backward, the norms of layer2-4).
+    Returns (the cases, {path: launches}, {"dtype layout": totals})."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.resnet import STAGE_BLOCKS
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.ops import frozen_bn as fb
+    from detectron_tpu_torch.train.state import train_step
+
+    rng = np.random.RandomState(seed)
+    passes = frozen_bn_passes()
+    distinct = {}  # shape -> [passes a forward, of them in layer2-4 (a backward's)]
+    for name, form, c, h, w in passes:
+        count = distinct.setdefault((form, c, h, w), [0, 0])
+        count[0] += 1
+        count[1] += name.startswith(("layer2", "layer3", "layer4"))
+    cases, summary = [], {}
+    for dtype, layout in FROZEN_BN_LAYOUTS:
+        tag = f"frozen_bn {dtype} {layout}"
+        rows = []
+        for (form, c, h, w), (count, trainable) in distinct.items():
+            case = frozen_bn_case(rng, form, c, h, w, dtype, layout, FROZEN_BN_BATCH)
+            case.update(count=count, trainable=trainable)
+            rows.append(case)
+            log(f"[{tag}] {form} C={c} {h}x{w} x{count}: bitwise {case['bitwise']}; "
+                f"{case['ms']:.4f} ms (bound {case['bound_ms']:.4f}, eager "
+                f"{case['plain_ms']:.4f}); backward {case['bwd_ms']:.4f} ms (bound "
+                f"{case['bwd_bound_ms']:.4f}, eager {case['bwd_plain_ms']:.4f})")
+            torch.cuda.empty_cache()
+        cases += rows
+        total = {k: sum(r[k] * r["count"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+        total.update({k: sum(r[k] * r["trainable"] for r in rows)
+                      for k in ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms")})
+        total["bound_share"] = total["bound_ms"] / total["ms"]
+        summary[f"{dtype} {layout}"] = total
+        log(f"[{tag}] one ResNet-50 forward at batch {FROZEN_BN_BATCH}, "
+            f"{CANVAS[0]}x{CANVAS[1]} ({len(passes)} passes): {total['ms']:.3f} ms, bound "
+            f"{total['bound_ms']:.3f} ({100 * total['bound_share']:.1f}% of it), eager chain "
+            f"{total['plain_ms']:.3f} ms; the backward of layer2-4's passes "
+            f"{total['bwd_ms']:.3f} ms (bound {total['bwd_bound_ms']:.3f}, eager "
+            f"{total['bwd_plain_ms']:.3f})")
+    wrong = [c for c in cases if not c["bitwise"]]
+    if wrong:
+        raise AssertionError(f"frozen_bn: the kernel differs from its plain twin in {wrong}")
+
+    launches = {}
+    cfg = get_config(MASK_R50, ["model.dtype=bfloat16"])
+    det = build_detector(cfg)  # the card, by default
+    batch = slice_inputs(cfg, seed, det.device)
+    det.module.load_state_dict(det.init(seed))
+    fb.frozen_bn_act_cuda.launches = fb.frozen_bn_act_backward_cuda.launches = 0
+    det.predict_fn(None, batch)
+    torch.cuda.synchronize()
+    launches["predict_r50"] = fb.frozen_bn_act_cuda.launches
+    del det
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_R101, TRAIN_OVERRIDES + ["model.dtype=bfloat16"])
+    state, data = seeded_train_state(cfg, None, seed)
+    fb.frozen_bn_act_cuda.launches = fb.frozen_bn_act_backward_cuda.launches = 0
+    out = train_step(state, next(data))
+    torch.cuda.synchronize()
+    launches["forward_r101"] = fb.frozen_bn_act_cuda.launches
+    launches["backward_r101"] = fb.frozen_bn_act_backward_cuda.launches
+    del state, data, out
+    torch.cuda.empty_cache()
+    log(f"[frozen_bn] launches: {launches}")
+    r50 = STAGE_BLOCKS[get_config(MASK_R50).model.backbone]
+    r101 = STAGE_BLOCKS[cfg.model.backbone][cfg.model.frozen_stages:]
+    want = {"predict_r50": 1 + 3 * sum(r50),
+            "forward_r101": 1 + 3 * sum(STAGE_BLOCKS[cfg.model.backbone]),
+            "backward_r101": 3 * sum(r101)}
+    if launches != want:
+        raise AssertionError(f"frozen_bn launches {launches}, want {want}")
+    fb.frozen_bn_act_cuda.launches = fb.frozen_bn_act_backward_cuda.launches = 0
+    return cases, launches, summary
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -4698,6 +4888,8 @@ KERNELS = {
                                  replaces="detectron_tpu/ops/roi_align_pallas.py:192"),
     "multilevel_roi_align_bwd": dict(source="detectron_tpu_torch/csrc/roi_align.cu",
                                      replaces="detectron_tpu/ops/roi_align_pallas.py:529"),
+    "frozen_bn_act": dict(source="detectron_tpu_torch/csrc/frozen_bn.cu",
+                          replaces="none: the XLA-fused affine of detectron_tpu/models/resnet.py"),
 }
 
 
@@ -4740,6 +4932,21 @@ def k1_bf16_entry(cases, launches):
     }
 
 
+def frozen_bn_entry(cases, launches, summary):
+    """Phase 31's kernel: times summed over one ResNet-50 forward's passes at
+    the bulk cell's shapes in bf16 channels-last (the cells' layout), the
+    other dtypes and layouts in ``summary``; ``launches`` a predict call's."""
+    main = summary["bfloat16 channels_last"]
+    return {
+        "name": "frozen_bn_act", "route": "cuda", **KERNELS["frozen_bn_act"],
+        "launches": launches["predict_r50"], "launches_by_path": launches, "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes this function
+        "summary": summary, "cases": cases,
+    }
+
+
 def retinanet_phases(k1) -> dict:
     """Phases 13-18, each path in both dtypes; K1's bench cases are added
     to ``k1``. Returns ``{path: (launches, summary)}``."""
@@ -4765,7 +4972,7 @@ def retinanet_phases(k1) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", action="store_true",
-                        help="run phases 1-4, 7, 29 and 30 only (the kernels against their plain "
+                        help="run phases 1-4, 7 and 29-31 only (the kernels against their plain "
                              "versions, and their times), print their cases and stop; no "
                              "result line")
     args = parser.parse_args(argv)
@@ -4791,10 +4998,12 @@ def main(argv=None) -> int:
         del feats
         _, op_k2, op_k3 = phase_op_api()
         k1_bf16, _, c_k2, c_k3, _ = phase_contracts()
+        fbn, _, fbn_summary = phase_frozen_bn()
         print(json.dumps({"kernel_cases": {"greedy_nms": k1, "greedy_nms_bf16": k1_bf16,
                                            "multilevel_roi_align": k2 + op_k2 + c_k2,
-                                           "multilevel_roi_align_bwd": k3 + op_k3 + c_k3}}),
-              flush=True)
+                                           "multilevel_roi_align_bwd": k3 + op_k3 + c_k3,
+                                           "frozen_bn_act": fbn},
+                          "frozen_bn_act": fbn_summary}), flush=True)
         print(card, flush=True)
         return 0
     predict_launches, _, predict32 = phase_slice()
@@ -4846,6 +5055,8 @@ def main(argv=None) -> int:
     k2 += c_k2
     k3 += c_k3
     lap("phase 30")
+    fbn, fbn_launches, fbn_summary = phase_frozen_bn()
+    lap("phase 31")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -4870,6 +5081,7 @@ def main(argv=None) -> int:
         kernel_entry("multilevel_roi_align_bwd", k3, launches("multilevel_roi_align_bwd"),
                      max(c["max_abs_err"] for c in k3 if c["dtype"] == "float32")),
         k1_bf16_entry(k1_bf16, k1_bf16_launches),
+        frozen_bn_entry(fbn, fbn_launches, fbn_summary),
     ]
     # the end-to-end numbers of both dtypes, side by side
     print(json.dumps({"dtypes": {

@@ -70,9 +70,14 @@ def calibrate_frozen_bn(module, images):
     overflows to NaN within a few steps."""
 
     def set_stats(bn, args):
-        x = args[0].float()  # the statistics are float32 whatever the compute dtype
-        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
-        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+        # a bottleneck's last norm is handed the downsample conv's output and
+        # the downsample norm too (models/resnet.py::norm_act)
+        x, residual, residual_norm = (*args, None, None)[:3]
+        for norm, y in ((bn, x), (residual_norm, residual)):
+            if norm is not None:
+                y = y.float()  # the statistics are float32 whatever the compute dtype
+                norm.running_mean.copy_(y.mean(dim=(0, 2, 3)))
+                norm.running_var.copy_(y.var(dim=(0, 2, 3), unbiased=False))
 
     hooks = [m.register_forward_pre_hook(set_stats) for m in module.backbone.modules()
              if isinstance(m, FrozenBatchNorm)]

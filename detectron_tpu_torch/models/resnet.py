@@ -26,15 +26,27 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from detectron_tpu_torch.models.precision import Conv2d
+from detectron_tpu_torch.ops.frozen_bn import frozen_bn_act
 
 STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm frozen at its statistics:
-    ``y = (x - mean) / sqrt(var + eps) * weight + bias``, with the scale and
-    bias worked out in float32 and cast to ``dtype`` (the JAX module's
-    ``scale.astype(dtype)``)."""
+    """BatchNorm frozen at its statistics, with the ReLU that follows it:
+    ``relu((x - mean) / sqrt(var + eps) * weight + bias [+ residual])``,
+    the scale and bias worked out in float32 and cast to ``dtype`` (the JAX
+    module's ``scale.astype(dtype)``).
+
+    A call is one pass of ``ops/frozen_bn.py::frozen_bn_act`` (the kernel of
+    ``csrc/frozen_bn.cu`` on the card): ``norm(x)``, ``norm(x, r)`` with
+    an identity residual, or ``norm(x, d, downsample_norm)`` with the raw
+    downsample conv output ``d``, to which ``downsample_norm``'s scale and
+    bias are applied in the same pass. The result is bit for bit the eager
+    ``x * scale + bias``, residual add and ``F.relu``.
+
+    The scale and bias are kept between calls, and worked out again when a
+    buffer is replaced or written in place (its ``_version``):
+    ``load_state_dict``, ``copy_`` and ``.to`` all do one or the other."""
 
     def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -44,12 +56,32 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self._cached = None  # (key, the buffers it names, scale, bias)
 
-    def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        bias = self.bias - self.running_mean * scale
-        dt = self.compute_dtype
-        return x * scale.to(dt)[None, :, None, None] + bias.to(dt)[None, :, None, None]
+    def scale_bias(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``[C]`` scale and bias in the compute dtype."""
+        buffers = (self.weight, self.bias, self.running_mean, self.running_var)
+        key = None  # an inference tensor tracks no version: never cached
+        if not any(t.is_inference() for t in buffers):
+            # the cache holds the buffers, so their ids name no other tensor
+            key = (self.compute_dtype, self.eps, tuple(map(id, buffers)),
+                   tuple(t._version for t in buffers))
+        cached = self._cached
+        if key is None or cached is None or cached[0] != key:
+            with torch.no_grad():
+                scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+                bias = self.bias - self.running_mean * scale
+                dt = self.compute_dtype
+                cached = (key, buffers, scale.to(dt), bias.to(dt))
+            self._cached = None if key is None else cached
+        return cached[2], cached[3]
+
+    def forward(self, x, residual=None, residual_norm: FrozenBatchNorm | None = None):
+        scale, bias = self.scale_bias()
+        res_scale = res_bias = None
+        if residual_norm is not None:
+            res_scale, res_bias = residual_norm.scale_bias()
+        return frozen_bn_act(x, scale, bias, residual, res_scale, res_bias)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -88,6 +120,19 @@ def norm_name(kind: str, name: str) -> str:
     return name.replace("bn", "gn") if kind == "gn" else name
 
 
+def norm_act(norm: nn.Module, x, residual=None, residual_norm: nn.Module | None = None):
+    """``relu(norm(x) + residual_norm(residual))``, the residual and its norm
+    optional: one pass for frozen BatchNorm (:class:`FrozenBatchNorm`, which
+    takes the residual's norm as its own argument, so that a forward
+    pre-hook sees both norms' inputs), the eager ops for GroupNorm."""
+    if isinstance(norm, FrozenBatchNorm):
+        return norm(x, residual, residual_norm)
+    y = norm(x)
+    if residual is not None:
+        y = y + (residual if residual_norm is None else residual_norm(residual))
+    return F.relu(y)
+
+
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
          dtype: torch.dtype = torch.float32, dilation: int = 1) -> Conv2d:
     return Conv2d(cin, cout, kernel, stride=stride, padding=dilation * (kernel - 1) // 2,
@@ -117,13 +162,12 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         n1, n2, n3 = (getattr(self, n) for n in self.norm_names)
-        out = F.relu(n1(self.conv1(x)))
-        out = F.relu(n2(self.conv2(out)))
-        out = n3(self.conv3(out))
-        residual = x
-        if self.downsample_conv is not None:
-            residual = getattr(self, self.downsample_name)(self.downsample_conv(x))
-        return F.relu(out + residual)
+        out = norm_act(n1, self.conv1(x))
+        out = norm_act(n2, self.conv2(out))
+        if self.downsample_conv is None:
+            return norm_act(n3, self.conv3(out), x)
+        return norm_act(n3, self.conv3(out), self.downsample_conv(x),
+                        getattr(self, self.downsample_name))
 
 
 def resnet_param_is_frozen(name: str, frozen_stages: int = 1) -> bool:
@@ -200,7 +244,7 @@ class ResNet(nn.Module):
     def forward(self, x, stages: int = 4):
         """The outputs of the first ``stages`` stages (R-FCN's C4 trunk runs
         three)."""
-        x = F.relu(getattr(self, self.stem_norm)(self.conv1(x)))
+        x = norm_act(getattr(self, self.stem_norm), self.conv1(x))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
         for stage in range(stages):

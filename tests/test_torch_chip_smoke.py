@@ -1015,3 +1015,39 @@ def test_contracts_phase_counts_its_launches_and_holds_each_call(rehearsal, monk
     assert "[contracts] mask_rcnn model.dtype=bfloat16 model.fpn_channels=36" in out
     assert out.count("R=4 C=12, timed only: K2") == 2
     assert "[contracts fpn_channels=36 bf16] each launch held" in out
+
+
+def test_frozen_bn_phase_holds_every_form_and_counts_its_launches(rehearsal, monkeypatch,
+                                                                 capsys):
+    from detectron_tpu_torch.ops import frozen_bn as fb
+
+    plain, plain_bwd = fb.frozen_bn_act_plain, fb.frozen_bn_act_backward_plain
+    monkeypatch.setattr(fb, "frozen_bn_act_cuda", _counting(fb, "frozen_bn_act_cuda", plain))
+    monkeypatch.setattr(fb, "frozen_bn_act_backward_cuda",
+                        _counting(fb, "frozen_bn_act_backward_cuda", plain_bwd))
+
+    def counted_as(name, fn):
+        """On the CPU the model runs the plain passes: counted as the kernel's."""
+        def run(*args, **kwargs):
+            getattr(fb, name).launches += 1
+            return fn(*args, **kwargs)
+        return run
+
+    monkeypatch.setattr(fb, "frozen_bn_act_plain", counted_as("frozen_bn_act_cuda", plain))
+    monkeypatch.setattr(fb, "frozen_bn_act_backward_plain",
+                        counted_as("frozen_bn_act_backward_cuda", plain_bwd))
+    monkeypatch.setattr(cs, "FROZEN_BN_BATCH", 1)
+    cases, launches, summary = cs.phase_frozen_bn()
+    # 16 distinct passes of a ResNet-50 forward, in each dtype and layout
+    assert len(cases) == 16 * len(cs.FROZEN_BN_LAYOUTS)
+    assert all(c["bitwise"] and c["bound_by"] == "bytes" for c in cases)
+    assert {c["form"] for c in cases} == set(fb.FORMS)
+    assert sum(c["count"] for c in cases) == 49 * len(cs.FROZEN_BN_LAYOUTS)
+    assert sum(c["trainable"] for c in cases) == 39 * len(cs.FROZEN_BN_LAYOUTS)
+    assert set(summary) == {f"{d} {l}" for d, l in cs.FROZEN_BN_LAYOUTS}
+    # the rehearsal's training config is an R-50
+    assert launches == {"predict_r50": 49, "forward_r101": 49, "backward_r101": 39}
+    entry = cs.frozen_bn_entry(cases, launches, summary)
+    assert entry["launches"] == 49 and entry["ms"] == summary["bfloat16 channels_last"]["ms"]
+    out = capsys.readouterr().out
+    assert out.count("one ResNet-50 forward at batch 1") == len(cs.FROZEN_BN_LAYOUTS)
