@@ -12,6 +12,7 @@ A failed build raises: nothing falls back to the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,9 +58,19 @@ def build(names=KERNELS) -> float:
     ``nvcc`` process per source, all started together. Returns the
     seconds it took; raises ``RuntimeError`` with the compiler's output if
     any build fails. ``nvcc``'s report (``-Xptxas -v``: registers, shared
-    memory, spills) is kept beside each library as ``.log``."""
+    memory, spills) is kept beside each library as ``.log``. A lock file in
+    the build directory lets one process build at a time: processes
+    started together (a data-parallel job's ranks) build each library
+    once, and the others load it."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_missing(names)
+    return time.perf_counter() - t0
+
+
+def _build_missing(names) -> None:
     procs = []
     for name in names:
         out = library_path(name)
@@ -80,7 +91,6 @@ def build(names=KERNELS) -> float:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -141,7 +141,8 @@ def run(args, device=None) -> dict:
         h, w = (int(s) for s in str(args.size).split("x"))
     else:
         h = w = int(args.size)
-    bb = {"resnet50": "R-50-FPN", "resnet101": "R-101-FPN"}.get(
+    bb = {"resnet50": "R-50-FPN", "resnet101": "R-101-FPN",
+          "resnext101_64x4d": "X-101-64x4d-FPN"}.get(
         cfg.model.backbone, cfg.model.backbone)
     det = build_detector(cfg, device=device)
     det.module.load_state_dict(det.init(0))

@@ -21,7 +21,7 @@ def base_config() -> AttrDict:
 
     cfg.model = AttrDict()
     cfg.model.name = "faster_rcnn"  # faster_rcnn | mask_rcnn | retinanet | rfcn
-    cfg.model.backbone = "resnet50"  # resnet50 | resnet101
+    cfg.model.backbone = "resnet50"  # resnet50 | resnet101 | resnext101_64x4d (the port alone)
     cfg.model.stem = "conv"  # s2d is an exact re-layout of the same conv
     cfg.model.num_classes = 81  # includes background at index 0
     cfg.model.fpn_channels = 256

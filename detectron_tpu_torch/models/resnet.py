@@ -1,9 +1,16 @@
-"""ResNet-50/101 backbone with frozen BatchNorm or trainable GroupNorm-32.
+"""ResNet-50/101 and ResNeXt-101 64x4d backbones with frozen BatchNorm or
+trainable GroupNorm-32.
 
 The port of ``detectron_tpu/models/resnet.py``: torchvision v1.5
 bottlenecks (stride on the 3x3, downsample on block 0), a 7x7/2 stem with
 symmetric padding 3 and a 3x3/2 max-pool with padding 1. Modules run
-NCHW.
+NCHW. ``model.backbone`` names a trunk of :data:`TRUNKS`: its blocks a
+stage, and the groups and width a group of each bottleneck's 3x3
+(ResNeXt, Xie et al., arXiv:1611.05431: 1x1 -> grouped 3x3 -> 1x1, the
+inner width ``groups * width_per_group * 2**stage``, as torchvision's
+``resnext101_64x4d`` and Detectron's ``X-101-64x4d`` build it). A plain
+ResNet is the trunk with one group of 64 channels; the JAX package has
+ResNet alone.
 
 Module names follow the JAX parameter tree (``conv1``, ``bn1``,
 ``layer{s}.{i}.conv1..3 / bn1..3 / downsample_conv / downsample_bn``; with
@@ -20,6 +27,8 @@ float32 (``models/precision.py``).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -27,8 +36,28 @@ from torch.utils.checkpoint import checkpoint
 
 from detectron_tpu_torch.models.precision import Conv2d
 from detectron_tpu_torch.ops.frozen_bn import frozen_bn_act
+from detectron_tpu_torch.utils.spans import span
 
-STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+
+class Trunk(NamedTuple):
+    """A bottleneck trunk: blocks a stage (res2-res5), and the groups and
+    channels a group of each stage-2 bottleneck's 3x3 (doubled a stage)."""
+
+    blocks: tuple[int, int, int, int]
+    groups: int = 1
+    width_per_group: int = 64
+
+    def inner(self, stage: int) -> int:
+        """The 1x1 -> 3x3 -> 1x1 inner width of stage ``stage`` (0 = res2)."""
+        return self.groups * self.width_per_group * 2 ** stage
+
+
+TRUNKS = {
+    "resnet50": Trunk((3, 4, 6, 3)),
+    "resnet101": Trunk((3, 4, 23, 3)),
+    "resnext101_64x4d": Trunk((3, 4, 23, 3), groups=64, width_per_group=4),
+}
+STAGE_BLOCKS = {name: trunk.blocks for name, trunk in TRUNKS.items()}
 
 
 class FrozenBatchNorm(nn.Module):
@@ -134,24 +163,30 @@ def norm_act(norm: nn.Module, x, residual=None, residual_norm: nn.Module | None 
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
-         dtype: torch.dtype = torch.float32, dilation: int = 1) -> Conv2d:
+         dtype: torch.dtype = torch.float32, dilation: int = 1, groups: int = 1) -> Conv2d:
     return Conv2d(cin, cout, kernel, stride=stride, padding=dilation * (kernel - 1) // 2,
-                  dilation=dilation, bias=False, compute_dtype=dtype)
+                  dilation=dilation, groups=groups, bias=False, compute_dtype=dtype)
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (stride, dilation) -> 1x1, expansion 4."""
+    """1x1 -> 3x3 (stride, dilation, ``groups``) -> 1x1, out ``features * 4``;
+    ``inner`` is the 1x1 -> 3x3 -> 1x1 width (``features`` for a ResNet).
+    A grouped 3x3 is the span ``grouped 3x3`` (``utils/spans.py``)."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  downsample: bool = False, dtype: torch.dtype = torch.float32,
-                 dilation: int = 1, norm: str = "frozen_bn"):
+                 dilation: int = 1, norm: str = "frozen_bn", groups: int = 1,
+                 inner: int | None = None):
         super().__init__()
+        inner = features if inner is None else inner
+        self.groups = groups
         self.norm_names = [norm_name(norm, f"bn{i}") for i in (1, 2, 3)]
-        self.conv1 = conv(cin, features, 1, dtype=dtype)
-        self.add_module(self.norm_names[0], make_norm(norm, features, dtype))
-        self.conv2 = conv(features, features, 3, stride, dtype=dtype, dilation=dilation)
-        self.add_module(self.norm_names[1], make_norm(norm, features, dtype))
-        self.conv3 = conv(features, features * 4, 1, dtype=dtype)
+        self.conv1 = conv(cin, inner, 1, dtype=dtype)
+        self.add_module(self.norm_names[0], make_norm(norm, inner, dtype))
+        self.conv2 = conv(inner, inner, 3, stride, dtype=dtype, dilation=dilation,
+                          groups=groups)
+        self.add_module(self.norm_names[1], make_norm(norm, inner, dtype))
+        self.conv3 = conv(inner, features * 4, 1, dtype=dtype)
         self.add_module(self.norm_names[2], make_norm(norm, features * 4, dtype))
         self.downsample_name = norm_name(norm, "downsample_bn")
         if downsample:
@@ -163,7 +198,12 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         n1, n2, n3 = (getattr(self, n) for n in self.norm_names)
         out = norm_act(n1, self.conv1(x))
-        out = norm_act(n2, self.conv2(out))
+        if self.groups > 1:
+            with span("grouped 3x3"):
+                out = self.conv2(out)
+        else:
+            out = self.conv2(out)
+        out = norm_act(n2, out)
         if self.downsample_conv is None:
             return norm_act(n3, self.conv3(out), x)
         return norm_act(n3, self.conv3(out), self.downsample_conv(x),
@@ -194,6 +234,10 @@ class ResNet(nn.Module):
     stem (its trainable GroupNorm included). ``stem="s2d"`` is an exact
     re-layout of the same 7x7/2 conv, so it runs as the plain stem.
 
+    ``depth``: a trunk of :data:`TRUNKS` (``model.backbone``). Each stage
+    runs in a span ``res2`` to ``res5`` (``utils/spans.py``), inside the
+    caller's own.
+
     ``norm``: ``"frozen_bn"`` or ``"gn"`` (:class:`GroupNorm`, trainable
     outside the frozen stages). ``remat``: while grad is enabled, each
     bottleneck of a stage above ``frozen_stages`` runs under
@@ -219,20 +263,24 @@ class ResNet(nn.Module):
             raise ValueError(f"model.norm={norm!r}: want one of {NORMS}")
         if stem not in ("conv", "s2d"):
             raise ValueError(f"unknown stem {stem!r}")
+        if depth not in TRUNKS:
+            raise ValueError(f"model.backbone={depth!r}: want one of {sorted(TRUNKS)}")
+        trunk = TRUNKS[depth]
         self.frozen_stages = frozen_stages
         self.remat = remat
         self.conv1 = conv(3, 64, 7, stride=2, dtype=dtype)  # casts the images
         self.stem_norm = norm_name(norm, "bn1")
         self.add_module(self.stem_norm, make_norm(norm, 64, dtype))
         cin, features = 64, 64
-        for stage, num_blocks in enumerate(STAGE_BLOCKS[depth]):
+        for stage, num_blocks in enumerate(trunk.blocks):
             blocks = []
             dilated = stage == 3 and dilate_c5
             for i in range(num_blocks):
                 stride = 2 if (stage > 0 and i == 0 and not dilated) else 1
                 blocks.append(Bottleneck(cin, features, stride, downsample=(i == 0),
                                          dtype=dtype, dilation=2 if dilated else 1,
-                                         norm=norm))
+                                         norm=norm, groups=trunk.groups,
+                                         inner=trunk.inner(stage)))
                 cin = features * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             features *= 2
@@ -249,12 +297,13 @@ class ResNet(nn.Module):
         feats = {}
         for stage in range(stages):
             layer = getattr(self, f"layer{stage + 1}")
-            if self.remat and stage + 1 > self.frozen_stages and torch.is_grad_enabled():
-                for block in layer:
-                    # no block draws random numbers: no RNG state to keep
-                    x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = layer(x)
+            with span(f"res{stage + 2}"):
+                if self.remat and stage + 1 > self.frozen_stages and torch.is_grad_enabled():
+                    for block in layer:
+                        # no block draws random numbers: no RNG state to keep
+                        x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x = layer(x)
             if stage + 1 <= self.frozen_stages:
                 x = x.detach()
             feats[f"c{stage + 2}"] = x

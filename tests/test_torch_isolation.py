@@ -209,3 +209,28 @@ def test_library_path_is_keyed_by_source(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("b")
     assert _build.library_path("k") != first
     assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
+
+
+def test_builds_started_together_compile_each_library_once(tmp_path, monkeypatch):
+    """A data-parallel job's ranks start together and each loads the
+    kernels: the build directory's lock lets one compile, and the others
+    find its library."""
+    import threading
+
+    from detectron_tpu_torch import _build
+
+    (tmp_path / "k.cu").write_text("source\n")
+    compiler = tmp_path / "nvcc"
+    compiler.write_text(f'#!/bin/sh\necho run >> {tmp_path / "runs"}\nsleep 0.3\n'
+                        'while [ "$1" != "-o" ]; do shift; done\necho library > "$2"\n')
+    compiler.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: str(compiler))
+    ranks = [threading.Thread(target=_build.build, args=(["k"],)) for _ in range(3)]
+    for t in ranks:
+        t.start()
+    for t in ranks:
+        t.join()
+    assert (tmp_path / "runs").read_text().splitlines() == ["run"]
+    assert _build.library_path("k").read_text() == "library\n"

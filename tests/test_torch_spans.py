@@ -4,7 +4,10 @@ Config: Mask R-CNN R-50, 256x256, fpn_channels=32, num_classes=4, small
 proposal counts, batch 2 of ``make_batch``, on the CPU. Under
 ``torch.profiler`` every stage leaves a record (name, parent, call) and a
 ``detectron/<name>`` range; outside one nothing is recorded, no range is
-opened, and the outputs are bitwise those of a recorded call.
+opened, and the outputs are bitwise those of a recorded call. The trunk
+(``models/resnet.py``) spans each of its stages, ``res2`` to ``res5``,
+inside the caller's stage, and a ResNeXt's each grouped 3x3 (``grouped
+3x3``) inside its stage; a plain ResNet's 3x3 has no span.
 """
 
 from collections import deque
@@ -16,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from detectron_tpu_torch.config import get_config
 from detectron_tpu_torch.data.synthetic import make_batch
+from detectron_tpu_torch.models import resnet
 from detectron_tpu_torch.models.zoo import build_detector
 from detectron_tpu_torch.train import state as tstate
 from detectron_tpu_torch.utils import spans
@@ -28,6 +32,7 @@ OVERRIDES = ["model.name=mask_rcnn", "model.num_classes=4", "model.fpn_channels=
              "train.grad_clip_norm=1.0"]
 PREDICT = ["backbone+fpn", "rpn head", "proposals (K1)", "box: align (K2) + head",
            "detections (K1)", "mask: align (K2) + head + select"]
+TRUNK = ["res2", "res3", "res4", "res5"]
 FORWARD = ["anchors+draws", "backbone+fpn", "rpn head", "rpn targets+loss", "proposals (K1)",
            "roi sampling", "box: align (K2) + head + loss",
            "mask: targets + align (K2) + head + loss"]
@@ -82,14 +87,19 @@ def predict(model):
 def test_predict_fn_leaves_its_stage_spans_under_the_profiler(model):
     (dets, masks), names = profiled(lambda: predict(model))
     recs = spans.take()
-    assert [r.name for r in recs] == ["predict"] + PREDICT
-    assert [r.parent for r in recs] == [None] + ["predict"] * len(PREDICT)
+    top = [r for r in recs if r.parent in (None, "predict")]
+    assert [r.name for r in top] == ["predict"] + PREDICT
+    assert [r.parent for r in top] == [None] + ["predict"] * len(PREDICT)
+    assert [(r.name, r.parent) for r in recs if r not in top] == [
+        (n, "backbone+fpn") for n in TRUNK]
     assert len({r.call for r in recs}) == 1
     assert all(r.host_ms > 0 for r in recs)
     assert all(r.device_ms is None for r in recs)  # no card here
     root = recs[0].host_ms
-    assert sum(r.host_ms for r in recs[1:]) <= root
-    assert {spans.PREFIX + n for n in ["predict"] + PREDICT} <= names
+    assert sum(r.host_ms for r in top[1:]) <= root
+    backbone = next(r for r in recs if r.name == "backbone+fpn")
+    assert sum(r.host_ms for r in recs if r.name in TRUNK) <= backbone.host_ms
+    assert {spans.PREFIX + n for n in ["predict"] + PREDICT + TRUNK} <= names
     assert masks.shape == (2, 10, 28, 28)
 
 
@@ -98,8 +108,11 @@ def test_train_step_leaves_its_stage_spans_under_the_profiler(model):
     _, names = profiled(lambda: tstate.train_step(new_state(model), model[3], mark=marks.append))
     recs = spans.take()
     stages = FORWARD + ["backward", "optimizer"]
-    assert [r.name for r in recs] == ["train_step"] + stages
-    assert [r.parent for r in recs] == [None] + ["train_step"] * len(stages)
+    top = [r for r in recs if r.parent in (None, "train_step")]
+    assert [r.name for r in top] == ["train_step"] + stages
+    assert [r.parent for r in top] == [None] + ["train_step"] * len(stages)
+    assert [(r.name, r.parent) for r in recs if r not in top] == [
+        (n, "backbone+fpn") for n in TRUNK]
     assert len({r.call for r in recs}) == 1
     assert marks == stages  # each mark once, once the span has closed
     assert {spans.PREFIX + n for n in ["train_step"] + stages} <= names
@@ -112,6 +125,38 @@ def test_a_data_parallel_step_spans_its_all_reduce(model):
     recs = spans.take()
     assert [r.name for r in recs][-3:] == ["backward", "gradient all-reduce", "optimizer"]
     assert len(grads) == 1
+
+
+def test_a_resnext_trunk_spans_its_stages_and_each_grouped_conv(monkeypatch):
+    monkeypatch.setitem(resnet.TRUNKS, "resnext_tiny",
+                        resnet.Trunk((1, 1, 2, 1), groups=8, width_per_group=4))
+    cfg = get_config(None, OVERRIDES + ["model.backbone=resnext_tiny",
+                                        "data.image_size=[128, 128]"])
+    det = build_detector(cfg, device="cpu")
+    batch = make_batch(np.random.RandomState(0), 1, (128, 128), 4, max_gt=8)
+    feed = {k: torch.as_tensor(batch[k]) for k in ("image", "image_hw")}
+    _, names = profiled(lambda: det.predict_fn(det.init(0), feed))
+    recs = spans.take()
+    trunk = [(r.name, r.parent) for r in recs if r.name in TRUNK or r.name == "grouped 3x3"]
+    assert trunk == [("res2", "backbone+fpn"), ("grouped 3x3", "res2"),
+                     ("res3", "backbone+fpn"), ("grouped 3x3", "res3"),
+                     ("res4", "backbone+fpn"), ("grouped 3x3", "res4"), ("grouped 3x3", "res4"),
+                     ("res5", "backbone+fpn"), ("grouped 3x3", "res5")]
+    assert spans.PREFIX + "grouped 3x3" in names
+    assert [r.name for r in recs if r.parent in (None, "predict")] == ["predict"] + PREDICT
+
+
+def test_a_plain_resnet_spans_its_stages_and_no_conv():
+    """Every ResNet path (R-FCN's C4 trunk runs three stages) spans its
+    stages; a plain bottleneck's 3x3 has no span."""
+    trunk = resnet.ResNet("resnet50")
+    x = torch.randn(1, 3, 64, 64)
+    with torch.no_grad():
+        profiled(lambda: trunk(x))
+        recs = spans.take()
+        assert [(r.name, r.parent) for r in recs] == [(n, None) for n in TRUNK]
+        profiled(lambda: trunk(x, stages=3))
+        assert [r.name for r in spans.take()] == TRUNK[:3]
 
 
 def test_nothing_is_recorded_or_opened_outside_a_profiler(model, monkeypatch):
