@@ -247,6 +247,17 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     chain it replaced, summed over one forward (and the backward of
     layer2-4); then its launches over one bf16 Mask R-CNN R-50-FPN predict
     call (49) and one R-101 training step (100 forward, 90 backward).
+32. the RPN's anchor matching (``phase_anchor_match``,
+    csrc/anchor_match.cu): at the training cell's shapes (16 images, the
+    343,728 anchors of 1024x1344, 100 gt slots, 1-50 objects an image
+    scattered among padding rows) and at stress shapes (every gt of an
+    image identical; gt equal to anchors; every image without gt; 300 gt
+    slots; IoUs exactly at 0.7 and 0.3; the legacy offset 1; no force
+    match): matched, pos and neg equal to the plain twin's, each timed
+    beside its bound and the plain twin, with the peak device bytes of
+    each. Phases 9 and 15 count its two launches a Mask R-CNN and a
+    RetinaNet training step, and hold each against the twin
+    (``hold_path``).
 
 After each group of phases it logs the host seconds the group took
 (``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
@@ -842,11 +853,12 @@ def raise_class_bias(params, classes, value=6.0):
 
 
 def counted_wrappers() -> dict:
-    from detectron_tpu_torch.ops import nms, roi_align
+    from detectron_tpu_torch.ops import anchor_match, nms, roi_align
 
     return {"greedy_nms": nms.greedy_keep_cuda,
             "multilevel_roi_align": roi_align.multilevel_roi_align_cuda,
-            "multilevel_roi_align_bwd": roi_align.multilevel_roi_align_bwd_cuda}
+            "multilevel_roi_align_bwd": roi_align.multilevel_roi_align_bwd_cuda,
+            "anchor_match": anchor_match.anchor_match_cuda}
 
 
 def reset_counts():
@@ -909,14 +921,17 @@ def hold_path(fn, tag) -> dict:
     output against its plain version on the same inputs: K1 exactly; K2
     within 1e-5 x max |feature|, K3 within 1e-5 x max |plain gradient|
     (bf16: one bf16 step beyond those). No kernel is launched again for the
-    comparison. Returns ``{name: (launches held, worst |diff|)}``."""
-    from detectron_tpu_torch.ops import nms, roi_align
+    comparison. The anchor matching's launches are held exactly (matched,
+    pos and neg). Returns ``{name: (launches held, worst |diff|)}``."""
+    from detectron_tpu_torch.ops import anchor_match, nms, roi_align
 
     sites = ((nms, "greedy_keep_cuda", "greedy_nms", nms.greedy_keep_plain),
              (roi_align, "multilevel_roi_align_cuda", "multilevel_roi_align",
               roi_align.multilevel_roi_align_plain),
              (roi_align, "multilevel_roi_align_bwd_cuda", "multilevel_roi_align_bwd",
-              roi_align.multilevel_roi_align_bwd_plain))
+              roi_align.multilevel_roi_align_bwd_plain),
+             (anchor_match, "anchor_match_cuda", "anchor_match",
+              anchor_match.anchor_match_plain))
     calls = {name: [] for _, _, name, _ in sites}
     real = {}
     for module, attr, name, _ in sites:
@@ -946,6 +961,9 @@ def hold_path(fn, tag) -> dict:
             if name == "greedy_nms":
                 ok = torch.equal(got, want)
                 diff = float((got != want).sum())
+            elif name == "anchor_match":
+                ok = all(torch.equal(x, w) for x, w in zip(got, want))
+                diff = float(sum((x != w).sum() for x, w in zip(got, want)))
             else:
                 if name == "multilevel_roi_align":
                     got, want = [got], [want]
@@ -1004,8 +1022,9 @@ def phase_slice(seed=0, calls=3, dtype="float32"):
         counts = read_counts()
         log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, kernel input "
             f"dtypes {dict(sorted((k, sorted(v)) for k, v in seen.items()))}")
-        if counts.pop("multilevel_roi_align_bwd"):
-            raise AssertionError("predict_fn launched the RoIAlign backward")
+        if counts.pop("multilevel_roi_align_bwd") or counts.pop("anchor_match"):
+            raise AssertionError("predict_fn launched the RoIAlign backward or the anchor "
+                                 "matching")
         for name, n in counts.items():
             if n <= 0:
                 raise AssertionError(f"predict_fn call {call} launched {name} no time")
@@ -1749,12 +1768,14 @@ def seeded_train_state(cfg, device, seed):
 
 
 TRAIN_R101 = os.path.join(REPO, "configs", "mask_rcnn_r101_fpn_coco_train.yaml")
+ANCHOR_MATCH_LAUNCHES = 2  # a training step's: each gt's best IoU, then the match
 
 
 def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
     """R-101 train_step at full width in ``dtype``: ``warmup`` + ``steps``
     steps, each finite and launching K1 once and K2 and K3 twice (K2 on
-    ``dtype`` features, K3 on a ``dtype`` gradient); every trainable
+    ``dtype`` features, K3 on a ``dtype`` gradient) and the anchor matching's
+    two kernels (``ANCHOR_MATCH_LAUNCHES``); every trainable
     parameter changed and float32, every frozen one unchanged; the stage
     breakdown, both layouts on the same starting weights, a profiled step;
     in float32 then the train driver. Returns (launches over the timed
@@ -1799,9 +1820,10 @@ def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"train step {i}: a loss is not finite: {losses}")
         if not (counts["greedy_nms"] >= 1 and counts["multilevel_roi_align"] == 2
-                and counts["multilevel_roi_align_bwd"] == 2):
+                and counts["multilevel_roi_align_bwd"] == 2
+                and counts["anchor_match"] == ANCHOR_MATCH_LAUNCHES):
             raise AssertionError(f"train step {i}: launches {counts}, want K1 >= 1, "
-                                 "K2 == 2, K3 == 2")
+                                 f"K2 == 2, K3 == 2, anchor matching {ANCHOR_MATCH_LAUNCHES}")
         if seen != want_dtypes:
             raise AssertionError(f"train step {i}: kernel input dtypes {seen}, want "
                                  f"{want_dtypes}")
@@ -2166,7 +2188,7 @@ def phase_eval(seed=0, dtype="float32"):
             raise AssertionError(f"eval: images consumed {ids}, want each of {len(ds)} once")
         calls = timing["batches"]
         if counts != {"greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
-                      "multilevel_roi_align_bwd": 0}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
             raise AssertionError(f"eval: launches {counts} over {calls} predict calls, want "
                                  "K1 and K2 twice a call, K3 never")
         if not (n_dets > 0 and n_masks > 0):
@@ -2305,7 +2327,7 @@ def phase_bench(dtype=None):
     reset_counts()
     calls, steps = bench.WARMUP + args.iters, bench.WARMUP + args.train_iters
     want = {"greedy_nms": 2 * calls + steps, "multilevel_roi_align": 2 * calls + 2 * steps,
-            "multilevel_roi_align_bwd": 2 * steps}
+            "multilevel_roi_align_bwd": 2 * steps, "anchor_match": ANCHOR_MATCH_LAUNCHES * steps}
     log(f"[bench {args.dtype}] {time.perf_counter() - t0:.1f} s ({calls} predict calls at "
         f"batch {args.batch}, {steps} train steps at batch {args.train_batch}, warm-ups "
         f"included); launches {counts}; predict outputs and training losses summed finite; "
@@ -2564,7 +2586,7 @@ def phase_retinanet(seed=0, calls=3, dtype="float32"):
         log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, K1 boxes "
             f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
             raise AssertionError(f"RetinaNet predict_fn call {call}: launches {counts}, want "
                                  "K1 once, K2 and K3 never")
         if shapes != {"greedy_nms": [(b, n_want, 4)]} or seen != {"greedy_nms": {"float32"}}:
@@ -2698,11 +2720,13 @@ RETINA_TRAIN_OVERRIDES = TRAIN_OVERRIDES + ["train.grad_clip_norm=1.0"]
 
 def phase_retinanet_train(seed=0, warmup=2, steps=3, dtype="float32"):
     """RetinaNet R-50-FPN train_step at full width in ``dtype`` (1024x1344,
-    batch 2): ``warmup`` + ``steps`` steps, each finite and launching no
-    kernel (RetinaNet's training pools no RoIs and runs no NMS); every
-    trainable parameter changed and float32, every frozen one unchanged;
-    the stage breakdown; in float32 then the train driver. Returns
-    (launches over the timed steps, ms a step, a summary)."""
+    batch 2): ``warmup`` + ``steps`` steps, each finite and launching no K1,
+    K2 or K3 (RetinaNet's training pools no RoIs and runs no NMS) and the
+    anchor matching's two kernels; every trainable parameter changed and
+    float32, every frozen one unchanged; the stage breakdown; in float32
+    then the train driver; one more step with the anchor matching held
+    against its plain twin (``hold_path``). Returns (launches over the
+    timed steps, ms a step, a summary)."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.train.state import train_step
 
@@ -2735,10 +2759,14 @@ def phase_retinanet_train(seed=0, warmup=2, steps=3, dtype="float32"):
             f"{counts}, " + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"RetinaNet train step {i}: a loss is not finite: {losses}")
-        if any(counts.values()):
-            raise AssertionError(f"RetinaNet train step {i}: launches {counts}, want none")
+        if counts != {"greedy_nms": 0, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
+                      "anchor_match": ANCHOR_MATCH_LAUNCHES}:
+            raise AssertionError(f"RetinaNet train step {i}: launches {counts}; want K1-K3 "
+                                 f"none, the anchor matching {ANCHOR_MATCH_LAUNCHES}")
         if i >= warmup:
             times.append(ms)
+            for name, n in counts.items():
+                totals[name] += n
     peak = torch.cuda.max_memory_allocated() / 2**30
     unchanged = [n for n in trainable if torch.equal(named[n].detach(), before[n])]
     moved = [n for n in frozen if not torch.equal(named[n].detach(), before[n])]
@@ -2757,7 +2785,9 @@ def phase_retinanet_train(seed=0, warmup=2, steps=3, dtype="float32"):
     parts = train_breakdown(state, batches[-1], tag=tag)
     if dtype == "float32":
         phase_driver(state, RETINA_R50, RETINA_TRAIN_OVERRIDES)
-    return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts)
+    held = hold_path(lambda: train_step(state, batches[-1]), tag)
+    return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts,
+                               held=held)
 
 
 def retina_oracle(params, batch):
@@ -2808,7 +2838,7 @@ def box_eval(name, label, config, make_params, k1_per_call, seed=0, dtype="float
     if timing["images"] != len(ds):
         raise AssertionError(f"{label} eval: {timing['images']} images, want {len(ds)}")
     if counts != {"greedy_nms": k1_per_call * calls, "multilevel_roi_align": 0,
-                  "multilevel_roi_align_bwd": 0}:
+                  "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
         raise AssertionError(f"{label} eval: launches {counts} over {calls} predict calls, "
                              f"want K1 {k1_per_call} times a call, K2 and K3 never")
     with open(os.path.join(EVAL_OUT, "eval_results.json")) as f:
@@ -2864,7 +2894,7 @@ def box_bench(name, label, base_args, k1_per_call, k1_per_step, dtype=None):
         f"launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if counts != {"greedy_nms": want, "multilevel_roi_align": 0,
-                  "multilevel_roi_align_bwd": 0}:
+                  "multilevel_roi_align_bwd": 0, "anchor_match": ANCHOR_MATCH_LAUNCHES * steps}:
         raise AssertionError(f"{label} bench: launches {counts}, want K1 {want} times")
     if not out["metric"].startswith(f"{name} ") or f", {args.dtype}, " not in out["metric"]:
         raise AssertionError(f"{label} bench: the line does not name the run: {out['metric']}")
@@ -3061,7 +3091,7 @@ def phase_rfcn(seed=0, calls=3, dtype="float32"):
         log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, K1 boxes "
             f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
         if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
             raise AssertionError(f"R-FCN predict_fn call {call}: launches {counts}, want K1 "
                                  "twice, K2 and K3 never")
         if shapes != {"greedy_nms": want_shapes} or seen != {"greedy_nms": {"float32"}}:
@@ -3160,7 +3190,7 @@ def phase_cross_rfcn(seed=4, dtype="float32"):
             f"{dilate}: launches on the card {counts}; max |card - CPU| / max |CPU| (limit "
             f"{limit:.0e}): " + "; ".join(f"{k} {v:.2e}" for k, v in rel.items()))
         if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0} or not worst <= limit:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0} or not worst <= limit:
             raise AssertionError(f"cross-device R-FCN {dtype} dilate_c5={dilate}: launches "
                                  f"{counts}, card and CPU differ by {worst:.3e}")
     if dtype != "float32":
@@ -3234,7 +3264,7 @@ def phase_rfcn_train(seed=0, warmup=2, steps=3, dtype="float32"):
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"R-FCN train step {i}: a loss is not finite: {losses}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": ANCHOR_MATCH_LAUNCHES}:
             raise AssertionError(f"R-FCN train step {i}: launches {counts}, want K1 once, K2 "
                                  "and K3 never")
         if shapes != {"greedy_nms": want_shapes} or seen != {"greedy_nms": {"float32"}}:
@@ -3397,8 +3427,8 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
-        if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0} or not int(dets.valid.sum()):
+        if counts != {"greedy_nms": 2, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
+                      "anchor_match": 0} or not int(dets.valid.sum()):
             raise AssertionError(f"RoIPool predict call {call}: launches {counts}, "
                                  f"{int(dets.valid.sum())} detections")
         for name, n in counts.items():
@@ -3420,8 +3450,8 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
         losses = {k: float(v) for k, v in metrics.items()}
         log(f"[roi_pool train] step {i}: {step_ms[-1]:.1f} ms, launches {counts}, "
             + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
-        if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0} or not all(
+        if counts != {"greedy_nms": 1, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
+                      "anchor_match": ANCHOR_MATCH_LAUNCHES} or not all(
                           np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"RoIPool train step {i}: launches {counts}, losses {losses}")
         for name, n in counts.items():
@@ -3579,7 +3609,7 @@ def phase_weights(seed=0):
         f"{checks}; {res['timing']['images']} images, launches {counts}; AP {res['AP']}")
     if not all(checks.values()) or res["timing"]["images"] != len(ds) or counts != {
             "greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
-            "multilevel_roi_align_bwd": 0}:
+            "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
         raise AssertionError(f"weights: eval driver {checks}, launches {counts}")
     shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
     reset_counts()
@@ -3681,7 +3711,8 @@ def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
         f"{tuple(cfg.data.image_size)} {cfg.model.dtype} batch 2")
     torch.cuda.reset_peak_memory_stats()
     predict, call_ms, _ = predict_calls(det, params, batch, calls, tag, {
-        "greedy_nms": 2, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 0})
+        "greedy_nms": 2, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 0,
+        "anchor_match": 0})
     predict_peak = torch.cuda.max_memory_allocated() / 2**30
     held = {"predict": hold_path(lambda: det.predict_fn(params, batch), f"{tag} predict")}
     det.module.load_state_dict(params)
@@ -3696,7 +3727,8 @@ def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
     data = batch_iterator(cfg)
     batches = [det.batch_to_device(next(data)) for _ in range(steps)]
     train, step_ms, train_peak = train_steps(state, batches, f"{tag} train", {
-        "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2})
+        "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2,
+        "anchor_match": ANCHOR_MATCH_LAUNCHES})
     moved = {n: not torch.equal(named[n].detach(), v) for n, v in before.items()}
     log(f"[{tag} train] per-step ms {[round(t, 3) for t in step_ms]}; peak device memory "
         f"{train_peak:.2f} GiB; changed by the steps: {moved}")
@@ -3712,7 +3744,8 @@ def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
     ref_state, ref_data = seeded_train_state(ref_cfg, None, seed)
     ref_batches = [ref_state.detector.batch_to_device(next(ref_data)) for _ in range(steps)]
     _, ref_ms, ref_peak = train_steps(ref_state, ref_batches, f"{tag} frozen-BN reference", {
-        "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2})
+        "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2,
+        "anchor_match": ANCHOR_MATCH_LAUNCHES})
     ratio = float(np.median(step_ms[1:]) / np.median(ref_ms[1:]))
     log(f"[{tag} train] GroupNorm / frozen-BN step time, steps after the first: x{ratio:.3f} "
         f"({[round(t, 1) for t in step_ms[1:]]} against {[round(t, 1) for t in ref_ms[1:]]} "
@@ -3770,7 +3803,7 @@ def phase_remat(seed=0):
             f": {ms:.1f} ms, peak device memory {peak:.2f} GiB, launches {counts}, loss_total "
             f"{losses['loss_total']:.5f}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 2,
-                      "multilevel_roi_align_bwd": 2}:
+                      "multilevel_roi_align_bwd": 2, "anchor_match": ANCHOR_MATCH_LAUNCHES}:
             raise AssertionError(f"remat step: launches {counts}")
         if i >= 2:
             if remat:
@@ -3985,7 +4018,8 @@ def phase_dp(seed=0):
             f"launches {launches['dp_train']}")
         summary["a"].update(dp_ms=dp_times, train_step_ms=ref_times)
         if launches["dp_train"] != {"greedy_nms": 1, "multilevel_roi_align": 2,
-                                    "multilevel_roi_align_bwd": 2}:
+                                    "multilevel_roi_align_bwd": 2,
+                                    "anchor_match": ANCHOR_MATCH_LAUNCHES}:
             raise AssertionError(f"dp (a) step: launches {launches['dp_train']}")
         summary["a"]["held"] = hold_path(
             lambda: step(create_train_state(cfg, det, start), batch, draws), "dp (a)")
@@ -4017,7 +4051,7 @@ def phase_dp(seed=0):
             f"{calls} batches, launches {launches['dp_eval']}, AP {res['AP']}")
         if res["timing"]["images"] != len(ds) or launches["dp_eval"] != {
                 "greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
-                "multilevel_roi_align_bwd": 0}:
+                "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
             raise AssertionError(f"dp (a) eval: {res['timing']}, {launches['dp_eval']}")
     finally:
         torch.distributed.destroy_process_group()
@@ -4204,7 +4238,7 @@ def phase_op_api(seed=29, c=256):
     counts = read_counts()
     reset_counts()
     want_counts = {"greedy_nms": len(problems), "multilevel_roi_align": len(combos),
-                   "multilevel_roi_align_bwd": len(combos)}
+                   "multilevel_roi_align_bwd": len(combos), "anchor_match": 0}
     log(f"{tag} launches {counts} (want {want_counts})")
     if counts != want_counts:
         raise AssertionError(f"op api: launches {counts}, want {want_counts}")
@@ -4454,7 +4488,7 @@ def phase_contracts(seed=30):
     counts = read_counts()
     reset_counts()
     want = {"greedy_nms": len(singles) + len(aware), "multilevel_roi_align": 0,
-            "multilevel_roi_align_bwd": 0}
+            "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     log(f"{tag} K1 bf16 path: launches {counts} (want {want})")
     if counts != want:
         raise AssertionError(f"contracts: K1 bf16 launches {counts}, want {want}")
@@ -4561,7 +4595,7 @@ def phase_contracts(seed=30):
     counts = read_counts()
     reset_counts()
     want = {"greedy_nms": 0, "multilevel_roi_align": len(inputs),
-            "multilevel_roi_align_bwd": len(inputs)}
+            "multilevel_roi_align_bwd": len(inputs), "anchor_match": 0}
     log(f"{tag} K2/K3 path: launches {counts} (want {want})")
     if counts != want:
         raise AssertionError(f"contracts: K2/K3 launches {counts}, want {want}")
@@ -4879,6 +4913,129 @@ def phase_frozen_bn(seed=31):
     return cases, launches, summary
 
 
+# ---------------------------------------------------------------- phase 32
+
+MATCH_BATCH, MATCH_SLOTS = 16, 100  # the training cell's images and gt slots
+MATCH_OPS_A_PAIR = 11  # an IoU's FP32 operations where the boxes do not overlap
+
+
+def match_gt(rng, b, g, canvas, objects=(1, 50)):
+    """COCO-like gt for ``b`` images of ``canvas``: 1-50 boxes an image (log-
+    uniform sides of 8 to 800 pixels, aspect 1:3 to 3:1, inside the canvas)
+    in random slots of ``g``, the others padding. Returns numpy boxes
+    ``[b, g, 4]`` float32 and classes ``[b, g]`` int64."""
+    h, w = canvas
+    boxes = np.zeros((b, g, 4), np.float32)
+    classes = np.zeros((b, g), np.int64)
+    for i in range(b):
+        count = rng.randint(objects[0], min(objects[1], g) + 1)
+        slots = rng.choice(g, count, replace=False)
+        side = np.exp(rng.uniform(np.log(8), np.log(800), count))
+        aspect = np.exp(rng.uniform(np.log(1 / 3), np.log(3), count))
+        bw, bh = np.minimum(side * np.sqrt(aspect), w), np.minimum(side / np.sqrt(aspect), h)
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        boxes[i, slots] = np.stack([x1, y1, x1 + bw, y1 + bh], 1)
+        classes[i, slots] = rng.randint(1, 81, count)
+    return boxes, classes
+
+
+def match_cases(rng, anchors):
+    """Phase 32's cases: ``(name, anchors, gt_boxes, gt_classes, kwargs)``,
+    numpy, at the anchors of CANVAS."""
+    rpn = dict(pos_iou=0.7, neg_iou=0.3, force_match=True, offset=0.0)
+    cell = match_gt(rng, MATCH_BATCH, MATCH_SLOTS, CANVAS)
+    same = match_gt(rng, MATCH_BATCH, MATCH_SLOTS, CANVAS)
+    first = same[1].argmax(1)  # each image's first valid slot
+    same[0][:] = same[0][np.arange(MATCH_BATCH), first][:, None]  # every slot its box
+    picked = anchors[rng.randint(0, len(anchors), (MATCH_BATCH, MATCH_SLOTS))]
+    wide = match_gt(rng, 4, 300, CANVAS, objects=(150, 250))
+    at = [[1e4, 1e4, 1e4 + 10, 1e4 + 10], [1e4, 1e4, 1e4 + 10, 1e4 + 7],
+          [2e4, 2e4, 2e4 + 10, 2e4 + 10], [2e4, 2e4, 2e4 + 10, 2e4 + 3]]
+    at_anchors = np.concatenate([anchors, np.array(at, np.float32)], 0)
+    at_gt, at_cls = match_gt(rng, 2, MATCH_SLOTS, CANVAS)
+    at_gt[:, -2:], at_cls[:, -2:] = np.array(at, np.float32)[[1, 3]], 1  # IoU 0.7f and 0.3f
+    # with offset 1 a box at (0, 0) overlaps the origin pixel: a 3x3 gt and a
+    # one-pixel gt in every image, whose best anchors' IoUs are small (N is
+    # no multiple of the kernels' 512-anchor tile)
+    origin_gt, origin_cls = cell[0].copy(), cell[1].copy()
+    origin_gt[:, :2] = np.array([[0, 0, 2, 2], [0, 0, 0, 0]], np.float32)
+    origin_cls[:, :2] = 1
+    return [
+        ("cell", anchors, *cell, rpn),
+        ("identical gt", anchors, *same, rpn),
+        ("gt equal to anchors", anchors, picked, np.ones(picked.shape[:2], np.int32), rpn),
+        ("no gt", anchors, cell[0], np.zeros_like(cell[1]), rpn),
+        ("G=300", anchors, *wide, rpn),
+        ("IoU at the thresholds", at_anchors, at_gt, at_cls.astype(np.int32), rpn),
+        ("offset 1", anchors, *cell, dict(rpn, offset=1.0)),
+        ("gt at the origin, offset 1", anchors, origin_gt, origin_cls, dict(rpn, offset=1.0)),
+        ("no force match", anchors, *cell, dict(rpn, force_match=False)),
+    ]
+
+
+def peak_bytes(fn) -> int:
+    """Device bytes that one call of ``fn`` holds at its peak, above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_anchor_match(seed=32):
+    """Phase 32: the RPN's anchor matching (``csrc/anchor_match.cu``) against
+    its plain twin at ``match_cases``: matched, pos and neg exactly equal;
+    each timed beside its bound (the IoUs' FP32 operations at
+    MATCH_OPS_A_PAIR a pair and pass, or the anchors, gt and outputs'
+    bytes) and the plain twin, with the peak device bytes of each. Returns
+    the cases."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.faster_rcnn import rpn_anchor_generator
+    from detectron_tpu_torch.ops import anchor_match as am
+
+    rng = np.random.RandomState(seed)
+    dev = torch.device(DEVICE)
+    cfg = get_config(TRAIN_R101)
+    anchors = rpn_anchor_generator(cfg).all_anchors(CANVAS).astype(np.float32)
+    cases = []
+    for name, anc, gt, cls, kwargs in match_cases(rng, anchors):
+        args = [torch.tensor(x, device=dev) for x in (anc, gt, cls)]
+        got = am.anchor_match_cuda(*args, **kwargs)
+        want = am.anchor_match_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        equal = all(torch.equal(x, w) for x, w in zip(got, want))
+        wrong = int(sum((x != w).sum() for x, w in zip(got, want)))
+        b, n = got[0].shape
+        pairs = n * int((cls > 0).sum()) * (2 if kwargs["force_match"] else 1)
+        nbytes = anc.nbytes + gt.nbytes + cls.nbytes + b * n * (8 + 1 + 1)
+        bound, by = bound_ms(nbytes, pairs * MATCH_OPS_A_PAIR)
+        case = dict(case=name, batch=b, anchors=n, slots=gt.shape[1],
+                    valid=int((cls > 0).sum()), **kwargs, equal=equal, wrong=wrong,
+                    positives=int(got[1].sum()), negatives=int(got[2].sum()),
+                    ms=cuda_ms(lambda: am.anchor_match_cuda(*args, **kwargs)),
+                    plain_ms=cuda_ms(lambda: am.anchor_match_plain(*args, **kwargs), iters=3,
+                                     warmup=1),
+                    bound_ms=bound, bound_by=by,
+                    peak_bytes=peak_bytes(lambda: am.anchor_match_cuda(*args, **kwargs)),
+                    plain_peak_bytes=peak_bytes(lambda: am.anchor_match_plain(*args, **kwargs)))
+        cases.append(case)
+        log(f"[anchor_match] {name}: B={b} N={n} G={gt.shape[1]} ({case['valid']} valid) "
+            f"offset {kwargs['offset']} force {kwargs['force_match']}: equal {equal} "
+            f"({wrong} wrong), {case['positives']} pos, {case['negatives']} neg; "
+            f"{case['ms']:.4f} ms (bound {bound:.4f} by {by}), plain {case['plain_ms']:.3f} ms; "
+            f"peak {case['peak_bytes']:.4e} B, plain {case['plain_peak_bytes']:.4e} B")
+        del args, got, want
+        torch.cuda.empty_cache()
+    wrong = [c["case"] for c in cases if not c["equal"]]
+    if wrong:
+        raise AssertionError(f"anchor_match: the kernel differs from its plain twin in {wrong}")
+    return cases
+
+
 # -------------------------------------------------------------------- main
 
 KERNELS = {
@@ -4890,6 +5047,9 @@ KERNELS = {
                                      replaces="detectron_tpu/ops/roi_align_pallas.py:529"),
     "frozen_bn_act": dict(source="detectron_tpu_torch/csrc/frozen_bn.cu",
                           replaces="none: the XLA-fused affine of detectron_tpu/models/resnet.py"),
+    "anchor_match": dict(source="detectron_tpu_torch/csrc/anchor_match.cu",
+                         replaces="none: the XLA-fused IoU and reductions of "
+                                  "detectron_tpu/layers/anchor_target.py"),
 }
 
 
@@ -4947,6 +5107,21 @@ def frozen_bn_entry(cases, launches, summary):
     }
 
 
+def anchor_match_entry(cases, launches):
+    """Phase 32's kernel: the times of the training cell's case, the others
+    in ``cases``; ``launches`` its counts on phase 9's timed steps by path
+    (``train``: float32, the line's ``launches``, as K1-K3's)."""
+    cell = cases[0]
+    return {
+        "name": "anchor_match", "route": "cuda", **KERNELS["anchor_match"],
+        "launches": launches["train"], "launches_by_path": launches,
+        "max_abs_err": 0.0, "ms": cell["ms"], "plain_ms": cell["plain_ms"],
+        "bound_ms": cell["bound_ms"], "bound_by": cell["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "cases": cases,
+    }
+
+
 def retinanet_phases(k1) -> dict:
     """Phases 13-18, each path in both dtypes; K1's bench cases are added
     to ``k1``. Returns ``{path: (launches, summary)}``."""
@@ -4972,7 +5147,7 @@ def retinanet_phases(k1) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", action="store_true",
-                        help="run phases 1-4, 7 and 29-31 only (the kernels against their plain "
+                        help="run phases 1-4, 7 and 29-32 only (the kernels against their plain "
                              "versions, and their times), print their cases and stop; no "
                              "result line")
     args = parser.parse_args(argv)
@@ -4999,10 +5174,11 @@ def main(argv=None) -> int:
         _, op_k2, op_k3 = phase_op_api()
         k1_bf16, _, c_k2, c_k3, _ = phase_contracts()
         fbn, _, fbn_summary = phase_frozen_bn()
+        matching = phase_anchor_match()
         print(json.dumps({"kernel_cases": {"greedy_nms": k1, "greedy_nms_bf16": k1_bf16,
                                            "multilevel_roi_align": k2 + op_k2 + c_k2,
                                            "multilevel_roi_align_bwd": k3 + op_k3 + c_k3,
-                                           "frozen_bn_act": fbn},
+                                           "frozen_bn_act": fbn, "anchor_match": matching},
                           "frozen_bn_act": fbn_summary}), flush=True)
         print(card, flush=True)
         return 0
@@ -5057,6 +5233,8 @@ def main(argv=None) -> int:
     lap("phase 30")
     fbn, fbn_launches, fbn_summary = phase_frozen_bn()
     lap("phase 31")
+    matching = phase_anchor_match()
+    lap("phase 32")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -5082,6 +5260,8 @@ def main(argv=None) -> int:
                      max(c["max_abs_err"] for c in k3 if c["dtype"] == "float32")),
         k1_bf16_entry(k1_bf16, k1_bf16_launches),
         frozen_bn_entry(fbn, fbn_launches, fbn_summary),
+        anchor_match_entry(matching, {"train": train_launches["anchor_match"],
+                                      "train_bf16": train16_launches["anchor_match"]}),
     ]
     # the end-to-end numbers of both dtypes, side by side
     print(json.dumps({"dtypes": {

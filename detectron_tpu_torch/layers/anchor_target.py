@@ -3,7 +3,9 @@
 The port of ``detectron_tpu/layers/anchor_target.py``: IoU(anchors, gt)
 gives positive / negative / ignore labels by thresholds, the best anchor(s)
 of every gt are forced positive (ties included), and the 256-anchor RPN
-sample is a rank-based random selection under a cap.
+sample is a rank-based random selection under a cap. The matching is
+``ops/anchor_match.py`` (a hand-written kernel on CUDA tensors), inside the
+span ``anchor match``.
 
 Randomness comes in as tensors: every function that samples takes its
 uniform draws in ``[0, 1)`` as an argument (``[B, N]`` per selection), in
@@ -17,8 +19,10 @@ from typing import NamedTuple
 
 import torch
 
+from detectron_tpu_torch.ops import anchor_match as matching
 from detectron_tpu_torch.ops import boxes as box_ops
 from detectron_tpu_torch.ops.nms import sort_desc
+from detectron_tpu_torch.utils.spans import span
 
 
 class AnchorTargets(NamedTuple):
@@ -66,26 +70,9 @@ def anchor_target(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_classes: tor
     gt_classes ``[B, G]`` (0 = padding row); noise_pos / noise_neg
     ``[B, N]`` uniform draws for the positive and the negative sample
     (unused, and may be None, when ``sample_size=0``, as for RetinaNet)."""
-    gt_valid = gt_classes > 0  # [B, G]
-    iou = box_ops.bbox_overlaps(anchors, gt_boxes, offset=offset)  # [B, N, G]
-    iou = torch.where(gt_valid[:, None, :], iou, torch.full_like(iou, -1.0))
-
-    max_iou = iou.amax(dim=2)  # [B, N]
-    matched = iou.argmax(dim=2)  # first maximum, as jnp.argmax
-
-    pos = max_iou >= pos_iou
-    # anchors overlapping nothing (images with zero gt too) are negatives
-    neg = max_iou < neg_iou
-    if force_match:
-        # every valid gt's best anchor(s) become positive, ties included
-        per_gt_max = iou.amax(dim=1)  # [B, G]
-        is_best = (iou >= per_gt_max[:, None, :] - 1e-6) & gt_valid[:, None, :] & (iou > 0.0)
-        forced = is_best.any(dim=2)
-        # re-point the match at the gt this anchor is best for
-        forced_gt = is_best.to(torch.uint8).argmax(dim=2)
-        matched = torch.where(forced & ~pos, forced_gt, matched)
-        pos = pos | forced
-        neg = neg & ~forced
+    with span("anchor match"):
+        matched, pos, neg = matching.anchor_match(anchors, gt_boxes, gt_classes, pos_iou,
+                                                  neg_iou, force_match, offset)
 
     if sample_size:
         pos_cap = torch.clamp(pos.sum(1), max=int(sample_size * pos_fraction))

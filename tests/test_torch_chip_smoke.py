@@ -26,6 +26,7 @@ import torch
 import chip_smoke as cs
 import detectron_tpu_torch.config
 from detectron_tpu_torch.models import zoo
+from detectron_tpu_torch.ops import anchor_match as am
 from detectron_tpu_torch.ops import nms
 from detectron_tpu_torch.ops import roi_align as ra
 from detectron_tpu_torch.utils import spans
@@ -68,6 +69,15 @@ def _counting(module, name, plain):
 
     wrapper.launches = 0
     return wrapper
+
+
+def _counting_match(anchors, gt_boxes, gt_classes, pos_iou, neg_iou, force_match=True,
+                    offset=0.0):
+    """A stand-in for ``anchor_match_cuda``: the plain twin, counting two
+    kernel launches with the force match and one without, as the wrapper."""
+    am.anchor_match_cuda.launches += 2 if force_match else 1
+    return am.anchor_match_plain(anchors, gt_boxes, gt_classes, pos_iou, neg_iou, force_match,
+                                 offset)
 
 
 class _PlainFunction(ra.RoIAlignFunction):
@@ -134,6 +144,9 @@ def rehearsal(monkeypatch, tmp_path):
                               ra.multilevel_roi_align_bwd_plain)):
         monkeypatch.setattr(mod, name, _counting(mod, name, plain))
     monkeypatch.setattr(nms, "greedy_keep", lambda *a, **k: nms.greedy_keep_cuda(*a, **k))
+    _counting_match.launches = 0
+    monkeypatch.setattr(am, "anchor_match_cuda", _counting_match)
+    monkeypatch.setattr(am, "anchor_match", lambda *a, **k: am.anchor_match_cuda(*a, **k))
     # the launches that chip_smoke times apart: timed here, never compared
     monkeypatch.setattr(nms, "nms_mask_cuda", lambda sboxes, thresh, offset=0.0: sboxes)
     monkeypatch.setattr(nms, "nms_scan_cuda", lambda mask, svalid, max_keep=None: svalid)
@@ -306,10 +319,11 @@ def test_k3_stress_rois_have_their_shape(kind):
 def test_train_phase_counts_launches_and_resumes_the_driver(rehearsal, capsys):
     totals, times, summary = cs.phase_train(warmup=1, steps=2)
     assert totals == {"greedy_nms": 2, "multilevel_roi_align": 4,
-                      "multilevel_roi_align_bwd": 4}
+                      "multilevel_roi_align_bwd": 4, "anchor_match": 4}
     assert len(times) == 2 and summary["step_ms"] == times
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
+    assert out.count("'anchor_match': 2}, ") == 3  # the warm-up and two steps
     stages = out.split("[train stages]")[1].splitlines()[0]
     for stage in ("anchors+draws", "backbone+fpn", "proposals (K1)", "mask: targets",
                   "backward", "optimizer"):
@@ -324,7 +338,7 @@ def test_train_phase_in_bf16(rehearsal, capsys):
     parameter and gradient float32; no driver run."""
     totals, times, summary = cs.phase_train(warmup=1, steps=1, dtype="bfloat16")
     assert totals == {"greedy_nms": 1, "multilevel_roi_align": 2,
-                      "multilevel_roi_align_bwd": 2}
+                      "multilevel_roi_align_bwd": 2, "anchor_match": 2}
     out = capsys.readouterr().out
     assert "[train bfloat16]" in out and "bfloat16 batch 2" in out
     assert "convolutions channels-last" in out and "not float32: 0" in out
@@ -332,7 +346,7 @@ def test_train_phase_in_bf16(rehearsal, capsys):
     assert "[driver]" not in out
     # one more step, each launch held against its plain version
     assert summary["held"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
-                               "multilevel_roi_align_bwd": (2, 0.0)}
+                               "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0)}
 
 
 def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
@@ -347,7 +361,8 @@ def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
         assert "backbone+fpn" in summary["stages_ms"]
         # one more call, each launch held against its plain version
         assert summary["held"] == {"greedy_nms": (2, 0.0), "multilevel_roi_align": (2, 0.0),
-                                   "multilevel_roi_align_bwd": (0, 0.0)}
+                                   "multilevel_roi_align_bwd": (0, 0.0),
+                                   "anchor_match": (0, 0.0)}
     out = capsys.readouterr().out
     assert "kernel input dtypes {'greedy_nms': ['float32'], 'multilevel_roi_align': " \
            "['float32']}" in out
@@ -375,7 +390,8 @@ def test_cross_train_phase(rehearsal, capsys):
     the planted K3 faults read above the limit."""
     readings = cs.phase_cross_train()
     assert "K3: launches {'greedy_nms': 1, 'multilevel_roi_align': 2, " \
-           "'multilevel_roi_align_bwd': 2}; max relative loss diff 0.000e+00" \
+           "'multilevel_roi_align_bwd': 2, 'anchor_match': 2}; max relative loss diff " \
+           "0.000e+00" \
            in capsys.readouterr().out
     assert readings["K3"] == 0.0 and readings["plain K3"] == 0.0
     assert readings["K3, P2 gradient zeroed"] > cs.UPDATE_RTOL
@@ -424,7 +440,7 @@ def test_eval_phase_runs_the_driver_and_its_oracle(rehearsal, monkeypatch, tmp_p
     counts, img_s = cs.phase_eval()
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
-                      "multilevel_roi_align_bwd": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     assert img_s > 0
     out = capsys.readouterr().out
     assert "8 images in 5 batches" in out
@@ -445,7 +461,7 @@ def test_eval_phase_in_bf16(rehearsal, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "EVAL_WARM_REPEAT", 1)
     counts, img_s = cs.phase_eval(dtype="bfloat16")
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
-                      "multilevel_roi_align_bwd": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     out = capsys.readouterr().out
     assert "scores fetched as ['float32']" in out
     assert "[eval bfloat16] oracle predictor: AP 1.000000, AP50 1.000000, " \
@@ -521,10 +537,10 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
         "rpn.pre_nms_topk_train=192", "rpn.post_nms_topk_train=48",
         "roi.batch_per_image=64", "test.detections_per_image=20"])
     counts, line16 = cs.phase_bench()  # the default: bf16
-    # 3 predict calls (K1, K2 twice each), 3 train steps (K1 once, K2 and K3
-    # twice): two warm-ups and one timed each
+    # 3 predict calls (K1, K2 twice each), 3 train steps (K1 once, K2, K3 and
+    # the anchor matching twice): two warm-ups and one timed each
     assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
-                      "multilevel_roi_align_bwd": 6}
+                      "multilevel_roi_align_bwd": 6, "anchor_match": 6}
     # then one call and one step of the bench's detector, each launch held
     assert line16["held"]["predict"]["multilevel_roi_align"] == (2, 0.0)
     assert line16["held"]["train"]["multilevel_roi_align_bwd"] == (2, 0.0)
@@ -534,7 +550,7 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
     assert "[K3 bf16 bench B=2 128x128 P=14 R=16" in out16
     counts, _ = cs.phase_bench("float32")
     assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
-                      "multilevel_roi_align_bwd": 6}
+                      "multilevel_roi_align_bwd": 6, "anchor_match": 6}
     out = capsys.readouterr().out
     line = next(json.loads(x) for x in out.splitlines() if x.startswith('{"metric"'))
     assert line["value"] > 0 and line["train_img_s_chip"] > 0
@@ -590,7 +606,7 @@ def test_retinanet_predict_phase_launches_k1_once_a_call(rehearsal, monkeypatch,
     for dtype in ("float32", "bfloat16"):
         totals, times, summary = cs.phase_retinanet(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 2, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 0}
         assert len(times) == 2 and summary["candidates_valid"] > 0
         assert set(summary["stages_ms"]) == {"backbone+fpn", "head",
                                              "per-level top-k + decode", "NMS (K1) + gather"}
@@ -617,10 +633,13 @@ def test_cross_retinanet_phase(rehearsal, capsys, dtype):
 def test_retinanet_train_phase_launches_nothing_and_resumes_the_driver(rehearsal, capsys):
     totals, times, summary = cs.phase_retinanet_train(warmup=1, steps=1)
     assert totals == {"greedy_nms": 0, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 2}
     assert len(times) == 1 and summary["step_ms"] == times
+    # no K1-K3; the anchor matching's two kernels a step, held against the twin
+    assert summary["held"]["anchor_match"] == (1, 0.0)
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
+    assert out.count("'anchor_match': 2}, ") == 2
     stages = out.split("[retinanet train float32 stages]")[1].splitlines()[0]
     for stage in ("backbone+fpn", "head", "anchor targets+loss", "backward", "optimizer"):
         assert stage in stages
@@ -629,13 +648,33 @@ def test_retinanet_train_phase_launches_nothing_and_resumes_the_driver(rehearsal
     assert "[driver]" not in capsys.readouterr().out
 
 
+def test_anchor_match_phase_holds_every_case(rehearsal, monkeypatch, capsys):
+    """Phase 32 at the rehearsal's canvas: every case equal, timed, its bound
+    and peak bytes reported."""
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    cases = cs.phase_anchor_match()
+    assert [c["case"] for c in cases] == [
+        "cell", "identical gt", "gt equal to anchors", "no gt", "G=300",
+        "IoU at the thresholds", "offset 1", "gt at the origin, offset 1", "no force match"]
+    assert all(c["equal"] and c["wrong"] == 0 and c["ms"] >= 0 for c in cases)
+    assert cases[0]["batch"] == 16 and cases[0]["slots"] == 100
+    assert 16 <= cases[0]["valid"] <= 16 * 50 and cases[4]["slots"] == 300
+    assert cases[3]["positives"] == 0 and cases[3]["negatives"] == 16 * cases[3]["anchors"]
+    assert cases[2]["positives"] >= 16 * 100 // 2  # every picked anchor its gt's best
+    assert all(c["bound_by"] in ("bytes", "operations") for c in cases)
+    entry = cs.anchor_match_entry(cases, {"train": 10, "train_bf16": 10})
+    assert entry["launches"] == 10 and entry["ms"] == cases[0]["ms"]
+    assert entry["launches_by_path"] == {"train": 10, "train_bf16": 10}
+    assert capsys.readouterr().out.count("[anchor_match]") == len(cases)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_retinanet_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
     counts, img_s = cs.phase_retinanet_eval(dtype=dtype)
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
     assert counts == {"greedy_nms": 5, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     assert img_s > 0
     out = capsys.readouterr().out
     assert f"[retinanet eval {dtype}] 8 images in 5 batches" in out
@@ -653,9 +692,10 @@ def test_retinanet_bench_phase(rehearsal, monkeypatch, capsys):
         "model.fpn_channels=32", "retinanet.pre_nms_topk=50", "test.detections_per_image=20"])
     for dtype in (None, "float32"):
         counts, line, case = cs.phase_retinanet_bench(dtype)
-        # 3 predict calls (two warm-ups), K1 once each; training launches nothing
+        # 3 predict calls (two warm-ups), K1 once each; 3 train steps, no K1-K3 and
+        # the anchor matching twice each
         assert counts == {"greedy_nms": 3, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 6}
         assert line["metric"].startswith("retinanet R-50-FPN inference")
         assert case["path"] == "retinanet bench" and case["max_keep"] == 20
     out = capsys.readouterr().out
@@ -693,7 +733,7 @@ def test_rfcn_predict_phase_launches_k1_twice_a_call(rehearsal, monkeypatch, cap
     for dtype in ("float32", "bfloat16"):
         totals, times, summary = cs.phase_rfcn(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 4, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 0}
         assert len(times) == 2 and summary["psroipool"]["fwd_ms"] > 0
         assert set(summary["stages_ms"]) == {"backbone+trunk", "rpn head", "proposals (K1)",
                                              "ps maps", "psroipool + vote", "detections (K1)"}
@@ -723,7 +763,7 @@ def test_rfcn_train_phase_launches_k1_once_and_resumes_the_driver(rehearsal, mon
     monkeypatch.setattr(cs, "cuda_ms", _once)
     totals, times, summary = cs.phase_rfcn_train(warmup=1, steps=1)
     assert totals == {"greedy_nms": 1, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 2}
     assert len(times) == 1 and summary["psroipool"]["rois"] == [2, 64, 4]
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
@@ -742,7 +782,7 @@ def test_rfcn_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
     counts, img_s = cs.phase_rfcn_eval(dtype=dtype)
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls, K1 twice each
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     assert img_s > 0
     out = capsys.readouterr().out
     assert f"[rfcn eval {dtype}] 8 images in 5 batches" in out
@@ -759,9 +799,10 @@ def test_rfcn_bench_and_demo_phases(rehearsal, monkeypatch, tmp_path, capsys):
         "model.fpn_channels=32", "rpn.pre_nms_topk_test=128", "rpn.post_nms_topk_test=32"])
     for dtype in (None, "float32"):
         counts, line = cs.phase_rfcn_bench(dtype)
-        # 3 predict calls (two warm-ups), K1 twice each; 3 train steps, K1 once each
+        # 3 predict calls (two warm-ups), K1 twice each; 3 train steps, K1 once and
+        # the anchor matching twice each
         assert counts == {"greedy_nms": 9, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 6}
         assert line["metric"].startswith("rfcn R-50-FPN inference")
     out_dir = str(tmp_path / "demo")
     monkeypatch.setattr(cs, "DEMO_OUT", out_dir)
@@ -778,9 +819,9 @@ def test_roi_pool_phase(rehearsal, monkeypatch, capsys):
     launches, summary = cs.phase_roi_pool(calls=2, steps=1)
     assert launches == {
         "roi_pool_predict": {"greedy_nms": 4, "multilevel_roi_align": 0,
-                             "multilevel_roi_align_bwd": 0},
+                             "multilevel_roi_align_bwd": 0, "anchor_match": 0},
         "roi_pool_train": {"greedy_nms": 1, "multilevel_roi_align": 0,
-                           "multilevel_roi_align_bwd": 0}}
+                           "multilevel_roi_align_bwd": 0, "anchor_match": 2}}
     assert [c["case"] for c in summary["pool"]] == ["P=7 R=512", "P=7 R=512 bf16",
                                                     "P=14 R=128", "P=14 R=128 bf16"]
     out = capsys.readouterr().out
@@ -808,14 +849,16 @@ def test_gn_phase(rehearsal, capsys, dtype):
     sfx = "" if dtype == "float32" else "_bf16"
     assert launches == {
         "gn_predict" + sfx: {"greedy_nms": 4, "multilevel_roi_align": 4,
-                             "multilevel_roi_align_bwd": 0},
+                             "multilevel_roi_align_bwd": 0, "anchor_match": 0},
         "gn_train" + sfx: {"greedy_nms": 2, "multilevel_roi_align": 4,
-                           "multilevel_roi_align_bwd": 4}}
+                           "multilevel_roi_align_bwd": 4, "anchor_match": 4}}
     assert summary["held"]["predict"] == {"greedy_nms": (2, 0.0),
                                           "multilevel_roi_align": (2, 0.0),
-                                          "multilevel_roi_align_bwd": (0, 0.0)}
+                                          "multilevel_roi_align_bwd": (0, 0.0),
+                                          "anchor_match": (0, 0.0)}
     assert summary["held"]["train"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
-                                        "multilevel_roi_align_bwd": (2, 0.0)}
+                                        "multilevel_roi_align_bwd": (2, 0.0),
+                                        "anchor_match": (1, 0.0)}
     assert len(summary["step_ms"]) == 2 and "backbone+fpn" in summary["stages_ms"]
     cs.phase_cross_device(dtype=dtype, overrides=cs.GN_OVERRIDES, bf16_limit=cs.CROSS_BF16_GN,
                           as_good_as_cpu=dtype == "bfloat16")
@@ -830,7 +873,7 @@ def test_remat_phase(rehearsal, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 2**30)
     launches, summary = cs.phase_remat()
     assert launches == {"remat_train": {"greedy_nms": 1, "multilevel_roi_align": 2,
-                                        "multilevel_roi_align_bwd": 2}}
+                                        "multilevel_roi_align_bwd": 2, "anchor_match": 2}}
     assert summary["loss_rel"] == 0.0 and summary["grad_rel"] <= cs.REMAT_GRAD_RTOL
     assert summary["held"]["multilevel_roi_align_bwd"] == (2, 0.0)
     assert "[remat] remat step (timed)" in capsys.readouterr().out
@@ -846,7 +889,7 @@ def test_dp_phase(rehearsal, monkeypatch, tmp_path, capsys):
     launches, summary = cs.phase_dp()
     assert not torch.distributed.is_initialized()
     assert launches["dp_train"] == {"greedy_nms": 1, "multilevel_roi_align": 2,
-                                    "multilevel_roi_align_bwd": 2}
+                                    "multilevel_roi_align_bwd": 2, "anchor_match": 2}
     assert launches["dp_driver"]["multilevel_roi_align_bwd"] == 4
     assert launches["dp_eval"]["multilevel_roi_align"] > 0
     assert summary["a"]["diffs"][0] <= cs.DP_LOSS_ATOL and summary["b"]["diffs"][1] <= (
@@ -867,9 +910,9 @@ def test_wide_nms_phase_holds_k1_on_the_main_path(rehearsal, monkeypatch, capsys
          [(10, 256, 4), (2, 400, 4)])))
     launches, held = cs.phase_wide_nms()
     assert launches["retinanet_predict_wide"] == {"greedy_nms": 1, "multilevel_roi_align": 0,
-                                                  "multilevel_roi_align_bwd": 0}
+                                                  "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     assert launches["predict_wide"] == {"greedy_nms": 2, "multilevel_roi_align": 2,
-                                        "multilevel_roi_align_bwd": 0}
+                                        "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     assert held["retinanet_predict_wide"]["greedy_nms"] == (1, 0.0)
     assert held["predict_wide"]["greedy_nms"] == (2, 0.0)
     out = capsys.readouterr().out
@@ -906,7 +949,7 @@ def test_op_api_phase_counts_its_launches_and_holds_each_call(rehearsal, monkeyp
     counts, k2, k3 = cs.phase_op_api(c=16)
     problems = len(cs.NMS_CASES) + len(cs.NMS_WIDE_CASES)
     assert counts == {"greedy_nms": problems, "multilevel_roi_align": 8,
-                      "multilevel_roi_align_bwd": 8}
+                      "multilevel_roi_align_bwd": 8, "anchor_match": 0}
     assert refusals == [True]
     for cases in (k2, k3):
         assert [(c["dtype"], c["case"]) for c in cases] == [
@@ -995,7 +1038,7 @@ def test_contracts_phase_counts_its_launches_and_holds_each_call(rehearsal, monk
         c["path"] == "train" for c in cs.CONTRACT_NMS_CASES]
     n_roi = sum(len(case[2]) for case in cs.CONTRACT_ROI_CASES)
     assert launches["contracts"] == {"greedy_nms": 0, "multilevel_roi_align": n_roi,
-                                     "multilevel_roi_align_bwd": n_roi}
+                                     "multilevel_roi_align_bwd": n_roi, "anchor_match": 0}
     assert launches["predict_fpn36_bf16"]["multilevel_roi_align"] == 2
     assert len(k2) == len(k3) == n_roi
     assert {c["path"] for c in k2 + k3} == {"contracts"}

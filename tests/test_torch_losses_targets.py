@@ -28,6 +28,7 @@ from detectron_tpu_torch.layers import anchor_target as tat
 from detectron_tpu_torch.layers.mask_target import crop_gt_masks_batched
 from detectron_tpu_torch.layers.proposal_target import sample_rois
 from detectron_tpu_torch.models import losses as tl
+from detectron_tpu_torch.ops.anchor_match import anchor_match, anchor_match_cuda, anchor_match_plain
 
 
 def t(x):
@@ -155,6 +156,96 @@ def test_anchor_target_matches_jax(case):
     assert got.labels.dtype == torch.int32 and int((got.labels[0] > 0).sum()) > 0
     if spec["sample_size"]:
         assert int(got.cls_weights.sum(1).max()) <= spec["sample_size"]
+
+
+# ----------------------------------------------------------- anchor matching
+
+# anchors and gt of the matching cases, placed far off the 128x128 canvas
+# so that no grid anchor overlaps them: anchor A = [1000, 1000, 1010, 1010]
+# and gt [1000, 1000, 1010, 1007] give an IoU of 70 / 100, float32(0.7)
+# exactly; anchor D and gt [1100, 1100, 1110, 1103] give float32(0.3) (with
+# offset 1: 88 / 121 and 44 / 121). Anchors B and E equal those gt, so
+# that A and D are not their gt's best anchors (no force match hides the
+# threshold).
+AT_THRESHOLD_ANCHORS = np.array([[1000, 1000, 1010, 1010], [1000, 1000, 1010, 1007],
+                                 [1100, 1100, 1110, 1110], [1100, 1100, 1110, 1103]],
+                                np.float32)
+AT_THRESHOLD_GT = AT_THRESHOLD_ANCHORS[[1, 3]]
+OFF_CANVAS_GT = np.array([5000, 5000, 5040, 5040], np.float32)
+
+MATCH_CASES = ("no_gt_image", "interleaved_padding", "ties", "gt_overlapping_nothing",
+               "at_thresholds", "offset_1", "more_gt_than_a_chunk", "no_force_match",
+               "tiny_gt_at_origin_offset_1")
+
+
+def match_case(name):
+    """``(anchors [N, 4], gt_boxes [B, G, 4], gt_classes [B, G], kwargs)`` of
+    one matching case, numpy, at the 128x128 canvas's RPN anchors."""
+    rng = np.random.RandomState(MATCH_CASES.index(name))
+    anchors = rpn_anchors()
+    batch = small_batch(seed=5 + MATCH_CASES.index(name), b=3, max_gt=12)
+    gt, cls = batch["gt_boxes"], batch["gt_classes"]
+    kwargs = dict(pos_iou=0.7, neg_iou=0.3, force_match=True, offset=0.0)
+    if name == "no_gt_image":
+        cls[1] = 0
+    elif name in ("interleaved_padding", "more_gt_than_a_chunk"):
+        g = 12 if name == "interleaved_padding" else 300
+        xy = rng.uniform(0, 100, (3, g, 2)).astype(np.float32)
+        wh = rng.uniform(4, 60, (3, g, 2)).astype(np.float32)
+        gt = np.concatenate([xy, xy + wh], -1)
+        cls = np.where(rng.rand(3, g) < 0.5, rng.randint(1, 4, (3, g)), 0).astype(np.int32)
+        cls[:, 0], cls[:, 1], cls[:, 2] = 1, 0, 2  # a valid row after a padding row
+        cls[2, -1] = 3  # the last slot valid
+    elif name == "ties":
+        anchors = np.concatenate([anchors[:1500], anchors[:1500]], 0)
+    elif name == "gt_overlapping_nothing":
+        gt[0, 1], cls[0, 1] = OFF_CANVAS_GT, 2
+        gt[2, 0], cls[2, 0] = OFF_CANVAS_GT, 1
+    elif name in ("at_thresholds", "offset_1"):
+        anchors = np.concatenate([anchors, AT_THRESHOLD_ANCHORS], 0)
+        gt[0, 3:5], cls[0, 3:5] = AT_THRESHOLD_GT, 1
+        kwargs["offset"] = 1.0 if name == "offset_1" else 0.0
+    elif name == "no_force_match":
+        kwargs["force_match"] = False
+    elif name == "tiny_gt_at_origin_offset_1":
+        # with offset 1 a box at (0, 0) overlaps the origin pixel: a 3x3 and
+        # a one-pixel gt whose best anchors' IoUs are small; N (4092) is no
+        # multiple of the kernels' 512-anchor tile
+        gt[0, 0], cls[0, 0] = [0, 0, 2, 2], 1
+        gt[1, 0], cls[1, 0] = [0, 0, 0, 0], 2
+        kwargs["offset"] = 1.0
+    return anchors, gt, cls, kwargs
+
+
+@pytest.mark.parametrize("case", MATCH_CASES)
+def test_anchor_match_plain_matches_jax(case):
+    """The plain twin's matches and labels are the JAX package's
+    ``anchor_target``'s (no sampling): ``matched`` its ``matched_idx``,
+    ``pos`` its labels > 0, ``neg`` its labels == 0."""
+    anchors, gt, cls, kwargs = match_case(case)
+    want = j_anchor_target(jnp.asarray(anchors), jnp.asarray(gt), jnp.asarray(cls),
+                           jax.random.PRNGKey(0), sample_size=0, **kwargs)
+    matched, pos, neg = anchor_match_plain(t(anchors), t(gt), t(cls), **kwargs)
+    labels = np.asarray(want.labels)
+    np.testing.assert_array_equal(matched.numpy(), np.asarray(want.matched_idx))
+    np.testing.assert_array_equal(pos.numpy(), labels > 0)
+    np.testing.assert_array_equal(neg.numpy(), labels == 0)
+    assert matched.dtype == torch.int64 and pos.dtype == neg.dtype == torch.bool
+    if case == "at_thresholds":  # A positive by its IoU alone, D neither label
+        a, d = len(anchors) - 4, len(anchors) - 2
+        assert bool(pos[0, a]) and int(matched[0, a]) == 3
+        assert not bool(pos[0, d]) and not bool(neg[0, d])
+    if case == "no_gt_image":
+        assert not pos[1].any() and neg[1].all() and not matched[1].any()
+
+
+def test_anchor_match_on_cpu_tensors_takes_the_twin():
+    anchors, gt, cls, kwargs = match_case("interleaved_padding")
+    anchor_match_cuda.launches = 0
+    got = anchor_match(t(anchors), t(gt), t(cls), **kwargs)
+    want = anchor_match_plain(t(anchors), t(gt), t(cls), **kwargs)
+    assert all(torch.equal(x, w) for x, w in zip(got, want))
+    assert anchor_match_cuda.launches == 0
 
 
 # --------------------------------------------------------- proposal targets

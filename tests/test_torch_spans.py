@@ -7,7 +7,8 @@ proposal counts, batch 2 of ``make_batch``, on the CPU. Under
 opened, and the outputs are bitwise those of a recorded call. The trunk
 (``models/resnet.py``) spans each of its stages, ``res2`` to ``res5``,
 inside the caller's stage, and a ResNeXt's each grouped 3x3 (``grouped
-3x3``) inside its stage; a plain ResNet's 3x3 has no span.
+3x3``) inside its stage; a plain ResNet's 3x3 has no span. The RPN's
+anchor matching (``anchor match``) is a span inside ``rpn targets+loss``.
 """
 
 from collections import deque
@@ -112,7 +113,7 @@ def test_train_step_leaves_its_stage_spans_under_the_profiler(model):
     assert [r.name for r in top] == ["train_step"] + stages
     assert [r.parent for r in top] == [None] + ["train_step"] * len(stages)
     assert [(r.name, r.parent) for r in recs if r not in top] == [
-        (n, "backbone+fpn") for n in TRUNK]
+        (n, "backbone+fpn") for n in TRUNK] + [("anchor match", "rpn targets+loss")]
     assert len({r.call for r in recs}) == 1
     assert marks == stages  # each mark once, once the span has closed
     assert {spans.PREFIX + n for n in ["train_step"] + stages} <= names
