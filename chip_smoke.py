@@ -1,7 +1,9 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (run: python3 chip_smoke.py).
 
-Phases, in order; any failure exits non-zero before the result line. The
-model phases run in float32 (TF32 off) and then in bf16 (``model.dtype=
+It checks the port on the card and times its kernels; whole calls and
+steps are the benchmark's to time (``benchmark/run.py``). Phases, in
+order; any failure exits non-zero before the result line. The model
+phases run in float32 (TF32 off) and then in bf16 (``model.dtype=
 bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
 
 1. device: requires CUDA, prints the card's name and power limit, turns
@@ -42,10 +44,10 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    features of the model's dtype) twice a call, detections non-empty, boxes
    float32, scores and mask probabilities in the model's dtype and in
    [0, 1]; one more call under torch.cuda.set_sync_debug_mode must report
-   no synchronising call (the eval loop relies on it); the stage
-   breakdown; the convolutions NCHW against channels-last on the same
-   weights, in turns; a profiled call; one more call with every kernel
-   launch held against its plain version (``hold_path``);
+   no synchronising call (the eval loop relies on it); the stages once
+   more, untimed, for the candidates of the detection NMS; one more call
+   with every kernel launch held against its plain version
+   (``hold_path``);
 6. cross-device predict: the same port at 256x256 with small widths on the
    card and on the CPU (plain versions) with the same weights: float32,
    equal valid slots, boxes within 1e-3; bf16, the FPN levels, the RPN
@@ -72,14 +74,12 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
    plain forward within the same bound;
 9. train: Mask R-CNN R-101-FPN (configs/mask_rcnn_r101_fpn_coco_train.yaml)
    at full width, 1024x1344, train.batch_size=2, train.base_lr=0.0025,
-   seeded synthetic batches, float32 then bf16: 2 warm-up train_steps,
-   then 5; every loss finite on every step, K1 (float32 boxes), K2 (2) and
-   K3 (2) launched on every step in the model's dtype, frozen parameters
-   unchanged, every trainable one changed, every parameter and gradient
-   float32; per-step ms, a CUDA-event breakdown, peak memory, a profiler
-   pass, both layouts on the same starting weights, one step with every
-   kernel launch held against its plain version; in float32 then the
-   train driver for 2 steps;
+   seeded synthetic batches, float32 then bf16: 5 train_steps; every loss
+   finite on every step, K1 (float32 boxes), K2 (2) and K3 (2) launched on
+   every step in the model's dtype, frozen parameters unchanged, every
+   trainable one changed, every parameter and gradient float32; peak
+   memory; in float32 then the train driver for 2 steps; one more step
+   with every kernel launch held against its plain version;
 10. cross-device train: one train_step at 256x256 with small widths on the
     card and on the CPU with the same weights and draws: losses within
     1e-4 relative, and each updated tensor's update on the card within
@@ -96,22 +96,18 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     COCO metrics. Every image consumed once, K1 and K2 twice a predict
     call, detections and non-empty masks, scores fetched as float32, every
     metric finite or null; an oracle predictor (in bf16 its outputs bf16
-    tensors on the card) must give box AP and segm AP50 of 1.0; logs
-    images/s of the loop, device ms per predict call and the host's ms per
-    batch by part (paste + RLE apart from the gt records), for this run
-    and for warm runs over 32 images with 8 (and in float32 1) loader
-    threads, and in float32, from a profiled run, the device's busy share
-    of the loop; K2 on the transposed canvas;
+    tensors on the card) must give box AP and segm AP50 of 1.0; K2 on the
+    transposed canvas;
 12. bench: python -m detectron_tpu_torch.bench at its default shapes
     (1024x1024, batch 48 inference, batch 16 training) with --iters 3
     --train-iters 2, at its default dtype (bf16) and with --dtype float32:
     both JSON lines, positive finite rates, and every kernel's launches as
-    its calls and steps require; in bf16 both layouts at the bench's
-    batches; then K1, K2 and K3 against their plain versions at the bench's
-    shapes (batch 48: 240 RPN problems of 1000 boxes, 48 of 1200; 14400 and
-    4800 RoIs; batch 16 for training), K2 and K3 in the run's dtype; one
-    predict call and one train step of the bench's detector with every
-    kernel launch held against its plain version (``hold_path``).
+    its calls and steps require; then K1, K2 and K3 against their plain
+    versions at the bench's shapes (batch 48: 240 RPN problems of 1000
+    boxes, 48 of 1200; 14400 and 4800 RoIs; batch 16 for training), K2 and
+    K3 in the run's dtype; one predict call and one train step of the
+    bench's detector with every kernel launch held against its plain
+    version (``hold_path``).
 
 13. RetinaNet predict: R-50-FPN (configs/retinanet_r50_fpn_coco.yaml) at
     full width, 1024x1344, batch 2, 81 classes, seeded weights with the
@@ -119,8 +115,8 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     passes the threshold), float32 then bf16: predict_fn three times, K1
     once a call on float32 boxes, N = 5 x retinanet.pre_nms_topk = 5000 a
     problem; detections non-empty, scores in [0, 1]; one call under the
-    sync debug mode; the stage breakdown (backbone+FPN, head, per-level
-    top-k + decode, NMS); a profiled call;
+    sync debug mode; the stages once more, untimed: candidates above the
+    score threshold;
 14. cross-device RetinaNet at 256x256 and 160x224 (odd levels), small
     widths, card against CPU with the same weights: levels and head
     outputs within CROSS_F32 (bf16: CROSS_BF16) of their magnitude; the
@@ -128,13 +124,13 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     boxes within 1e-3; end to end, the detections' match rate logged;
 15. RetinaNet train: R-50-FPN, 1024x1344, batch 2, train.grad_clip_norm=1.0
     (without it SGD from random weights reaches NaN at step 2), float32
-    then bf16, 2 warm-up steps and 3: losses finite, no kernel launched, frozen
+    then bf16, 3 steps: losses finite, no K1-K3 launched, frozen
     parameters unchanged, trainable ones changed, parameters and gradients
-    float32, ms a step, peak memory, the stage breakdown; in float32 then
-    the train driver for 2 steps;
+    float32, peak memory; in float32 then the train driver for 2 steps; one
+    more step with every launch held against its plain version;
 16. RetinaNet eval: phase 11's in-memory COCO split, float32 then bf16:
     every image once, K1 once a predict call, box metrics finite or null
-    (no segm), a warm run's images/s, the oracle's box AP 1.0;
+    (no segm), the oracle's box AP 1.0;
 17. RetinaNet bench: python -m detectron_tpu_torch.bench --model retinanet
     at 1024x1024, batch 8 for inference and training, --iters 3
     --train-iters 2, --set train.grad_clip_norm=1.0, bf16 then float32:
@@ -149,24 +145,23 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     group, float32 then bf16 (the config's): predict_fn three times, K1
     twice a call on float32 boxes (proposals G=2, N=1000; detections G=2,
     N=1200), K2 and K3 never; detections non-empty, scores in [0, 1]; one
-    call under the sync debug mode; the stage breakdown (backbone+trunk,
-    RPN, proposals, PS maps, PSRoIPool + vote, detections); PSRoIPool
-    (plain PyTorch) timed, forward and gradient; a profiled call;
+    call under the sync debug mode; the stages up to the PS maps once
+    more, untimed: PSRoIPool (plain PyTorch) on their proposals and table
+    timed, forward and gradient;
 20. cross-device R-FCN at 256x256, trunk 32, dilate_c5 off and on, card
     against CPU with the same weights: the trunk, the RPN outputs and the
     votes on the same RoIs within CROSS_F32 (bf16: CROSS_BF16); PSRoIPool's
     forward and its gradient (autograd) at the full-width shapes within
     1e-5 of their magnitude;
 21. R-FCN train: full width, batch 2, base_lr 0.0025 (no gradient clip:
-    the calibrated statistics keep its SGD finite), 2 warm-up steps and 3,
+    the calibrated statistics keep its SGD finite), 3 steps,
     float32 then bf16: losses finite, K1 once a step (G=2, N=2000), K2 and
     K3 never, frozen parameters unchanged, trainable ones changed, float32
-    parameters and gradients; ms a step, peak memory, the breakdown,
-    PSRoIPool timed at 512 sampled RoIs an image; in float32 the train
-    driver for 2 steps;
+    parameters and gradients; peak memory, PSRoIPool timed at 512 sampled
+    RoIs an image; in float32 the train driver for 2 steps;
 22. R-FCN eval (phase 11's split, images at most 1024 on a side to fit
     the config's 1024x1024 canvas: every image once, K1 twice a call, box
-    metrics, a warm run's images/s, the oracle's box AP 1.0), bench
+    metrics, the oracle's box AP 1.0), bench
     (--model rfcn --set model.fpn_channels=1024, batch 8 / 8, bf16 then
     float32: K1 twice a predict call and once a step) and demo;
 23. RoIPool: multilevel_roi_pool (plain PyTorch) card against CPU at the
@@ -185,16 +180,16 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     model.norm=gn) at full width, 1024x1344, batch 2, float32 then bf16: 3
     predict calls (K1 and K2 twice each) and 3 train steps (K1 once, K2 and
     K3 twice each; losses finite; the stem's GroupNorm unchanged, a trainable
-    stage's changed), stage breakdowns and peak memory; then phase 6's
+    stage's changed), peak memory; then phase 6's
     cross-device check with GroupNorm (bf16: within CROSS_BF16_GN, and as
     close to float32 as the CPU's bf16, within CROSS_BF16_AS_GOOD);
 26. remat: config 5's model (configs/mask_rcnn_r101_fpn_coco_train.yaml),
     1024x1344, batch 2, float32: train_step without and with model.remat
     from the same weights, batch and draws, in turns: losses equal within
-    1e-4, gradients within REMAT_GRAD_RTOL, each step's ms and peak memory;
+    1e-4, gradients within REMAT_GRAD_RTOL, each step's peak memory;
 27. data parallelism on config 5's model: (a) initialize_distributed over
     NCCL at world size 1, the DP step against train_step (loss within 1e-4,
-    parameters within 2e-5; the two timed in turns), the train driver for 2
+    parameters within 2e-5), the train driver for 2
     steps under the group (metrics.jsonl through MetricsWriter), the eval
     driver over phase 11's split; (b) two ranks on the one card over gloo,
     batch 1 each: one DP step against train_step on the batch of 2, within
@@ -260,9 +255,9 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     (``hold_path``).
 
 After each group of phases it logs the host seconds the group took
-(``[time]``). It then prints a JSON line of both dtypes' end-to-end numbers, a JSON line
-of per-kernel results (float32 at top level; the bf16 cases in ``cases``
-with their ``dtype``), the card's name and power limit, and as the last line
+(``[time]``). It then prints a JSON line of per-kernel results (float32 at
+top level; the bf16 cases in ``cases`` with their ``dtype``), the card's
+name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -991,11 +986,11 @@ MASK_R50 = os.path.join(REPO, "configs", "mask_rcnn_r50_fpn_coco.yaml")
 def phase_slice(seed=0, calls=3, dtype="float32"):
     """predict_fn at full width in ``dtype``: ``calls`` calls, each
     launching K1 (on float32 boxes) and K2 (on ``dtype`` features) twice;
-    one more under the sync debug mode; the stage breakdown; the two
-    layouts timed in turns; a profiled call. Returns (launches over the
-    calls, ms a call, a summary of the numbers)."""
+    one more under the sync debug mode; the stages once more, untimed, for
+    the detection NMS's candidates; one more call held
+    (``hold_path``). Returns (launches over the calls, what was held)."""
     from detectron_tpu_torch.config import get_config
-    from detectron_tpu_torch.models.faster_rcnn import detection_candidates
+    from detectron_tpu_torch.models import faster_rcnn as fr
     from detectron_tpu_torch.models.zoo import build_detector
 
     cfg = get_config(MASK_R50, [f"model.dtype={dtype}"])
@@ -1009,19 +1004,15 @@ def phase_slice(seed=0, calls=3, dtype="float32"):
         f"{'channels-last' if det.module.memory_format == torch.channels_last else 'NCHW'}")
 
     totals = {"greedy_nms": 0, "multilevel_roi_align": 0}
-    times = []
     want_dtypes = {"greedy_nms": {"float32"}, "multilevel_roi_align": {dtype}}
     for call in range(calls):
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         with kernel_dtypes() as seen:
             dets, masks = det.predict_fn(params, batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
-        log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, kernel input "
-            f"dtypes {dict(sorted((k, sorted(v)) for k, v in seen.items()))}")
+        log(f"[{tag}] call {call}: launches {counts}, kernel input dtypes "
+            f"{dict(sorted((k, sorted(v)) for k, v in seen.items()))}")
         if counts.pop("multilevel_roi_align_bwd") or counts.pop("anchor_match"):
             raise AssertionError("predict_fn launched the RoIAlign backward or the anchor "
                                  "matching")
@@ -1037,15 +1028,17 @@ def phase_slice(seed=0, calls=3, dtype="float32"):
             raise AssertionError(f"predict_fn call {call}: kernel input dtypes {seen}, want "
                                  f"{want_dtypes}")
 
-    issue_ms, done_ms = check_no_host_sync(lambda: det.predict_fn(params, batch), "predict_fn",
-                                           tag)
+    check_no_host_sync(lambda: det.predict_fn(params, batch), "predict_fn", tag)
 
-    # the stages one by one, timed; they also show the candidates that
-    # entered the detection NMS
-    det.module.load_state_dict(params)
-    parts, (props, cls_logits, reg) = stage_breakdown(det, batch, cfg)
-    cand_valid = detection_candidates(cls_logits, reg, props.boxes, props.valid,
-                                      batch["image_hw"], cfg)[3]
+    # the stages once more, untimed: the candidates that entered the detection NMS
+    m = det.module
+    m.load_state_dict(params)
+    anchors = m.anchors(batch["image"].shape[1:3], det.device)
+    with torch.no_grad():
+        levels = m.features(batch["image"])
+        props = fr.proposals_from_rpn(*m.rpn(levels), anchors, batch["image_hw"], cfg)
+        cand_valid = fr.detection_candidates(*m.box(levels, props.boxes), props.boxes,
+                                             props.valid, batch["image_hw"], cfg)[3]
     reset_counts()
     n_cand = int(cand_valid.sum())
     n_props = int(props.valid.sum())
@@ -1065,52 +1058,16 @@ def phase_slice(seed=0, calls=3, dtype="float32"):
     if not (bool(torch.isfinite(dets.boxes).all()) and bool(torch.isfinite(masks).all())
             and float(masks.min()) >= 0.0 and float(masks.max()) <= 1.0):
         raise AssertionError("non-finite boxes or mask probabilities outside [0, 1]")
-    log(f"[{tag}] per-call ms {[round(t, 3) for t in times]}; masks in "
-        f"[{float(masks.min()):.4f}, {float(masks.max()):.4f}]; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    layouts = layout_times(det, lambda: det.predict_fn(params, batch), f"predict {dtype}")
-    profile_call(lambda: det.predict_fn(params, batch), f"one predict_fn, {dtype}")
-    held = hold_path(lambda: det.predict_fn(params, batch), tag)
-    return totals, times, dict(call_ms=times, issue_ms=issue_ms, done_ms=done_ms,
-                               stages_ms=parts, held=held, **layouts)
-
-
-def layout_times(det, run, label, calls=8) -> dict:
-    """Milliseconds of ``run()`` with the detector's convolutions
-    channels-last and NCHW on the same weights: two warm-ups each way
-    (cuDNN sets up each layout's kernels), then ``calls`` calls each, the
-    layout switched at every call (channels-last, NCHW, NCHW, channels-last,
-    ...), each ended by a synchronize; medians and minima. The detector's
-    own layout is restored."""
-    own = det.module.memory_format == torch.channels_last
-    times = {True: [], False: []}
-    for on in (True, False, True, False):
-        det.module.set_channels_last(on)
-        run()
-    for i in range(2 * calls):
-        on = i % 4 in (0, 3)
-        det.module.set_channels_last(on)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times[on].append((time.perf_counter() - t0) * 1e3)
-    det.module.set_channels_last(own)
-    reset_counts()
-    cl, nchw = float(np.median(times[True])), float(np.median(times[False]))
-    log(f"[layout {label}] channels-last {cl:.2f} ms (least {min(times[True]):.2f}), NCHW "
-        f"{nchw:.2f} ms (least {min(times[False]):.2f}); medians of {calls} calls each, the "
-        f"layout switched at every call; the detector runs "
-        f"{'channels-last' if own else 'NCHW'}; channels-last / NCHW = {cl / nchw:.3f}")
-    return {"channels_last_ms": cl, "nchw_ms": nchw}
+    log(f"[{tag}] masks in [{float(masks.min()):.4f}, {float(masks.max()):.4f}]; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return totals, hold_path(lambda: det.predict_fn(params, batch), tag)
 
 
 def check_no_host_sync(fn, label, tag="slice"):
     """``fn()`` must not wait for the device (the eval driver issues batch
     k+1's predict call before it consumes batch k): run once under
     ``torch.cuda.set_sync_debug_mode``, no synchronising call may be
-    reported. Logs and returns the host's time to issue the call and to
-    its end."""
+    reported."""
     import warnings
 
     torch.cuda.synchronize()
@@ -1118,91 +1075,17 @@ def check_no_host_sync(fn, label, tag="slice"):
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            t0 = time.perf_counter()
             fn()
-            issue_ms = (time.perf_counter() - t0) * 1e3
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    done_ms = (time.perf_counter() - t0) * 1e3
     reset_counts()
     syncs = sorted({str(w.message)[:120] for w in caught
                     if "synchroniz" in str(w.message).lower()})
-    log(f"[{tag}] {label} under the sync debug mode: issued in {issue_ms:.2f} ms of host "
-        f"time, done after {done_ms:.2f} ms; synchronising calls reported: {len(syncs)}")
+    log(f"[{tag}] {label} under the sync debug mode: synchronising calls reported: "
+        f"{len(syncs)}")
     if syncs:
         raise AssertionError(f"{label} synchronises with the host: {syncs}")
-    return issue_ms, done_ms
-
-
-def span_medians(root: str, run, repeats: int) -> tuple:
-    """Device milliseconds of each stage of ``run()``'s calls, from the
-    program's own spans (``utils/spans.py``): ``repeats`` + 1 calls under
-    the profiler (host activity only: the spans time the device with CUDA
-    events), the median of each child span of the root span ``root`` over
-    the calls after the first (a warm-up), in the stages' order. Returns
-    them, the root span's median and the median device ms of ``repeats``
-    more calls without the profiler (CUDA events around the call): the
-    profiler's cost per op lengthens a host-bound call, so the stages of
-    such a call sum to more than the call takes unprofiled."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from detectron_tpu_torch.utils import spans
-
-    spans.take()  # what earlier profiles left
-    with profile(activities=[ProfilerActivity.CPU]):
-        for _ in range(repeats + 1):
-            run()
-    records = spans.take()
-    calls = sorted({r.call for r in records if r.parent is None and r.name == root})[1:]
-    samples, roots = {}, []
-    for r in records:
-        if r.call in calls and r.parent == root:
-            samples.setdefault(r.name, []).append(r.device_ms)
-        elif r.call in calls and r.parent is None:
-            roots.append(r.device_ms)
-    plain = []
-    for _ in range(repeats):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        run()
-        ev[1].record()
-        torch.cuda.synchronize()
-        plain.append(ev[0].elapsed_time(ev[1]))
-    return ({n: float(np.median(v)) for n, v in samples.items()}, float(np.median(roots)),
-            float(np.median(plain)))
-
-
-def log_stages(label: str, parts: dict, root_ms: float, plain_ms: float, repeats: int):
-    """One line: the stages' device ms (under the profiler) with their
-    shares, the root span's, what lies in it outside every stage, and the
-    call's device ms without the profiler."""
-    total = sum(parts.values())
-    log(f"[{label}] under torch.profiler (host activity), median of {repeats}, device ms "
-        f"(share of {total:.2f} ms): "
-        + "; ".join(f"{n} {t:.3f} ({100 * t / total:.1f}%)" for n, t in parts.items())
-        + f"; root span {root_ms:.2f} ms, {root_ms - total:.2f} of it outside the stages; "
-        f"the call without the profiler {plain_ms:.2f} ms")
-
-
-def stage_breakdown(det, batch, cfg, repeats=3):
-    """Device milliseconds of each stage of predict_fn (the spans of
-    faster_rcnn_eval_forward, median of ``repeats``). Returns them and, from
-    one more (untimed) direct call of the stages, its proposals and
-    box-head outputs."""
-    from detectron_tpu_torch.models import faster_rcnn as fr
-
-    parts, root_ms, plain_ms = span_medians("predict", lambda: det.predict_fn(None, batch),
-                                            repeats)
-    log_stages(f"stages {cfg.model.dtype}", parts, root_ms, plain_ms, repeats)
-    m = det.module
-    anchors = m.anchors(batch["image"].shape[1:3], det.device)
-    with torch.no_grad():
-        levels = m.features(batch["image"])
-        scores, deltas = m.rpn(levels)
-        props = fr.proposals_from_rpn(scores, deltas, anchors, batch["image_hw"], cfg)
-        cls_logits, reg = m.box(levels, props.boxes)
-    return parts, (props, cls_logits, reg)
 
 
 def device_work(events, name=lambda e: e.name) -> list:
@@ -1216,34 +1099,6 @@ def device_work(events, name=lambda e: e.name) -> list:
     return [e for e in events if e.device_type.name == "CUDA"
             and not getattr(e, "is_user_annotation", False)
             and not name(e).startswith(spans.PREFIX)]
-
-
-def profile_call(fn, label, top=8):
-    """``fn()`` under torch.profiler: device time by kernel, and the
-    device's busy time against the call's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    reset_counts()
-    kernels = device_work(prof.key_averages(), lambda e: e.key)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    if busy_ms == 0.0:
-        log("[profile] the profiler recorded no device time: busy share not measured")
-        return
-    log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {len(kernels)} kernel names")
-    # the layout copies around the FPN (NCHW <-> NHWC) are among these
-    copies = [e for e in kernels if "copy" in e.key.lower()]
-    log(f"[profile]   copy kernels: {sum(e.self_device_time_total for e in copies) / 1e3:.3f} "
-        f"ms in {sum(e.count for e in copies)} launches of {len(copies)} kernel names")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
-            f"{e.key[:90]}")
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1771,17 +1626,16 @@ TRAIN_R101 = os.path.join(REPO, "configs", "mask_rcnn_r101_fpn_coco_train.yaml")
 ANCHOR_MATCH_LAUNCHES = 2  # a training step's: each gt's best IoU, then the match
 
 
-def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
-    """R-101 train_step at full width in ``dtype``: ``warmup`` + ``steps``
-    steps, each finite and launching K1 once and K2 and K3 twice (K2 on
-    ``dtype`` features, K3 on a ``dtype`` gradient) and the anchor matching's
-    two kernels (``ANCHOR_MATCH_LAUNCHES``); every trainable
-    parameter changed and float32, every frozen one unchanged; the stage
-    breakdown, both layouts on the same starting weights, a profiled step;
-    in float32 then the train driver. Returns (launches over the timed
-    steps, ms a step, a summary of the numbers)."""
+def phase_train(seed=0, steps=5, dtype="float32"):
+    """R-101 train_step at full width in ``dtype``: ``steps`` steps, each
+    finite and launching K1 once and K2 and K3 twice (K2 on ``dtype``
+    features, K3 on a ``dtype`` gradient) and the anchor matching's two
+    kernels (``ANCHOR_MATCH_LAUNCHES``); every trainable parameter changed
+    and float32, every frozen one unchanged; in float32 then the train
+    driver; one more step held (``hold_path``). Returns (launches over the
+    steps, what was held)."""
     from detectron_tpu_torch.config import get_config
-    from detectron_tpu_torch.train.state import create_train_state, train_step
+    from detectron_tpu_torch.train.state import train_step
 
     cfg = get_config(TRAIN_R101, TRAIN_OVERRIDES + [f"model.dtype={dtype}"])
     state, data = seeded_train_state(cfg, None, seed)  # the card, by default
@@ -1796,26 +1650,20 @@ def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
     trainable = [n for n, q in named.items() if q.requires_grad]
     frozen = [n for n, q in named.items() if not q.requires_grad]
     before = {n: q.detach().clone() for n, q in named.items()}
-    start = {k: v.clone() for k, v in det.module.state_dict().items()}
-    batches = [det.batch_to_device(next(data)) for _ in range(warmup + steps)]
+    batches = [det.batch_to_device(next(data)) for _ in range(steps)]
 
     totals = dict.fromkeys(counted_wrappers(), 0)
     want_dtypes = {"greedy_nms": {"float32"}, "multilevel_roi_align": {dtype},
                    "multilevel_roi_align_bwd": {dtype}}
-    times = []
     torch.cuda.reset_peak_memory_stats()
     for i, batch in enumerate(batches):
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         with kernel_dtypes() as seen:
             metrics = train_step(state, batch)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
         losses = {k: float(v) for k, v in metrics.items()}
-        step_tag = "warm-up" if i < warmup else "step"
-        log(f"[{tag}] {step_tag} {i}: {ms:.1f} ms, launches {counts}, "
+        log(f"[{tag}] step {i}: launches {counts}, "
             + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"train step {i}: a loss is not finite: {losses}")
@@ -1827,10 +1675,8 @@ def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
         if seen != want_dtypes:
             raise AssertionError(f"train step {i}: kernel input dtypes {seen}, want "
                                  f"{want_dtypes}")
-        if i >= warmup:
-            times.append(ms)
-            for name, n in counts.items():
-                totals[name] += n
+        for name, n in counts.items():
+            totals[name] += n
     peak = torch.cuda.max_memory_allocated() / 2**30
     unchanged = [n for n in trainable if torch.equal(named[n].detach(), before[n])]
     moved = [n for n in frozen if not torch.equal(named[n].detach(), before[n])]
@@ -1838,38 +1684,14 @@ def phase_train(seed=0, warmup=2, steps=5, dtype="float32"):
                 if q.dtype != torch.float32 or (q.grad is not None and q.grad.dtype != q.dtype)]
     log(f"[{tag}] {len(trainable)} trainable tensors, {len(unchanged)} unchanged; "
         f"{len(frozen)} frozen (stem, layer1), {len(moved)} changed; parameters or gradients "
-        f"not float32: {len(not_fp32)}")
+        f"not float32: {len(not_fp32)}; peak device memory {peak:.2f} GiB")
     if unchanged or moved or not frozen or not_fp32:
         raise AssertionError(f"train: trainable unchanged {unchanged[:5]}, frozen moved "
                              f"{moved[:5]}, not float32 {not_fp32[:5]}")
-    med = float(np.median(times))
-    log(f"[{tag}] per-step ms {[round(t, 3) for t in times]}; median {med:.2f} ms = "
-        f"{cfg.train.batch_size * 1e3 / med:.2f} img/s; peak device memory {peak:.2f} GiB")
-    parts = train_breakdown(state, batches[-1], tag=tag)
-    profile_call(lambda: train_step(state, batches[-1]), f"one train_step, {dtype}")
     del before
     if dtype == "float32":
         phase_driver(state, TRAIN_R101)
-    # both layouts from the same starting weights
-    det.module.load_state_dict(start)
-    fresh = create_train_state(cfg, det)
-    layouts = layout_times(det, lambda: train_step(fresh, batches[-1]), f"train {dtype}",
-                           calls=6)
-    held = hold_path(lambda: train_step(fresh, batches[-1]), tag)
-    return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts,
-                               held=held, **layouts)
-
-
-def train_breakdown(state, batch, repeats=3, tag="train"):
-    """Device milliseconds of the stages of train_step (the spans of
-    train_step and its forward, median of ``repeats`` after one warm-up)."""
-    from detectron_tpu_torch.train.state import train_step
-
-    parts, root_ms, plain_ms = span_medians("train_step", lambda: train_step(state, batch),
-                                            repeats)
-    reset_counts()
-    log_stages(f"{tag} stages", parts, root_ms, plain_ms, repeats)
-    return parts
+    return totals, hold_path(lambda: train_step(state, batches[-1]), tag)
 
 
 def phase_driver(state, config_path, overrides=TRAIN_OVERRIDES):
@@ -1998,7 +1820,6 @@ def phase_cross_train(seed=2):
 EVAL_SIZES = ((480, 640), (640, 480), (427, 640), (640, 427), (375, 500), (500, 375),
               (480, 640), (612, 612))
 EVAL_OUT = os.path.join(REPO, "build", "eval_smoke")  # the eval driver's output_dir
-EVAL_WARM_REPEAT = 4  # the warm timing runs' split: EVAL_SIZES this many times
 
 
 class InMemoryCoco:
@@ -2110,39 +1931,20 @@ def oracle_predict_on_card(dtype):
     return predict
 
 
-def log_eval_timing(tag, timing):
-    """One line of the eval driver's timing: the loop's images/s, the device
-    span of each predict call, the host's milliseconds per batch by part."""
-    dev_ms = [round(t, 3) for t in timing["device_ms_per_call"]]
-    log(f"[eval {tag}] loop {timing['loop_s']:.3f} s = {timing['img_per_s']:.2f} images/s "
-        f"(evaluation {timing['eval_s']:.3f} s after it); device ms per predict call "
-        f"{dev_ms}; host ms per batch: waiting for the loader "
-        f"{timing['loader_wait_ms_per_batch']:.2f}, inputs to the card "
-        f"{timing['to_device_ms_per_batch']:.2f}, issuing predict_fn "
-        f"{timing['predict_ms_per_batch']:.2f}, consume {timing['consume_ms_per_batch']:.2f} = "
-        f"fetch {timing['fetch_ms_per_batch']:.2f} + paste+RLE "
-        f"{timing['paste_rle_ms_per_batch']:.2f} + gt records {timing['gt_ms_per_batch']:.2f}; "
-        f"paste+RLE {timing['paste_rle_ms_per_image']:.3f} ms per image, "
-        f"{timing['detections'] / timing['images']:.1f} detections per image")
-
-
 def phase_eval(seed=0, dtype="float32"):
     """The eval driver as a user runs it, on an in-memory COCO split of 8
     images: Mask R-CNN R-50-FPN at full width in ``dtype``, weights from a
     numpy seed (the cls_score bias raised) restored from a checkpoint in
     its output_dir; Loader -> predict_fn (K1, K2) -> paste + RLE -> box and
-    segm COCO metrics. Then a warm timing run over 32 images (8 loader
-    threads; in float32 also 1), the loop with an oracle predictor (box AP
-    and segm AP50 must be 1.0; its outputs on the card in ``dtype``), in
-    float32 once under the profiler, and K2 on the transposed canvas.
-    Returns the kernels' launches over the first run and the warm run's
-    images/s."""
+    segm COCO metrics. Then the loop with an oracle predictor (box AP and
+    segm AP50 must be 1.0; its outputs on the card in ``dtype``), and K2
+    on the transposed canvas. Returns the kernels' launches over the first
+    run."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.eval import driver
     from detectron_tpu_torch.models.zoo import build_detector
     from detectron_tpu_torch.train import checkpoint as ckpt
     from detectron_tpu_torch.train.state import create_train_state
-    from torch.profiler import ProfilerActivity, profile
 
     cfg = get_config(MASK_R50, ["train.batch_size=2", "data.orientation_buckets=true",
                                 f"output_dir={EVAL_OUT}", f"model.dtype={dtype}"])
@@ -2170,7 +1972,6 @@ def phase_eval(seed=0, dtype="float32"):
 
     driver.merge_across_processes = capture
     try:
-        torch.cuda.synchronize()
         reset_counts()
         res = driver.run(cfg, dataset=ds)
         torch.cuda.synchronize()
@@ -2201,19 +2002,6 @@ def phase_eval(seed=0, dtype="float32"):
         log(f"[{tag}] metrics (random weights): AP {written['AP']}, AP50 {written['AP50']}, "
             f"segm_AP {written['segm_AP']}; "
             f"{sum(v is None for v in written.values())} of {len(written)} null")
-        log_eval_timing(f"{dtype} first run" if not full else "first run", timing)
-        # warm (both canvases' convolutions set up), over a longer split of
-        # the same kind so that the loop is past its start, with the config's
-        # loader threads and (float32) with one
-        long_ds = InMemoryCoco(seed + 1, EVAL_SIZES * EVAL_WARM_REPEAT, cfg.model.num_classes)
-        threads = cfg.data.num_workers
-        warm = {}
-        for workers in ((threads, 1) if full else (threads,)):
-            cfg.data.num_workers = workers
-            warm[workers] = driver.run(cfg, dataset=long_ds)["timing"]
-            log_eval_timing(f"{'' if full else dtype + ' '}warm, {len(long_ds)} images, loader "
-                            f"threads {workers}", warm[workers])
-        cfg.data.num_workers = threads
 
         reset_counts()
         res_o = driver.run(cfg, dataset=ds, restore=False,
@@ -2225,51 +2013,11 @@ def phase_eval(seed=0, dtype="float32"):
         if not (abs(res_o["AP"] - 1.0) <= 1e-6 and abs(res_o["segm_AP50"] - 1.0) <= 1e-6):
             raise AssertionError("eval: the oracle predictor does not give box AP and segm "
                                  "AP50 of 1.0")
-        if full:
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                res_p = driver.run(cfg, dataset=ds)
-                torch.cuda.synchronize()
-            reset_counts()
     finally:
         driver.merge_across_processes = real_merge
-    if full:
-        loop_ms, busy_ms, n_events = device_busy_in(prof, driver.LOOP_SPAN)
-        batches = res_p["timing"]["batches"]
-        if not n_events:
-            log("[eval profile] the profiler recorded no device activity in the loop: busy "
-                "share not measured")
-        else:
-            log(f"[eval profile] under the profiler: loop {loop_ms:.1f} ms (the driver's clock: "
-                f"{res_p['timing']['loop_s'] * 1e3:.1f}) for {batches} batches, device busy "
-                f"{busy_ms:.1f} ms in it ({100 * busy_ms / loop_ms:.1f}% of the loop; "
-                f"{busy_ms / batches:.2f} ms busy and {(loop_ms - busy_ms) / batches:.2f} ms "
-                f"idle a batch; {n_events} kernels and copies)")
     shutil.rmtree(EVAL_OUT, ignore_errors=True)
     check_transposed_canvas(cfg)
-    return counts, warm[threads]["img_per_s"]
-
-
-def device_busy_in(prof, span):
-    """(ms of the host range ``span`` recorded by ``record_function``, ms
-    of it in which the device ran a kernel, copy or fill, number of those):
-    the union of the device's activity intervals clipped to the range, so
-    that work before it (weights to the card) does not count."""
-    events = prof.events()
-    host = [e for e in events if e.name == span and e.device_type.name == "CPU"]
-    if not host:
-        return 0.0, 0.0, 0
-    t0, t1 = host[0].time_range.start, host[0].time_range.end
-    # the range's own projection onto the device timeline carries its name
-    spans = sorted((max(e.time_range.start, t0), min(e.time_range.end, t1))
-                   for e in device_work(events) if e.name != span
-                   and e.time_range.end > t0 and e.time_range.start < t1)
-    busy, reached = 0.0, t0
-    for a, b in spans:
-        a = max(a, reached)
-        if b > a:
-            busy, reached = busy + (b - a), b
-    return (t1 - t0) / 1e3, busy / 1e3, len(spans)
+    return counts
 
 
 def check_transposed_canvas(cfg, seed=7):
@@ -2340,8 +2088,6 @@ def phase_bench(dtype=None):
         if not (np.isfinite(out[key]) and out[key] > 0):
             raise AssertionError(f"bench: {key} = {out[key]}")
     torch.cuda.empty_cache()
-    if args.dtype != "float32":
-        out = dict(out, **bench_layouts(args))
     check_bench_shapes(args)
     return counts, dict(out, held=hold_bench_path(args))
 
@@ -2376,40 +2122,6 @@ def hold_bench_path(args) -> dict:
     del state, det
     torch.cuda.empty_cache()
     return held
-
-
-def bench_layouts(args, calls=4) -> dict:
-    """Both layouts at the bench's batches, where the device, not the host,
-    sets the pace: predict_fn at ``args.batch`` and train_step at
-    ``args.train_batch``, on the bench's weights and synthetic batch (its
-    ``make_batch`` and ``calibrate_frozen_bn``)."""
-    from detectron_tpu_torch import bench
-    from detectron_tpu_torch.data.synthetic import make_batch
-    from detectron_tpu_torch.models.zoo import build_detector
-    from detectron_tpu_torch.train.state import create_train_state, train_step
-
-    cfg = bench.bench_config(args)
-    size = int(args.size)
-    det = build_detector(cfg)
-    det.module.load_state_dict(det.init(0))
-    full = make_batch(np.random.RandomState(0), args.batch, (size, size),
-                      cfg.model.num_classes)
-    tb = args.train_batch or args.batch
-    bench.calibrate_frozen_bn(det.module, det.batch_to_device(
-        {"image": full["image"][:tb]})["image"])
-    params = det.module.state_dict()
-    infer = det.batch_to_device({k: full[k] for k in ("image", "image_hw")})
-    out = {f"predict_b{args.batch}_{k}": v for k, v in layout_times(
-        det, lambda: det.predict_fn(params, infer), f"bench predict {args.dtype} batch "
-        f"{args.batch}", calls=calls).items()}
-    state = create_train_state(cfg, det, params)
-    train = det.batch_to_device({k: v[:tb] for k, v in full.items()})
-    out.update({f"train_b{tb}_{k}": v for k, v in layout_times(
-        det, lambda: train_step(state, train), f"bench train {args.dtype} batch {tb}",
-        calls=calls).items()})
-    del det, state, infer, train
-    torch.cuda.empty_cache()
-    return out
 
 
 def check_bench_shapes(args, seed=6):
@@ -2511,52 +2223,16 @@ def retina_params(det, images, seed, classes=RAISED_CLASSES):
     return raise_retina_bias(params, classes)
 
 
-def retina_stage_breakdown(det, batch, cfg, repeats=3):
-    """Device milliseconds of each stage of retinanet_eval_forward (median
-    of ``repeats`` after one warm-up), CUDA events between the stage calls;
-    returns them and the last repeat's candidates' validity."""
-    from detectron_tpu_torch.models import retinanet as rn
-
-    m = det.module
-    image_hw = batch["image_hw"]
-    anchors = m.anchors(batch["image"].shape[1:3], det.device)
-    names = ("backbone+fpn", "head", "per-level top-k + decode", "NMS (K1) + gather")
-    samples = {n: [] for n in names}
-    with torch.no_grad():
-        for _ in range(repeats + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-            ev[0].record()
-            levels = m.features(batch["image"])
-            ev[1].record()
-            outputs = m.head_outputs(levels)
-            ev[2].record()
-            boxes, logits, classes = rn.retinanet_candidates(outputs, anchors, image_hw, cfg)
-            ev[3].record()
-            rn.retinanet_detections(boxes, logits, classes, cfg)
-            ev[4].record()
-            torch.cuda.synchronize()
-            for i, n in enumerate(names):
-                samples[n].append(ev[i].elapsed_time(ev[i + 1]))
-    reset_counts()
-    parts = {n: float(np.median(v[1:])) for n, v in samples.items()}
-    total = sum(parts.values())
-    t = cfg.retinanet.score_thresh
-    n_valid = int((logits > float(np.log(t / (1.0 - t)))).sum())
-    log(f"[retinanet stages {cfg.model.dtype}] median of {repeats}, device ms (share of "
-        f"{total:.2f} ms): " + "; ".join(f"{n} {v:.3f} ({100 * v / total:.1f}%)"
-                                         for n, v in parts.items()))
-    return parts, n_valid, tuple(logits.shape)
-
-
 def phase_retinanet(seed=0, calls=3, dtype="float32"):
     """RetinaNet R-50-FPN predict_fn at full width in ``dtype``, on
     :func:`retina_params` weights: ``calls`` calls, each launching K1 once
     on float32 boxes, N = 5 x
     retinanet.pre_nms_topk a problem, one problem an image; detections
     non-empty, scores in [0, 1]; one more call under the sync debug mode;
-    the stage breakdown; a profiled call. Returns (launches over the
-    calls, ms a call, a summary)."""
+    the stages once more, untimed, for the merged candidates. Returns the
+    launches over the calls."""
     from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models import retinanet as rn
     from detectron_tpu_torch.models.zoo import build_detector
 
     cfg = get_config(RETINA_R50, [f"model.dtype={dtype}"])
@@ -2572,18 +2248,14 @@ def phase_retinanet(seed=0, calls=3, dtype="float32"):
         f"classes {RAISED_CLASSES} (cls_score bias {RETINA_RAISED_BIAS}), convolutions "
         f"{'channels-last' if det.module.memory_format == torch.channels_last else 'NCHW'}")
     totals = dict.fromkeys(counted_wrappers(), 0)
-    times = []
     for call in range(calls):
-        torch.cuda.synchronize()
         reset_counts()
         shapes = {}
-        t0 = time.perf_counter()
         with kernel_dtypes(shapes) as seen:
             dets, masks = det.predict_fn(params, batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
-        log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, K1 boxes "
+        log(f"[{tag}] call {call}: launches {counts}, K1 boxes "
             f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
                       "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
@@ -2594,13 +2266,20 @@ def phase_retinanet(seed=0, calls=3, dtype="float32"):
                                  f"{seen}, want float32 boxes ({b}, {n_want}, 4)")
         for name, n in counts.items():
             totals[name] += n
-    issue_ms, done_ms = check_no_host_sync(lambda: det.predict_fn(params, batch),
-                                           "RetinaNet predict_fn", tag)
-    det.module.load_state_dict(params)
-    parts, n_valid, cand_shape = retina_stage_breakdown(det, batch, cfg)
+    check_no_host_sync(lambda: det.predict_fn(params, batch), "RetinaNet predict_fn", tag)
+    # the stages once more, untimed: the merged candidates above the threshold
+    m = det.module
+    m.load_state_dict(params)
+    anchors = m.anchors(batch["image"].shape[1:3], det.device)
+    with torch.no_grad():
+        outputs = m.head_outputs(m.features(batch["image"]))
+        logits = rn.retinanet_candidates(outputs, anchors, batch["image_hw"], cfg)[1]
+    t = cfg.retinanet.score_thresh
+    n_valid = int((logits > float(np.log(t / (1.0 - t)))).sum())
     n_dets = int(dets.valid.sum())
-    log(f"[{tag}] merged candidates {cand_shape}, {n_valid} above the score threshold; "
-        f"detections valid {n_dets}, classes {sorted(set(dets.classes[dets.valid].tolist()))}")
+    log(f"[{tag}] merged candidates {tuple(logits.shape)}, {n_valid} above the score "
+        f"threshold; detections valid {n_dets}, classes "
+        f"{sorted(set(dets.classes[dets.valid].tolist()))}")
     if masks is not None or not (n_valid > 0 and n_dets > 0):
         raise AssertionError("RetinaNet: masks returned, or no candidate or detection")
     if tuple(dets.boxes.shape) != (b, cfg.test.detections_per_image, 4):
@@ -2611,12 +2290,9 @@ def phase_retinanet(seed=0, calls=3, dtype="float32"):
     if not (bool(torch.isfinite(dets.boxes).all()) and float(scores.min()) >= 0.0
             and float(scores.max()) <= 1.0):
         raise AssertionError("RetinaNet: non-finite boxes or scores outside [0, 1]")
-    log(f"[{tag}] per-call ms {[round(t, 3) for t in times]}; scores in "
-        f"[{float(scores.min()):.4f}, {float(scores.max()):.4f}]; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_call(lambda: det.predict_fn(params, batch), f"one RetinaNet predict_fn, {dtype}")
-    return totals, times, dict(call_ms=times, issue_ms=issue_ms, done_ms=done_ms,
-                               stages_ms=parts, candidates_valid=n_valid)
+    log(f"[{tag}] scores in [{float(scores.min()):.4f}, {float(scores.max()):.4f}]; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return totals
 
 
 # the canvases of phase 14: every level even, and odd levels (C5 5x7, P6 3x4)
@@ -2718,15 +2394,14 @@ def phase_cross_retinanet(seed=3, dtype="float32"):
 RETINA_TRAIN_OVERRIDES = TRAIN_OVERRIDES + ["train.grad_clip_norm=1.0"]
 
 
-def phase_retinanet_train(seed=0, warmup=2, steps=3, dtype="float32"):
+def phase_retinanet_train(seed=0, steps=3, dtype="float32"):
     """RetinaNet R-50-FPN train_step at full width in ``dtype`` (1024x1344,
-    batch 2): ``warmup`` + ``steps`` steps, each finite and launching no K1,
-    K2 or K3 (RetinaNet's training pools no RoIs and runs no NMS) and the
-    anchor matching's two kernels; every trainable parameter changed and
-    float32, every frozen one unchanged; the stage breakdown; in float32
-    then the train driver; one more step with the anchor matching held
-    against its plain twin (``hold_path``). Returns (launches over the
-    timed steps, ms a step, a summary)."""
+    batch 2): ``steps`` steps, each finite and launching no K1, K2 or K3
+    (RetinaNet's training pools no RoIs and runs no NMS) and the anchor
+    matching's two kernels; every trainable parameter changed and float32,
+    every frozen one unchanged; in float32 then the train driver; one more
+    step with the anchor matching held against its plain twin
+    (``hold_path``). Returns (launches over the steps, what was held)."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.train.state import train_step
 
@@ -2742,31 +2417,25 @@ def phase_retinanet_train(seed=0, warmup=2, steps=3, dtype="float32"):
     trainable = [n for n, q in named.items() if q.requires_grad]
     frozen = [n for n, q in named.items() if not q.requires_grad]
     before = {n: q.detach().clone() for n, q in named.items()}
-    batches = [det.batch_to_device(next(data)) for _ in range(warmup + steps)]
+    batches = [det.batch_to_device(next(data)) for _ in range(steps)]
     totals = dict.fromkeys(counted_wrappers(), 0)
-    times = []
     torch.cuda.reset_peak_memory_stats()
     for i, batch in enumerate(batches):
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         metrics = train_step(state, batch)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
         losses = {k: float(v) for k, v in metrics.items()}
-        log(f"[{tag}] {'warm-up' if i < warmup else 'step'} {i}: {ms:.1f} ms, launches "
-            f"{counts}, " + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
+        log(f"[{tag}] step {i}: launches {counts}, "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"RetinaNet train step {i}: a loss is not finite: {losses}")
         if counts != {"greedy_nms": 0, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
                       "anchor_match": ANCHOR_MATCH_LAUNCHES}:
             raise AssertionError(f"RetinaNet train step {i}: launches {counts}; want K1-K3 "
                                  f"none, the anchor matching {ANCHOR_MATCH_LAUNCHES}")
-        if i >= warmup:
-            times.append(ms)
-            for name, n in counts.items():
-                totals[name] += n
+        for name, n in counts.items():
+            totals[name] += n
     peak = torch.cuda.max_memory_allocated() / 2**30
     unchanged = [n for n in trainable if torch.equal(named[n].detach(), before[n])]
     moved = [n for n in frozen if not torch.equal(named[n].detach(), before[n])]
@@ -2774,20 +2443,14 @@ def phase_retinanet_train(seed=0, warmup=2, steps=3, dtype="float32"):
                 if q.dtype != torch.float32 or (q.grad is not None and q.grad.dtype != q.dtype)]
     log(f"[{tag}] {len(trainable)} trainable tensors, {len(unchanged)} unchanged; "
         f"{len(frozen)} frozen, {len(moved)} changed; parameters or gradients not float32: "
-        f"{len(not_fp32)}")
+        f"{len(not_fp32)}; peak device memory {peak:.2f} GiB")
     if unchanged or moved or not frozen or not_fp32:
         raise AssertionError(f"RetinaNet train: trainable unchanged {unchanged[:5]}, frozen "
                              f"moved {moved[:5]}, not float32 {not_fp32[:5]}")
     del before
-    med = float(np.median(times))
-    log(f"[{tag}] per-step ms {[round(t, 3) for t in times]}; median {med:.2f} ms = "
-        f"{cfg.train.batch_size * 1e3 / med:.2f} img/s; peak device memory {peak:.2f} GiB")
-    parts = train_breakdown(state, batches[-1], tag=tag)
     if dtype == "float32":
         phase_driver(state, RETINA_R50, RETINA_TRAIN_OVERRIDES)
-    held = hold_path(lambda: train_step(state, batches[-1]), tag)
-    return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts,
-                               held=held)
+    return totals, hold_path(lambda: train_step(state, batches[-1]), tag)
 
 
 def retina_oracle(params, batch):
@@ -2807,9 +2470,8 @@ def box_eval(name, label, config, make_params, k1_per_call, seed=0, dtype="float
     long side capped at the canvas', which R-FCN's 1024x1024 canvas needs:
     the default 800/1333 resize makes a 4:3 image 800x1067): every image
     consumed once, K1 ``k1_per_call`` times a predict call, box metrics
-    only, finite or null; then a warm run (images/s) and the oracle
-    predictor (box AP 1.0). Returns the launches over the first run and the
-    warm run's images/s."""
+    only, finite or null; then the oracle predictor (box AP 1.0). Returns
+    the launches over the first run."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.eval import driver
     from detectron_tpu_torch.models.zoo import build_detector
@@ -2826,7 +2488,6 @@ def box_eval(name, label, config, make_params, k1_per_call, seed=0, dtype="float
     images = slice_inputs(cfg, seed, det.device)["image"]  # noise on the canvas
     ckpt.save(EVAL_OUT, create_train_state(cfg, det, make_params(det, images, seed)))
     del det
-    torch.cuda.synchronize()
     reset_counts()
     res = driver.run(cfg, dataset=ds)
     torch.cuda.synchronize()
@@ -2849,9 +2510,6 @@ def box_eval(name, label, config, make_params, k1_per_call, seed=0, dtype="float
                              f"no detection: {written}")
     log(f"[{tag}] metrics (random weights): AP {written['AP']}, AP50 {written['AP50']}; "
         f"{sum(v is None for v in written.values())} of {len(written)} null")
-    log_eval_timing(f"{name} {dtype} first run", timing)
-    warm = driver.run(cfg, dataset=ds)["timing"]
-    log_eval_timing(f"{name} {dtype} warm, {len(ds)} images", warm)
     reset_counts()
     res_o = driver.run(cfg, dataset=ds, restore=False, predict=retina_oracle)
     reset_counts()
@@ -2859,7 +2517,7 @@ def box_eval(name, label, config, make_params, k1_per_call, seed=0, dtype="float
     if not abs(res_o["AP"] - 1.0) <= 1e-6 or "segm_AP" in res_o:
         raise AssertionError(f"{label} eval: the oracle predictor does not give box AP 1.0")
     shutil.rmtree(EVAL_OUT, ignore_errors=True)
-    return counts, warm["img_per_s"]
+    return counts
 
 
 # batch 8 for both halves (the bench's defaults, 48 and 16, are Mask R-CNN's);
@@ -2986,46 +2644,6 @@ def rfcn_params(det, images, seed, classes=RAISED_CLASSES):
     return raise_rfcn_bias(params, classes, det.cfg.model.num_classes)
 
 
-def rfcn_stage_breakdown(det, batch, cfg, repeats=3):
-    """Device milliseconds of each stage of rfcn_eval_forward (median of
-    ``repeats`` after one warm-up), CUDA events between the stage calls;
-    returns them and the last repeat's proposals."""
-    from detectron_tpu_torch.models import faster_rcnn as fr
-
-    m = det.module
-    image_hw = batch["image_hw"]
-    anchors = m.anchors(batch["image"].shape[1:3], det.device)
-    names = ("backbone+trunk", "rpn head", "proposals (K1)", "ps maps", "psroipool + vote",
-             "detections (K1)")
-    samples = {n: [] for n in names}
-    with torch.no_grad():
-        for _ in range(repeats + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-            ev[0].record()
-            feat = m.features(batch["image"])
-            ev[1].record()
-            scores, deltas = m.rpn(feat)
-            ev[2].record()
-            props = fr.proposals_from_rpn(scores, deltas, anchors, image_hw, cfg)
-            ev[3].record()
-            table = m.ps_maps(feat)
-            ev[4].record()
-            cls_logits, reg = m.vote(table, props.boxes)
-            ev[5].record()
-            fr.fastrcnn_inference(cls_logits, reg, props.boxes, props.valid, image_hw, cfg)
-            ev[6].record()
-            torch.cuda.synchronize()
-            for i, n in enumerate(names):
-                samples[n].append(ev[i].elapsed_time(ev[i + 1]))
-    reset_counts()
-    parts = {n: float(np.median(v[1:])) for n, v in samples.items()}
-    total = sum(parts.values())
-    log(f"[rfcn stages {cfg.model.dtype}] median of {repeats}, device ms (share of "
-        f"{total:.2f} ms): " + "; ".join(f"{n} {v:.3f} ({100 * v / total:.1f}%)"
-                                         for n, v in parts.items()))
-    return parts, props, tuple(table.shape)
-
-
 def time_ps_roi_pool(table, rois, cfg, tag):
     """PSRoIPool (plain PyTorch) on the card at the main path's shapes: the
     forward, and the forward with its gradient (autograd), device ms."""
@@ -3057,9 +2675,11 @@ def phase_rfcn(seed=0, calls=3, dtype="float32"):
     float32 boxes (proposals: G=2, N=rpn.pre_nms_topk_test; detections:
     G=2, N=4 x rpn.post_nms_topk_test) and K2, K3 never; detections
     non-empty, scores in [0, 1]; one more call under the sync debug mode;
-    the stage breakdown; PSRoIPool timed; a profiled call. Returns
-    (launches over the calls, ms a call, a summary)."""
+    the stages up to the PS maps once more, untimed, and PSRoIPool timed on
+    their proposals and table. Returns (launches over the calls,
+    PSRoIPool's times)."""
     from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models import faster_rcnn as fr
     from detectron_tpu_torch.models.zoo import build_detector
 
     cfg = get_config(RFCN_R50, [f"model.dtype={dtype}"])
@@ -3077,18 +2697,14 @@ def phase_rfcn(seed=0, calls=3, dtype="float32"):
         f"convolutions "
         f"{'channels-last' if det.module.memory_format == torch.channels_last else 'NCHW'}")
     totals = dict.fromkeys(counted_wrappers(), 0)
-    times = []
     for call in range(calls):
-        torch.cuda.synchronize()
         reset_counts()
         shapes = {}
-        t0 = time.perf_counter()
         with kernel_dtypes(shapes) as seen:
             dets, masks = det.predict_fn(params, batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
-        log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, K1 boxes "
+        log(f"[{tag}] call {call}: launches {counts}, K1 boxes "
             f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
         if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
                       "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
@@ -3099,17 +2715,21 @@ def phase_rfcn(seed=0, calls=3, dtype="float32"):
                                  f"want float32 boxes {want_shapes}")
         for name, n in counts.items():
             totals[name] += n
-    issue_ms, done_ms = check_no_host_sync(lambda: det.predict_fn(params, batch),
-                                           "R-FCN predict_fn", tag)
-    det.module.load_state_dict(params)
-    parts, props, table_shape = rfcn_stage_breakdown(det, batch, cfg)
+    check_no_host_sync(lambda: det.predict_fn(params, batch), "R-FCN predict_fn", tag)
+    # the stages up to the PS maps once more, untimed: PSRoIPool's inputs
+    m = det.module
+    m.load_state_dict(params)
+    anchors = m.anchors(batch["image"].shape[1:3], det.device)
     with torch.no_grad():
-        table = det.module.ps_maps(det.module.features(batch["image"]))
+        feat = m.features(batch["image"])
+        props = fr.proposals_from_rpn(*m.rpn(feat), anchors, batch["image_hw"], cfg)
+        table = m.ps_maps(feat)
+    reset_counts()
     pool_ms = time_ps_roi_pool(table, props.boxes.contiguous(), cfg, tag)
-    del table
     n_props, n_dets = int(props.valid.sum()), int(dets.valid.sum())
-    log(f"[{tag}] PS table {table_shape}; proposals valid {n_props}; detections valid "
+    log(f"[{tag}] PS table {tuple(table.shape)}; proposals valid {n_props}; detections valid "
         f"{n_dets}, classes {sorted(set(dets.classes[dets.valid].tolist()))}")
+    del table, feat
     if masks is not None or not (n_props > 0 and n_dets > 0):
         raise AssertionError("R-FCN: masks returned, or no proposal or detection")
     if tuple(dets.boxes.shape) != (b, cfg.test.detections_per_image, 4):
@@ -3121,12 +2741,9 @@ def phase_rfcn(seed=0, calls=3, dtype="float32"):
     if not (bool(torch.isfinite(dets.boxes).all()) and float(scores.min()) >= 0.0
             and float(scores.max()) <= 1.0):
         raise AssertionError("R-FCN: non-finite boxes or scores outside [0, 1]")
-    log(f"[{tag}] per-call ms {[round(t, 3) for t in times]}; scores in "
-        f"[{float(scores.min()):.4f}, {float(scores.max()):.4f}]; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_call(lambda: det.predict_fn(params, batch), f"one R-FCN predict_fn, {dtype}")
-    return totals, times, dict(call_ms=times, issue_ms=issue_ms, done_ms=done_ms,
-                               stages_ms=parts, psroipool=pool_ms)
+    log(f"[{tag}] scores in [{float(scores.min()):.4f}, {float(scores.max()):.4f}]; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return totals, pool_ms
 
 
 RFCN_CROSS_CANVAS = (256, 256)
@@ -3218,16 +2835,15 @@ def phase_cross_rfcn(seed=4, dtype="float32"):
                              f"{bwd:.3e}")
 
 
-def phase_rfcn_train(seed=0, warmup=2, steps=3, dtype="float32"):
+def phase_rfcn_train(seed=0, steps=3, dtype="float32"):
     """R-FCN R-50 train_step at full width in ``dtype`` (1024x1024, batch
-    2): ``warmup`` + ``steps`` steps, each finite and launching K1 once
-    (the proposals, G=2, N=rpn.pre_nms_topk_train) and K2, K3 never; every
-    trainable parameter changed (res5 too, which the C4 trunk does not run:
-    weight decay and momentum move it) and float32, every frozen one
-    unchanged; ms a step, peak memory, the stage breakdown, PSRoIPool's
-    forward and gradient timed at the sampled RoIs; in float32 then the
-    train driver. Returns (launches over the timed steps, ms a step, a
-    summary)."""
+    2): ``steps`` steps, each finite and launching K1 once (the proposals,
+    G=2, N=rpn.pre_nms_topk_train) and K2, K3 never; every trainable
+    parameter changed (res5 too, which the C4 trunk does not run: weight
+    decay and momentum move it) and float32, every frozen one unchanged;
+    peak memory, PSRoIPool's forward and gradient timed at the sampled
+    RoIs; in float32 then the train driver. Returns (launches over the
+    steps, PSRoIPool's times)."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.train.state import train_step
 
@@ -3243,24 +2859,20 @@ def phase_rfcn_train(seed=0, warmup=2, steps=3, dtype="float32"):
     trainable = [n for n, q in named.items() if q.requires_grad]
     frozen = [n for n, q in named.items() if not q.requires_grad]
     before = {n: q.detach().clone() for n, q in named.items()}
-    batches = [det.batch_to_device(next(data)) for _ in range(warmup + steps)]
+    batches = [det.batch_to_device(next(data)) for _ in range(steps)]
     totals = dict.fromkeys(counted_wrappers(), 0)
     want_shapes = [(cfg.train.batch_size, cfg.rpn.pre_nms_topk_train, 4)]
-    times = []
     torch.cuda.reset_peak_memory_stats()
     for i, batch in enumerate(batches):
-        torch.cuda.synchronize()
         reset_counts()
         shapes = {}
-        t0 = time.perf_counter()
         with kernel_dtypes(shapes) as seen:
             metrics = train_step(state, batch)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
         losses = {k: float(v) for k, v in metrics.items()}
-        log(f"[{tag}] {'warm-up' if i < warmup else 'step'} {i}: {ms:.1f} ms, launches "
-            f"{counts}, " + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
+        log(f"[{tag}] step {i}: launches {counts}, "
+            + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"R-FCN train step {i}: a loss is not finite: {losses}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
@@ -3269,10 +2881,8 @@ def phase_rfcn_train(seed=0, warmup=2, steps=3, dtype="float32"):
                                  "and K3 never")
         if shapes != {"greedy_nms": want_shapes} or seen != {"greedy_nms": {"float32"}}:
             raise AssertionError(f"R-FCN train step {i}: K1 handed {shapes} {seen}")
-        if i >= warmup:
-            times.append(ms)
-            for name, n in counts.items():
-                totals[name] += n
+        for name, n in counts.items():
+            totals[name] += n
     peak = torch.cuda.max_memory_allocated() / 2**30
     unchanged = [n for n in trainable if torch.equal(named[n].detach(), before[n])]
     moved = [n for n in frozen if not torch.equal(named[n].detach(), before[n])]
@@ -3280,15 +2890,11 @@ def phase_rfcn_train(seed=0, warmup=2, steps=3, dtype="float32"):
                 if q.dtype != torch.float32 or (q.grad is not None and q.grad.dtype != q.dtype)]
     log(f"[{tag}] {len(trainable)} trainable tensors, {len(unchanged)} unchanged; "
         f"{len(frozen)} frozen, {len(moved)} changed; parameters or gradients not float32: "
-        f"{len(not_fp32)}")
+        f"{len(not_fp32)}; peak device memory {peak:.2f} GiB")
     if unchanged or moved or not frozen or not_fp32:
         raise AssertionError(f"R-FCN train: trainable unchanged {unchanged[:5]}, frozen moved "
                              f"{moved[:5]}, not float32 {not_fp32[:5]}")
     del before
-    med = float(np.median(times))
-    log(f"[{tag}] per-step ms {[round(t, 3) for t in times]}; median {med:.2f} ms = "
-        f"{cfg.train.batch_size * 1e3 / med:.2f} img/s; peak device memory {peak:.2f} GiB")
-    parts = train_breakdown(state, batches[-1], tag=tag)
     # PSRoIPool at the training shapes: the sampled RoIs of a step
     with torch.no_grad():
         table = det.module.ps_maps(det.module.features(batches[-1]["image"]))
@@ -3299,8 +2905,7 @@ def phase_rfcn_train(seed=0, warmup=2, steps=3, dtype="float32"):
     del table
     if dtype == "float32":
         phase_driver(state, RFCN_R50)
-    return totals, times, dict(step_ms=times, median_ms=med, peak_gib=peak, stages_ms=parts,
-                               psroipool=pool_ms)
+    return totals, pool_ms
 
 
 def phase_rfcn_eval(seed=0, dtype="float32"):
@@ -3326,21 +2931,17 @@ RFCN_DEMO_ARGS = ["--no-restore", "--config", RFCN_R50, "--cfg", f"output_dir={D
 
 def rfcn_phases(k1) -> dict:
     """Phases 19-22, each path in both dtypes (the config's bf16 and
-    float32). Returns ``{path: (launches, summary)}``."""
+    float32). Returns ``{path: launches}``."""
     rfcn = {}
     for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
-        counts, _, summary = phase_rfcn(dtype=dtype)
-        rfcn["rfcn_predict" + sfx] = (counts, summary)
+        rfcn["rfcn_predict" + sfx] = phase_rfcn(dtype=dtype)[0]
     phase_cross_rfcn()
     phase_cross_rfcn(dtype="bfloat16")
     for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
-        counts, _, summary = phase_rfcn_train(dtype=dtype)
-        rfcn["rfcn_train" + sfx] = (counts, summary)
-        counts, img_s = phase_rfcn_eval(dtype=dtype)
-        rfcn["rfcn_eval" + sfx] = (counts, img_s)
+        rfcn["rfcn_train" + sfx] = phase_rfcn_train(dtype=dtype)[0]
+        rfcn["rfcn_eval" + sfx] = phase_rfcn_eval(dtype=dtype)
     for dtype, sfx in ((None, "_bf16"), ("float32", "")):
-        counts, line = phase_rfcn_bench(dtype)
-        rfcn["rfcn_bench" + sfx] = (counts, line)
+        rfcn["rfcn_bench" + sfx] = phase_rfcn_bench(dtype)[0]
     phase_demo(RFCN_DEMO_ARGS)
     return rfcn
 
@@ -3398,7 +2999,7 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
     and bf16; then Faster R-CNN R-50-FPN (configs/faster_rcnn_r50_fpn_coco
     .yaml) with roi.pool_type=pool in float32: ``calls`` predict calls (K1
     twice each) and ``steps`` train steps (K1 once each), K2 and K3 never.
-    Returns {path: launches} and the pool's timings."""
+    Returns {path: launches} and the pool's cases."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.models.zoo import build_detector
     from detectron_tpu_torch.train.state import train_step
@@ -3418,14 +3019,10 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
         f"roi.pool_type={cfg.roi.pool_type} canvas {tuple(cfg.data.image_size)} batch 2")
     launches = {"roi_pool_predict": dict.fromkeys(counted_wrappers(), 0),
                 "roi_pool_train": dict.fromkeys(counted_wrappers(), 0)}
-    times = []
     for call in range(calls):
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         dets, _ = det.predict_fn(params, batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
         if counts != {"greedy_nms": 2, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
                       "anchor_match": 0} or not int(dets.valid.sum()):
@@ -3433,22 +3030,18 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
                                  f"{int(dets.valid.sum())} detections")
         for name, n in counts.items():
             launches["roi_pool_predict"][name] += n
-    log(f"[roi_pool] predict ms {[round(t, 3) for t in times]}; detections valid "
-        f"{int(dets.valid.sum())}; launches {launches['roi_pool_predict']}")
+    log(f"[roi_pool] predict: detections valid {int(dets.valid.sum())}; launches "
+        f"{launches['roi_pool_predict']}")
     tcfg = get_config(FASTER_R50, POOL_OVERRIDES + TRAIN_OVERRIDES)
     state, data = seeded_train_state(tcfg, None, seed)
-    step_ms = []
     for i in range(steps):
         batch = state.detector.batch_to_device(next(data))
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         metrics = train_step(state, batch)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
         losses = {k: float(v) for k, v in metrics.items()}
-        log(f"[roi_pool train] step {i}: {step_ms[-1]:.1f} ms, launches {counts}, "
+        log(f"[roi_pool train] step {i}: launches {counts}, "
             + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
                       "anchor_match": ANCHOR_MATCH_LAUNCHES} or not all(
@@ -3457,7 +3050,7 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
         for name, n in counts.items():
             launches["roi_pool_train"][name] += n
     reset_counts()
-    return launches, dict(pool=cases, predict_ms=times, step_ms=step_ms)
+    return launches, cases
 
 
 # --------------------------------------------------- phase 24: pretrained weights
@@ -3631,20 +3224,14 @@ CROSS_BF16_AS_GOOD = 1.5
 
 def predict_calls(det, params, batch, calls, tag, want):
     """``calls`` predict_fn calls, each launching the kernels ``want`` times
-    (``{name: n}``); returns (launches over the calls, ms a call, the last
-    detections)."""
+    (``{name: n}``); returns the launches over the calls."""
     totals = dict.fromkeys(counted_wrappers(), 0)
-    times = []
     for call in range(calls):
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         dets, masks = det.predict_fn(params, batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
-        log(f"[{tag}] call {call}: {times[-1]:.1f} ms, launches {counts}, detections "
-            f"{int(dets.valid.sum())}")
+        log(f"[{tag}] call {call}: launches {counts}, detections {int(dets.valid.sum())}")
         if counts != want or not int(dets.valid.sum()) or not (
                 bool(torch.isfinite(dets.boxes).all()) and float(masks.min()) >= 0.0
                 and float(masks.max()) <= 1.0):
@@ -3653,27 +3240,23 @@ def predict_calls(det, params, batch, calls, tag, want):
         for name, n in counts.items():
             totals[name] += n
     reset_counts()
-    return totals, times, dets
+    return totals
 
 
 def train_steps(state, batches, tag, want):
     """``train_step`` on each batch, each finite and launching the kernels
-    ``want`` times; returns (launches, ms a step, peak GiB over the steps)."""
+    ``want`` times; returns (launches, peak GiB over the steps)."""
     from detectron_tpu_torch.train.state import train_step
 
     totals = dict.fromkeys(counted_wrappers(), 0)
-    times = []
     torch.cuda.reset_peak_memory_stats()
     for i, batch in enumerate(batches):
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         metrics = train_step(state, batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
         losses = {k: float(v) for k, v in metrics.items()}
-        log(f"[{tag}] step {i}: {times[-1]:.1f} ms, launches {counts}, "
+        log(f"[{tag}] step {i}: launches {counts}, "
             + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
         if counts != want or not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"{tag} step {i}: launches {counts} (want {want}), losses "
@@ -3681,20 +3264,18 @@ def train_steps(state, batches, tag, want):
         for name, n in counts.items():
             totals[name] += n
     reset_counts()
-    return totals, times, torch.cuda.max_memory_allocated() / 2**30
+    return totals, torch.cuda.max_memory_allocated() / 2**30
 
 
 def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
     """Mask R-CNN R-50-FPN with GroupNorm-32 (configs/mask_rcnn_r50_fpn_coco
     .yaml + model.norm=gn) at full width, 1024x1344, batch 2, in ``dtype``:
-    ``calls`` predict calls (K1 and K2 twice each), the stage breakdown, peak
-    memory; ``steps`` train steps from the same weights (K1 once, K2 and K3
-    twice each, every loss finite), the stem's GroupNorm unchanged and the
-    trainable stages' changed, the step's stage breakdown and peak memory;
-    one call and one step with every kernel launch held against its plain
-    version (``hold_path``); then the same steps with frozen BatchNorm
-    (calibrated) for the time ratio. Returns ({path: launches}, a summary
-    of the numbers)."""
+    ``calls`` predict calls (K1 and K2 twice each), peak memory; ``steps``
+    train steps from the same weights (K1 once, K2 and K3 twice each, every
+    loss finite), the stem's GroupNorm unchanged and the trainable stages'
+    changed, peak memory; one call and one step with every kernel launch
+    held against its plain version (``hold_path``). Returns ({path:
+    launches}, what was held)."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.models.zoo import build_detector
     from detectron_tpu_torch.train.driver import batch_iterator
@@ -3710,50 +3291,30 @@ def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
         f"{cfg.model.fpn_channels} classes {cfg.model.num_classes} canvas "
         f"{tuple(cfg.data.image_size)} {cfg.model.dtype} batch 2")
     torch.cuda.reset_peak_memory_stats()
-    predict, call_ms, _ = predict_calls(det, params, batch, calls, tag, {
+    predict = predict_calls(det, params, batch, calls, tag, {
         "greedy_nms": 2, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 0,
         "anchor_match": 0})
-    predict_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] predict: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     held = {"predict": hold_path(lambda: det.predict_fn(params, batch), f"{tag} predict")}
     det.module.load_state_dict(params)
-    stages, _ = stage_breakdown(det, batch, cfg)
-    reset_counts()
-    log(f"[{tag}] predict ms {[round(t, 3) for t in call_ms]}; peak device memory "
-        f"{predict_peak:.2f} GiB")
     state = create_train_state(cfg, det)
     named = dict(det.module.named_parameters())
     before = {n: named[n].detach().clone() for n in ("backbone.gn1.weight", "backbone.gn1.bias",
                                                      "backbone.layer2.0.gn1.weight")}
     data = batch_iterator(cfg)
     batches = [det.batch_to_device(next(data)) for _ in range(steps)]
-    train, step_ms, train_peak = train_steps(state, batches, f"{tag} train", {
+    train, train_peak = train_steps(state, batches, f"{tag} train", {
         "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2,
         "anchor_match": ANCHOR_MATCH_LAUNCHES})
     moved = {n: not torch.equal(named[n].detach(), v) for n, v in before.items()}
-    log(f"[{tag} train] per-step ms {[round(t, 3) for t in step_ms]}; peak device memory "
-        f"{train_peak:.2f} GiB; changed by the steps: {moved}")
+    log(f"[{tag} train] peak device memory {train_peak:.2f} GiB; changed by the steps: {moved}")
     if moved != {"backbone.gn1.weight": False, "backbone.gn1.bias": False,
                  "backbone.layer2.0.gn1.weight": True}:
         raise AssertionError(f"{tag} train: the stem GroupNorm moved or a trainable one did "
                              f"not: {moved}")
     held["train"] = hold_path(lambda: train_step(state, batches[-1]), f"{tag} train")
-    train_stages = train_breakdown(state, batches[-1], tag=f"{tag} train")
-    del state, det
-    # the same steps with frozen BatchNorm (calibrated), for the ratio
-    ref_cfg = get_config(MASK_R50, TRAIN_OVERRIDES + [f"model.dtype={dtype}"])
-    ref_state, ref_data = seeded_train_state(ref_cfg, None, seed)
-    ref_batches = [ref_state.detector.batch_to_device(next(ref_data)) for _ in range(steps)]
-    _, ref_ms, ref_peak = train_steps(ref_state, ref_batches, f"{tag} frozen-BN reference", {
-        "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2,
-        "anchor_match": ANCHOR_MATCH_LAUNCHES})
-    ratio = float(np.median(step_ms[1:]) / np.median(ref_ms[1:]))
-    log(f"[{tag} train] GroupNorm / frozen-BN step time, steps after the first: x{ratio:.3f} "
-        f"({[round(t, 1) for t in step_ms[1:]]} against {[round(t, 1) for t in ref_ms[1:]]} "
-        f"ms); peak {train_peak:.2f} against {ref_peak:.2f} GiB")
-    return ({"gn_predict" + sfx: predict, "gn_train" + sfx: train},
-            dict(call_ms=call_ms, predict_peak_gib=predict_peak, stages_ms=stages,
-                 step_ms=step_ms, train_peak_gib=train_peak, train_stages_ms=train_stages,
-                 frozen_bn_step_ms=ref_ms, frozen_bn_peak_gib=ref_peak, held=held))
+    return {"gn_predict" + sfx: predict, "gn_train" + sfx: train}, held
 
 
 # phase 26's limit on each gradient with remat against without, in relative
@@ -3768,9 +3329,9 @@ def phase_remat(seed=0):
     same (calibrated) weights with the same batch and draws, in turns after
     a warm-up of each: losses within 1e-4 relative, every gradient within
     REMAT_GRAD_RTOL of the step without remat (relative norm), the state
-    dict unchanged; each step's ms and torch.cuda.max_memory_allocated;
-    one more remat step with every kernel launch held against its plain
-    version. Returns ({path: launches}, a summary)."""
+    dict unchanged; each step's torch.cuda.max_memory_allocated; one more
+    remat step with every kernel launch held against its plain version.
+    Returns ({path: launches}, a summary)."""
     from detectron_tpu_torch.config import get_config
     from detectron_tpu_torch.models import faster_rcnn as fr
     from detectron_tpu_torch.train.state import create_train_state, step_generator, train_step
@@ -3792,16 +3353,14 @@ def phase_remat(seed=0):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        t0 = time.perf_counter()
         metrics = train_step(state, batch, draws)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated() / 2**30
         counts = read_counts()
         losses = {k: float(v) for k, v in metrics.items()}
-        log(f"[remat] {'remat' if remat else 'plain'} step ({'warm-up' if i < 2 else 'timed'})"
-            f": {ms:.1f} ms, peak device memory {peak:.2f} GiB, launches {counts}, loss_total "
-            f"{losses['loss_total']:.5f}")
+        stage = "warm-up" if i < 2 else "compared"
+        log(f"[remat] {'remat' if remat else 'plain'} step ({stage}): peak device memory "
+            f"{peak:.2f} GiB, launches {counts}, loss_total {losses['loss_total']:.5f}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 2,
                       "multilevel_roi_align_bwd": 2, "anchor_match": ANCHOR_MATCH_LAUNCHES}:
             raise AssertionError(f"remat step: launches {counts}")
@@ -3811,8 +3370,7 @@ def phase_remat(seed=0):
                     launches[name] += counts[name]
             grads = {n: p.grad.detach().to("cpu") for n, p in det.module.named_parameters()
                      if p.requires_grad}
-            runs.setdefault(remat, []).append(dict(ms=ms, peak=peak, losses=losses,
-                                                   grads=grads))
+            runs.setdefault(remat, []).append(dict(peak=peak, losses=losses, grads=grads))
     held = hold_path(lambda: train_step(create_train_state(cfg, det, start), batch, draws),
                      "remat")
     det.module.backbone.remat = False
@@ -3829,10 +3387,9 @@ def phase_remat(seed=0):
                    for k, v in plain["losses"].items())
     grad_rel, grad_name = worst(rem["grads"], plain["grads"])
     noise, noise_name = worst(runs[False][1]["grads"], plain["grads"])
-    log(f"[remat] R-101 1024x1344 batch 2 float32: plain {plain['ms']:.1f} / "
-        f"{runs[False][1]['ms']:.1f} ms, peak {plain['peak']:.2f} GiB; remat {rem['ms']:.1f} ms, "
-        f"peak {rem['peak']:.2f} GiB (x{rem['peak'] / plain['peak']:.3f} memory, "
-        f"x{rem['ms'] / plain['ms']:.3f} time); max relative loss diff {loss_rel:.2e}; worst "
+    log(f"[remat] R-101 1024x1344 batch 2 float32: peak {plain['peak']:.2f} GiB plain, "
+        f"{rem['peak']:.2f} GiB remat (x{rem['peak'] / plain['peak']:.3f}); max relative loss "
+        f"diff {loss_rel:.2e}; worst "
         f"gradient relative diff {grad_rel:.2e} ({grad_name}; limit {REMAT_GRAD_RTOL:.0e}), two "
         f"plain steps {noise:.2e} ({noise_name})")
     if not (loss_rel <= 1e-4 and grad_rel <= REMAT_GRAD_RTOL
@@ -3840,14 +3397,12 @@ def phase_remat(seed=0):
         raise AssertionError(f"remat: losses differ by {loss_rel:.3e}, gradients by "
                              f"{grad_rel:.3e} in {grad_name}")
     return {"remat_train": launches}, dict(
-        plain_ms=plain["ms"], plain_peak_gib=plain["peak"], remat_ms=rem["ms"],
-        remat_peak_gib=rem["peak"], loss_rel=loss_rel, grad_rel=grad_rel, plain_noise=noise,
-        held=held)
+        plain_peak_gib=plain["peak"], remat_peak_gib=rem["peak"], loss_rel=loss_rel,
+        grad_rel=grad_rel, plain_noise=noise, held=held)
 
 
 DP_OUT = os.path.join(REPO, "build", "dp_smoke")  # phase 27's files: weights, batch, results
 DP_LOSS_ATOL, DP_PARAM_ATOL = 1e-4, 2e-5  # tests/test_parallel.py's criterion
-DP_TIMED_PAIRS = 4  # phase 27 (a): train_step and the DP step timed in turns
 
 
 def free_port() -> int:
@@ -3931,8 +3486,8 @@ def phase_dp(seed=0):
     """Data parallelism on config 5's model (Mask R-CNN R-101-FPN, 1024x1344).
     (a) initialize_distributed over NCCL at world size 1: the DP step at
     batch 2 against train_step on the same state, batch and draws (loss
-    within 1e-4, parameters within 2e-5, as tests/test_parallel.py), the
-    two timed in turns, and one DP step with every kernel launch held
+    within 1e-4, parameters within 2e-5, as tests/test_parallel.py), and
+    one DP step with every kernel launch held
     against its plain version; the train driver for 2 steps under the group
     (metrics.jsonl through MetricsWriter); the eval driver over phase 11's
     in-memory split.
@@ -3954,15 +3509,11 @@ def phase_dp(seed=0):
     start = {k: v.clone() for k, v in det.module.state_dict().items()}
 
     def reference():
-        """train_step on the batch of 2 from ``start``: losses, parameters, ms."""
+        """train_step on the batch of 2 from ``start``: losses, parameters."""
         ref = create_train_state(cfg, det, start)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         metrics = train_step(ref, batch, draws)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         return ({k: float(v) for k, v in metrics.items()},
-                {k: v.clone() for k, v in ref.params.items()}, ms)
+                {k: v.clone() for k, v in ref.params.items()})
 
     def compare(tag, got_losses, got_params, want_losses, want_params):
         loss_diff = abs(got_losses["loss_total"] - want_losses["loss_total"])
@@ -3979,8 +3530,7 @@ def phase_dp(seed=0):
 
     launches = {}
     summary = {}
-    reference()  # warm-up
-    want_losses, want_params, ref_ms = reference()
+    want_losses, want_params = reference()
     rank, world = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=DEVICE)
     try:
         mesh = make_mesh(DEVICE)
@@ -3990,33 +3540,16 @@ def phase_dp(seed=0):
         if torch.distributed.get_backend() != backend or (rank, world) != (0, 1):
             raise AssertionError(f"phase 27 (a) wants {backend} at world size 1")
         step = make_train_step(det, mesh)
-        step(create_train_state(cfg, det, start), batch, draws)  # warm-up
         dp_state = create_train_state(cfg, det, start)
-        torch.cuda.synchronize()
         reset_counts()
-        t0 = time.perf_counter()
         metrics = step(dp_state, batch, draws)
         torch.cuda.synchronize()
-        dp_times = [(time.perf_counter() - t0) * 1e3]
         launches["dp_train"] = read_counts()
+        reset_counts()
         summary["a"] = dict(diffs=compare(
             "dp (a)", {k: float(v) for k, v in metrics.items()}, dp_state.params,
             want_losses, want_params))
-        ref_times = [ref_ms]
-        for _ in range(DP_TIMED_PAIRS - 1):  # the two steps in turns
-            ref_times.append(reference()[2])
-            dp_state = create_train_state(cfg, det, start)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(dp_state, batch, draws)
-            torch.cuda.synchronize()
-            dp_times.append((time.perf_counter() - t0) * 1e3)
-        reset_counts()
-        dp_ms, ref_ms = float(np.median(dp_times)), float(np.median(ref_times))
-        log(f"[dp] (a) DP step {[round(t, 1) for t in dp_times]} ms against train_step "
-            f"{[round(t, 1) for t in ref_times]} ms in turns, medians x{dp_ms / ref_ms:.3f}; "
-            f"launches {launches['dp_train']}")
-        summary["a"].update(dp_ms=dp_times, train_step_ms=ref_times)
+        log(f"[dp] (a) DP step launches {launches['dp_train']}")
         if launches["dp_train"] != {"greedy_nms": 1, "multilevel_roi_align": 2,
                                     "multilevel_roi_align_bwd": 2,
                                     "anchor_match": ANCHOR_MATCH_LAUNCHES}:
@@ -4126,19 +3659,16 @@ def phase_wide_nms(seed=0):
         else:
             params = raise_class_bias(det.init(seed), RAISED_CLASSES)
         tag = f"wide nms {path}"
-        torch.cuda.synchronize()
         reset_counts()
         shapes = {}
-        t0 = time.perf_counter()
         with kernel_dtypes(shapes):
             dets, _ = det.predict_fn(params, batch)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
         reset_counts()
         got_shapes = shapes.get("greedy_nms", [])
         n_dets = int(dets.valid.sum())
-        log(f"[{tag}] {model} {' '.join(overrides)}: {ms:.1f} ms, launches {counts}, K1 boxes "
+        log(f"[{tag}] {model} {' '.join(overrides)}: launches {counts}, K1 boxes "
             f"{got_shapes}, detections {n_dets}")
         if got_shapes != want_shapes or counts["greedy_nms"] != len(want_shapes):
             raise AssertionError(f"{tag}: K1 ran on {got_shapes} ({counts}), want {want_shapes}")
@@ -5057,7 +4587,7 @@ def kernel_entry(name, cases, launches, max_abs_err):
     """One kernel's line entry. ``launches_by_path``: its launches on each
     path's run (predict, train, eval, bench, and RetinaNet's, R-FCN's and
     the RoIPool Faster R-CNN's: K1 alone); ``launches`` the training
-    path's (phase 9's timed float32 steps), the one path that launches all
+    path's (phase 9's float32 steps), the one path that launches all
     three kernels, as in the line since K3 was ported. Times are summed
     over the float32 training step's cases (one launch of each case per
     step); the inference and the bf16 cases (``dtype``) are listed beside
@@ -5109,7 +4639,7 @@ def frozen_bn_entry(cases, launches, summary):
 
 def anchor_match_entry(cases, launches):
     """Phase 32's kernel: the times of the training cell's case, the others
-    in ``cases``; ``launches`` its counts on phase 9's timed steps by path
+    in ``cases``; ``launches`` its counts on phase 9's steps by path
     (``train``: float32, the line's ``launches``, as K1-K3's)."""
     cell = cases[0]
     return {
@@ -5124,21 +4654,18 @@ def anchor_match_entry(cases, launches):
 
 def retinanet_phases(k1) -> dict:
     """Phases 13-18, each path in both dtypes; K1's bench cases are added
-    to ``k1``. Returns ``{path: (launches, summary)}``."""
+    to ``k1``. Returns ``{path: launches}``."""
     retina = {}
     for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
-        counts, _, summary = phase_retinanet(dtype=dtype)
-        retina["retinanet_predict" + sfx] = (counts, summary)
+        retina["retinanet_predict" + sfx] = phase_retinanet(dtype=dtype)
     phase_cross_retinanet()
     phase_cross_retinanet(dtype="bfloat16")
     for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
-        counts, _, summary = phase_retinanet_train(dtype=dtype)
-        retina["retinanet_train" + sfx] = (counts, summary)
-        counts, img_s = phase_retinanet_eval(dtype=dtype)
-        retina["retinanet_eval" + sfx] = (counts, img_s)
+        retina["retinanet_train" + sfx] = phase_retinanet_train(dtype=dtype)[0]
+        retina["retinanet_eval" + sfx] = phase_retinanet_eval(dtype=dtype)
     for dtype, sfx in ((None, "_bf16"), ("float32", "")):
-        counts, line, case = phase_retinanet_bench(dtype)
-        retina["retinanet_bench" + sfx] = (counts, line)
+        counts, _, case = phase_retinanet_bench(dtype)
+        retina["retinanet_bench" + sfx] = counts
         k1.append(case)
     phase_demo()
     return retina
@@ -5182,8 +4709,8 @@ def main(argv=None) -> int:
                           "frozen_bn_act": fbn_summary}), flush=True)
         print(card, flush=True)
         return 0
-    predict_launches, _, predict32 = phase_slice()
-    predict16_launches, _, predict16 = phase_slice(dtype="bfloat16")
+    predict_launches, _ = phase_slice()
+    predict16_launches, _ = phase_slice(dtype="bfloat16")
     phase_cross_device()
     phase_cross_device(dtype="bfloat16")
     lap("phases 5-6")
@@ -5191,37 +4718,36 @@ def main(argv=None) -> int:
     phase_function(rng, feats)
     del feats
     lap("phases 7-8")
-    train_launches, _, train32 = phase_train()
-    train16_launches, _, train16 = phase_train(dtype="bfloat16")
+    train_launches, _ = phase_train()
+    train16_launches, _ = phase_train(dtype="bfloat16")
     phase_cross_train()
     lap("phases 9-10")
-    eval_launches, eval32 = phase_eval()
-    eval16_launches, eval16 = phase_eval(dtype="bfloat16")
+    eval_launches = phase_eval()
+    eval16_launches = phase_eval(dtype="bfloat16")
     lap("phase 11")
-    bench16_launches, bench16 = phase_bench()  # the bench's default, bf16
-    bench_launches, bench32 = phase_bench("float32")
+    bench16_launches, _ = phase_bench()  # the bench's default, bf16
+    bench_launches, _ = phase_bench("float32")
     lap("phase 12")
     retina = retinanet_phases(k1)
     lap("phases 13-18")
     rfcn = rfcn_phases(k1)
     lap("phases 19-22")
-    pool_launches, pool_summary = phase_roi_pool()
+    pool_launches, _ = phase_roi_pool()
     lap("phase 23")
     phase_weights()
     lap("phase 24")
-    gn_launches, gn_summary = {}, {}
+    gn_launches = {}
     for dtype in ("float32", "bfloat16"):
-        counts, gn_summary[dtype] = phase_gn(dtype=dtype)
-        gn_launches.update(counts)
+        gn_launches.update(phase_gn(dtype=dtype)[0])
     phase_cross_device(overrides=GN_OVERRIDES)
     phase_cross_device(dtype="bfloat16", overrides=GN_OVERRIDES, bf16_limit=CROSS_BF16_GN,
                        as_good_as_cpu=True)
     lap("phase 25")
-    remat_launches, remat_summary = phase_remat()
+    remat_launches, _ = phase_remat()
     lap("phase 26")
-    dp_launches, dp_summary = phase_dp()
+    dp_launches, _ = phase_dp()
     lap("phase 27")
-    wide_launches, wide_held = phase_wide_nms()
+    wide_launches, _ = phase_wide_nms()
     lap("phase 28")
     op_launches, op_k2, op_k3 = phase_op_api()
     k2 += op_k2
@@ -5242,8 +4768,8 @@ def main(argv=None) -> int:
                 "predict_bf16": predict16_launches.get(name, 0),
                 "train_bf16": train16_launches[name], "eval_bf16": eval16_launches[name],
                 "bench_bf16": bench16_launches[name],
-                **{path: counts[name] for path, (counts, _) in retina.items()},
-                **{path: counts[name] for path, (counts, _) in rfcn.items()},
+                **{path: counts[name] for path, counts in retina.items()},
+                **{path: counts[name] for path, counts in rfcn.items()},
                 **{path: counts[name] for path, counts in pool_launches.items()},
                 **{path: counts[name] for path, counts in gn_launches.items()},
                 **{path: counts[name] for path, counts in remat_launches.items()},
@@ -5263,16 +4789,6 @@ def main(argv=None) -> int:
         anchor_match_entry(matching, {"train": train_launches["anchor_match"],
                                       "train_bf16": train16_launches["anchor_match"]}),
     ]
-    # the end-to-end numbers of both dtypes, side by side
-    print(json.dumps({"dtypes": {
-        "predict": {"float32": predict32, "bfloat16": predict16},
-        "train": {"float32": train32, "bfloat16": train16},
-        "eval_img_s": {"float32": eval32, "bfloat16": eval16},
-        "bench": {"float32": bench32, "bfloat16": bench16},
-        "retinanet": {path: summary for path, (_, summary) in retina.items()},
-        "rfcn": {path: summary for path, (_, summary) in rfcn.items()},
-        "roi_pool": pool_summary, "gn": gn_summary, "remat": remat_summary,
-        "dp": dp_summary, "wide_nms": wide_held}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

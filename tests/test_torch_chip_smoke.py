@@ -1,12 +1,13 @@
 """A rehearsal of chip_smoke.py's kernel, training, eval and bench phases on
-the CPU, so that the script's own code (phase logic, cases, checks,
-breakdown, driver resume, the in-memory COCO split and its oracle) is
-exercised before a card runs it.
+the CPU, so that the script's own code (phase logic, cases, checks, driver
+resume, the in-memory COCO split and its oracle) is exercised before a card
+runs it.
 
 The card-only pieces are replaced: the kernels' plain versions stand in
 for the CUDA wrappers (and count launches as the wrappers do), the kernel
-dispatch takes them for CPU tensors, ``torch.cuda`` timing and memory
-calls are stubbed, and the configs are cut to 64x128 with FPN 32, an
+dispatch takes them for CPU tensors, ``cuda_ms`` calls its function once
+and reads 0 ms, ``torch.cuda`` synchronisation and memory calls are
+stubbed, and the configs are cut to 64x128 with FPN 32, an
 R-50 backbone, 256 / 64 / 64 RPN candidates, proposals and RoIs, images
 resized to a short side of 48 and 20 detections an image; the NMS cases
 are cut to a few hundred boxes, the bench to 128x128, batch 2, one call
@@ -17,7 +18,6 @@ stays with chip_smoke.py.
 
 import json
 import re
-import time
 
 import numpy as np
 import pytest
@@ -29,7 +29,6 @@ from detectron_tpu_torch.models import zoo
 from detectron_tpu_torch.ops import anchor_match as am
 from detectron_tpu_torch.ops import nms
 from detectron_tpu_torch.ops import roi_align as ra
-from detectron_tpu_torch.utils import spans
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,21 +42,11 @@ def few_threads():
     torch.set_num_threads(threads)
 
 
-class _Event:
-    def __init__(self, **_):
-        self.t = 0.0
-
-    def record(self):
-        self.t = time.perf_counter()
-
-    def query(self):
-        return False  # as on the card while the spin kernel holds the stream
-
-    def synchronize(self):
-        pass
-
-    def elapsed_time(self, other):
-        return (other.t - self.t) * 1e3
+def _once(fn, iters=20, warmup=3):
+    """``cuda_ms`` on the CPU: the card's time cannot be read here, so
+    ``fn`` runs once (its code is rehearsed) and the time reads 0 ms."""
+    fn()
+    return 0.0
 
 
 def _counting(module, name, plain):
@@ -134,9 +123,7 @@ def rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
-    monkeypatch.setattr(torch.cuda, "Event", _Event)
-    monkeypatch.setattr(spans, "_timed_on_device", lambda: True)  # the spans' events too
-    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(cs, "cuda_ms", _once)
     monkeypatch.setattr(zoo, "resolve_device", lambda device=None: torch.device("cpu"))
     for mod, name, plain in ((nms, "greedy_keep_cuda", nms.greedy_keep_plain),
                              (ra, "multilevel_roi_align_cuda", ra.multilevel_roi_align_plain),
@@ -147,7 +134,7 @@ def rehearsal(monkeypatch, tmp_path):
     _counting_match.launches = 0
     monkeypatch.setattr(am, "anchor_match_cuda", _counting_match)
     monkeypatch.setattr(am, "anchor_match", lambda *a, **k: am.anchor_match_cuda(*a, **k))
-    # the launches that chip_smoke times apart: timed here, never compared
+    # the launches that chip_smoke times apart: called here, never compared
     monkeypatch.setattr(nms, "nms_mask_cuda", lambda sboxes, thresh, offset=0.0: sboxes)
     monkeypatch.setattr(nms, "nms_scan_cuda", lambda mask, svalid, max_keep=None: svalid)
     monkeypatch.setattr(ra, "roi_align_bwd_accumulate_cuda", _plain_accumulate)
@@ -317,36 +304,30 @@ def test_k3_stress_rois_have_their_shape(kind):
 
 
 def test_train_phase_counts_launches_and_resumes_the_driver(rehearsal, capsys):
-    totals, times, summary = cs.phase_train(warmup=1, steps=2)
-    assert totals == {"greedy_nms": 2, "multilevel_roi_align": 4,
-                      "multilevel_roi_align_bwd": 4, "anchor_match": 4}
-    assert len(times) == 2 and summary["step_ms"] == times
+    totals, held = cs.phase_train(steps=3)
+    assert totals == {"greedy_nms": 3, "multilevel_roi_align": 6,
+                      "multilevel_roi_align_bwd": 6, "anchor_match": 6}
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
-    assert out.count("'anchor_match': 2}, ") == 3  # the warm-up and two steps
-    stages = out.split("[train stages]")[1].splitlines()[0]
-    for stage in ("anchors+draws", "backbone+fpn", "proposals (K1)", "mask: targets",
-                  "backward", "optimizer"):
-        assert stage in stages
+    assert out.count("'anchor_match': 2}, ") == 3  # the three steps
     assert "restored checkpoint at step" in out and "[driver] resumed" in out
-    assert "[layout train float32] channels-last" in out
-    assert summary["channels_last_ms"] > 0 and summary["nchw_ms"] > 0
+    # one more step, each launch held against its plain version
+    assert held["multilevel_roi_align_bwd"] == (2, 0.0)
 
 
 def test_train_phase_in_bf16(rehearsal, capsys):
     """The bf16 step: K2 and K3 handed bf16, K1 float32 boxes, every
     parameter and gradient float32; no driver run."""
-    totals, times, summary = cs.phase_train(warmup=1, steps=1, dtype="bfloat16")
-    assert totals == {"greedy_nms": 1, "multilevel_roi_align": 2,
-                      "multilevel_roi_align_bwd": 2, "anchor_match": 2}
+    totals, held = cs.phase_train(steps=2, dtype="bfloat16")
+    assert totals == {"greedy_nms": 2, "multilevel_roi_align": 4,
+                      "multilevel_roi_align_bwd": 4, "anchor_match": 4}
     out = capsys.readouterr().out
     assert "[train bfloat16]" in out and "bfloat16 batch 2" in out
     assert "convolutions channels-last" in out and "not float32: 0" in out
-    assert "[train bfloat16 stages]" in out and "[layout train bfloat16]" in out
     assert "[driver]" not in out
     # one more step, each launch held against its plain version
-    assert summary["held"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
-                               "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0)}
+    assert held == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
+                    "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0)}
 
 
 def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
@@ -354,21 +335,19 @@ def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
     mode stubbed: the card's)."""
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
     for dtype in ("float32", "bfloat16"):
-        totals, times, summary = cs.phase_slice(calls=2, dtype=dtype)
+        totals, held = cs.phase_slice(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 4, "multilevel_roi_align": 4}
-        assert set(summary) == {"call_ms", "issue_ms", "done_ms", "stages_ms",
-                                "channels_last_ms", "nchw_ms", "held"}
-        assert "backbone+fpn" in summary["stages_ms"]
         # one more call, each launch held against its plain version
-        assert summary["held"] == {"greedy_nms": (2, 0.0), "multilevel_roi_align": (2, 0.0),
-                                   "multilevel_roi_align_bwd": (0, 0.0),
-                                   "anchor_match": (0, 0.0)}
+        assert held == {"greedy_nms": (2, 0.0), "multilevel_roi_align": (2, 0.0),
+                        "multilevel_roi_align_bwd": (0, 0.0), "anchor_match": (0, 0.0)}
     out = capsys.readouterr().out
     assert "kernel input dtypes {'greedy_nms': ['float32'], 'multilevel_roi_align': " \
            "['float32']}" in out
     assert "kernel input dtypes {'greedy_nms': ['float32'], 'multilevel_roi_align': " \
            "['bfloat16']}" in out
-    assert "[slice bfloat16]" in out and "[layout predict bfloat16]" in out
+    assert "[slice bfloat16]" in out
+    assert out.count("under the sync debug mode: synchronising calls reported: 0") == 2
+    assert re.search(r"detection-NMS candidates valid [1-9]", out)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -436,19 +415,13 @@ def test_in_memory_coco_split_has_cocos_interface():
 
 def test_eval_phase_runs_the_driver_and_its_oracle(rehearsal, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
-    monkeypatch.setattr(cs, "EVAL_WARM_REPEAT", 1)
-    counts, img_s = cs.phase_eval()
+    counts = cs.phase_eval()
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
                       "multilevel_roi_align_bwd": 0, "anchor_match": 0}
-    assert img_s > 0
     out = capsys.readouterr().out
     assert "8 images in 5 batches" in out
     assert "[eval] oracle predictor: AP 1.000000, AP50 1.000000, segm_AP50 1.000000" in out
-    assert "images/s" in out and "paste+RLE" in out and "gt records" in out
-    assert "[eval warm, 8 images, loader threads 8]" in out
-    assert "[eval warm, 8 images, loader threads 1]" in out
-    assert "[eval profile]" in out
     assert "[K2 eval B=2 128x64 (transposed canvas) P=7 R=64" in out
     assert "[K2 eval B=2 128x64 (transposed canvas) P=14 R=20" in out
     assert not (tmp_path / "eval_smoke").exists()
@@ -458,16 +431,13 @@ def test_eval_phase_in_bf16(rehearsal, monkeypatch, tmp_path, capsys):
     """The bf16 eval loop: K1 and K2 twice a call, scores fetched as
     float32, and the oracle's bf16 outputs (on the card there) at AP 1.0."""
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
-    monkeypatch.setattr(cs, "EVAL_WARM_REPEAT", 1)
-    counts, img_s = cs.phase_eval(dtype="bfloat16")
+    counts = cs.phase_eval(dtype="bfloat16")
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
                       "multilevel_roi_align_bwd": 0, "anchor_match": 0}
     out = capsys.readouterr().out
     assert "scores fetched as ['float32']" in out
     assert "[eval bfloat16] oracle predictor: AP 1.000000, AP50 1.000000, " \
            "segm_AP50 1.000000" in out
-    assert "[eval bfloat16 warm, 8 images, loader threads 8]" in out
-    assert "loader threads 1]" not in out and "[eval profile]" not in out
     assert "[K2 bf16 eval B=2 128x64 (transposed canvas) P=14 R=20" in out
 
 
@@ -491,29 +461,10 @@ class _Profile:
         return self._events
 
 
-def test_device_busy_counts_the_loop_alone():
-    """Work before the loop (weights to the card) is not counted, work at
-    its edges is clipped, overlapping work counted once, and the loop's
-    own projection onto the device timeline is not work."""
-    prof = _Profile([
-        _ProfiledEvent("Memcpy HtoD", "CUDA", 0.0, 900.0),  # before the loop
-        _ProfiledEvent("eval_loop", "CPU", 1000.0, 3000.0),
-        _ProfiledEvent("eval_loop", "CUDA", 1000.0, 3000.0),
-        _ProfiledEvent("conv", "CUDA", 950.0, 1100.0),  # 100 inside
-        _ProfiledEvent("conv", "CUDA", 1500.0, 2000.0),
-        _ProfiledEvent("Memcpy DtoH", "CUDA", 1800.0, 2200.0),  # overlaps: 200 more
-        _ProfiledEvent("aten::conv2d", "CPU", 1500.0, 1600.0),
-        _ProfiledEvent("nms", "CUDA", 2900.0, 3100.0),  # 100 inside
-    ])
-    loop_ms, busy_ms, n = cs.device_busy_in(prof, "eval_loop")
-    assert (loop_ms, busy_ms, n) == (2.0, 0.9, 4)
-    assert cs.device_busy_in(_Profile([]), "eval_loop") == (0.0, 0.0, 0)
-
-
-def test_device_busy_skips_the_shadows_of_host_ranges():
+def test_device_work_skips_the_shadows_of_host_ranges():
     """The device-side shadows of the program's spans and of any other
-    host range are not work: only the kernels inside them count, in the
-    busy share and in a profiled call's kernel listing."""
+    host range are not work: only the kernels inside them count in a
+    profiled call's kernel listing."""
     prof = _Profile([
         _ProfiledEvent("eval_loop", "CPU", 1000.0, 3000.0),
         _ProfiledEvent("detectron/predict", "CPU", 1100.0, 2900.0),
@@ -522,7 +473,6 @@ def test_device_busy_skips_the_shadows_of_host_ranges():
         _ProfiledEvent("fetch", "CUDA", 2500.0, 2900.0, True),  # another range's
         _ProfiledEvent("conv", "CUDA", 1500.0, 1700.0),
     ])
-    assert cs.device_busy_in(prof, "eval_loop") == (2.0, 0.2, 1)
     assert [e.name for e in cs.device_work(prof.events())] == ["conv"]
 
 
@@ -604,16 +554,14 @@ def test_retinanet_predict_phase_launches_k1_once_a_call(rehearsal, monkeypatch,
     (50 here) in each of the batch's 2 problems, in both dtypes."""
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
     for dtype in ("float32", "bfloat16"):
-        totals, times, summary = cs.phase_retinanet(calls=2, dtype=dtype)
+        totals = cs.phase_retinanet(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 2, "multilevel_roi_align": 0,
                           "multilevel_roi_align_bwd": 0, "anchor_match": 0}
-        assert len(times) == 2 and summary["candidates_valid"] > 0
-        assert set(summary["stages_ms"]) == {"backbone+fpn", "head",
-                                             "per-level top-k + decode", "NMS (K1) + gather"}
     out = capsys.readouterr().out
     assert out.count("K1 boxes [(2, 250, 4)] ['float32']") == 4
-    assert "[retinanet bfloat16] per-call ms" in out
-    assert "[retinanet stages bfloat16]" in out
+    # the merged candidates, some above the score threshold, in both dtypes
+    assert len(re.findall(r"merged candidates \(2, 250\), [1-9][0-9]* above", out)) == 2
+    assert "[retinanet bfloat16] scores in" in out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -631,20 +579,16 @@ def test_cross_retinanet_phase(rehearsal, capsys, dtype):
 
 
 def test_retinanet_train_phase_launches_nothing_and_resumes_the_driver(rehearsal, capsys):
-    totals, times, summary = cs.phase_retinanet_train(warmup=1, steps=1)
+    totals, held = cs.phase_retinanet_train(steps=2)
     assert totals == {"greedy_nms": 0, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 2}
-    assert len(times) == 1 and summary["step_ms"] == times
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 4}
     # no K1-K3; the anchor matching's two kernels a step, held against the twin
-    assert summary["held"]["anchor_match"] == (1, 0.0)
+    assert held["anchor_match"] == (1, 0.0)
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
     assert out.count("'anchor_match': 2}, ") == 2
-    stages = out.split("[retinanet train float32 stages]")[1].splitlines()[0]
-    for stage in ("backbone+fpn", "head", "anchor targets+loss", "backward", "optimizer"):
-        assert stage in stages
     assert "model=retinanet" in out and "[driver] resumed" in out
-    cs.phase_retinanet_train(warmup=1, steps=1, dtype="bfloat16")
+    cs.phase_retinanet_train(steps=2, dtype="bfloat16")
     assert "[driver]" not in capsys.readouterr().out
 
 
@@ -671,11 +615,10 @@ def test_anchor_match_phase_holds_every_case(rehearsal, monkeypatch, capsys):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_retinanet_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
-    counts, img_s = cs.phase_retinanet_eval(dtype=dtype)
+    counts = cs.phase_retinanet_eval(dtype=dtype)
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
     assert counts == {"greedy_nms": 5, "multilevel_roi_align": 0,
                       "multilevel_roi_align_bwd": 0, "anchor_match": 0}
-    assert img_s > 0
     out = capsys.readouterr().out
     assert f"[retinanet eval {dtype}] 8 images in 5 batches" in out
     assert f"[retinanet eval {dtype}] oracle predictor: AP 1.000000, AP50 1.000000" in out
@@ -717,30 +660,20 @@ def test_demo_phase_writes_two_images(rehearsal, monkeypatch, tmp_path, capsys):
     assert not (tmp_path / "demo").exists()
 
 
-def _once(fn, iters=20, warmup=3):
-    """cuda_ms that runs ``fn`` once: the rehearsals of the plain pools'
-    timings exercise the code, not the CPU's speed."""
-    fn()
-    return 1.0
-
-
 def test_rfcn_predict_phase_launches_k1_twice_a_call(rehearsal, monkeypatch, capsys):
     """K1 twice a predict call on float32 boxes (proposals: 2 x
     rpn.pre_nms_topk_test; detections: 2 x 4 x rpn.post_nms_topk_test,
     256 each here), K2 and K3 never, in both dtypes."""
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
-    monkeypatch.setattr(cs, "cuda_ms", _once)
     for dtype in ("float32", "bfloat16"):
-        totals, times, summary = cs.phase_rfcn(calls=2, dtype=dtype)
+        totals, pool = cs.phase_rfcn(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 4, "multilevel_roi_align": 0,
                           "multilevel_roi_align_bwd": 0, "anchor_match": 0}
-        assert len(times) == 2 and summary["psroipool"]["fwd_ms"] > 0
-        assert set(summary["stages_ms"]) == {"backbone+trunk", "rpn head", "proposals (K1)",
-                                             "ps maps", "psroipool + vote", "detections (K1)"}
+        assert pool["fwd_ms"] >= 0 and pool["rois"] == [2, 64, 4]  # the proposals
     out = capsys.readouterr().out
     assert out.count("K1 boxes [(2, 256, 4), (2, 256, 4)] ['float32']") == 4
     assert "[rfcn bfloat16 psroipool] table (2, 4, 8, 4165)" in out
-    assert "[rfcn stages bfloat16]" in out
+    assert "[rfcn bfloat16] PS table (2, 4, 8, 4165)" in out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -760,30 +693,24 @@ def test_cross_rfcn_phase(rehearsal, monkeypatch, capsys, dtype):
 
 def test_rfcn_train_phase_launches_k1_once_and_resumes_the_driver(rehearsal, monkeypatch,
                                                                   capsys):
-    monkeypatch.setattr(cs, "cuda_ms", _once)
-    totals, times, summary = cs.phase_rfcn_train(warmup=1, steps=1)
-    assert totals == {"greedy_nms": 1, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 2}
-    assert len(times) == 1 and summary["psroipool"]["rois"] == [2, 64, 4]
+    totals, pool = cs.phase_rfcn_train(steps=2)
+    assert totals == {"greedy_nms": 2, "multilevel_roi_align": 0,
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 4}
+    assert pool["rois"] == [2, 64, 4]
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
-    stages = out.split("[rfcn train float32 stages]")[1].splitlines()[0]
-    for stage in ("backbone+trunk", "proposals (K1)", "ps maps", "psroipool + vote + loss",
-                  "backward", "optimizer"):
-        assert stage in stages
     assert "model=rfcn" in out and "[driver] resumed" in out
-    cs.phase_rfcn_train(warmup=1, steps=1, dtype="bfloat16")
+    cs.phase_rfcn_train(steps=2, dtype="bfloat16")
     assert "[driver]" not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rfcn_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
-    counts, img_s = cs.phase_rfcn_eval(dtype=dtype)
+    counts = cs.phase_rfcn_eval(dtype=dtype)
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls, K1 twice each
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 0,
                       "multilevel_roi_align_bwd": 0, "anchor_match": 0}
-    assert img_s > 0
     out = capsys.readouterr().out
     assert f"[rfcn eval {dtype}] 8 images in 5 batches" in out
     assert f"[rfcn eval {dtype}] oracle predictor: AP 1.000000, AP50 1.000000" in out
@@ -815,14 +742,13 @@ def test_rfcn_bench_and_demo_phases(rehearsal, monkeypatch, tmp_path, capsys):
 
 
 def test_roi_pool_phase(rehearsal, monkeypatch, capsys):
-    monkeypatch.setattr(cs, "cuda_ms", _once)
-    launches, summary = cs.phase_roi_pool(calls=2, steps=1)
+    launches, cases = cs.phase_roi_pool(calls=2, steps=1)
     assert launches == {
         "roi_pool_predict": {"greedy_nms": 4, "multilevel_roi_align": 0,
                              "multilevel_roi_align_bwd": 0, "anchor_match": 0},
         "roi_pool_train": {"greedy_nms": 1, "multilevel_roi_align": 0,
                            "multilevel_roi_align_bwd": 0, "anchor_match": 2}}
-    assert [c["case"] for c in summary["pool"]] == ["P=7 R=512", "P=7 R=512 bf16",
+    assert [c["case"] for c in cases] == ["P=7 R=512", "P=7 R=512 bf16",
                                                     "P=14 R=128", "P=14 R=128 bf16"]
     out = capsys.readouterr().out
     assert out.count("card against CPU: max |diff| 0.000e+00") == 4
@@ -845,21 +771,17 @@ def test_gn_phase(rehearsal, capsys, dtype):
     """Phase 25: GroupNorm predict calls and train steps, each kernel launch
     held against its plain version, the stem's GroupNorm fixed; then phase
     6's check with GroupNorm (both sides on the CPU here: equal)."""
-    launches, summary = cs.phase_gn(calls=2, steps=2, dtype=dtype)
+    launches, held = cs.phase_gn(calls=2, steps=2, dtype=dtype)
     sfx = "" if dtype == "float32" else "_bf16"
     assert launches == {
         "gn_predict" + sfx: {"greedy_nms": 4, "multilevel_roi_align": 4,
                              "multilevel_roi_align_bwd": 0, "anchor_match": 0},
         "gn_train" + sfx: {"greedy_nms": 2, "multilevel_roi_align": 4,
                            "multilevel_roi_align_bwd": 4, "anchor_match": 4}}
-    assert summary["held"]["predict"] == {"greedy_nms": (2, 0.0),
-                                          "multilevel_roi_align": (2, 0.0),
-                                          "multilevel_roi_align_bwd": (0, 0.0),
-                                          "anchor_match": (0, 0.0)}
-    assert summary["held"]["train"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
-                                        "multilevel_roi_align_bwd": (2, 0.0),
-                                        "anchor_match": (1, 0.0)}
-    assert len(summary["step_ms"]) == 2 and "backbone+fpn" in summary["stages_ms"]
+    assert held["predict"] == {"greedy_nms": (2, 0.0), "multilevel_roi_align": (2, 0.0),
+                               "multilevel_roi_align_bwd": (0, 0.0), "anchor_match": (0, 0.0)}
+    assert held["train"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
+                             "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0)}
     cs.phase_cross_device(dtype=dtype, overrides=cs.GN_OVERRIDES, bf16_limit=cs.CROSS_BF16_GN,
                           as_good_as_cpu=dtype == "bfloat16")
     out = capsys.readouterr().out
@@ -876,7 +798,7 @@ def test_remat_phase(rehearsal, monkeypatch, capsys):
                                         "multilevel_roi_align_bwd": 2, "anchor_match": 2}}
     assert summary["loss_rel"] == 0.0 and summary["grad_rel"] <= cs.REMAT_GRAD_RTOL
     assert summary["held"]["multilevel_roi_align_bwd"] == (2, 0.0)
-    assert "[remat] remat step (timed)" in capsys.readouterr().out
+    assert "[remat] remat step (compared)" in capsys.readouterr().out
 
 
 def test_dp_phase(rehearsal, monkeypatch, tmp_path, capsys):
@@ -1047,7 +969,7 @@ def test_contracts_phase_counts_its_launches_and_holds_each_call(rehearsal, monk
     assert routes["P*S=112 bfloat16"] == "wide"
     entry = cs.k1_bf16_entry(k1, k1_launches)
     assert entry["name"] == "greedy_nms_bf16" and entry["launches"] == k1_launches
-    assert entry["ms"] > 0 and entry["plain_ms"] > 0 and entry["bound_by"] in (
+    assert entry["ms"] >= 0 and entry["plain_ms"] >= 0 and entry["bound_by"] in (
         "bytes", "operations")
     out = capsys.readouterr().out
     assert out.count("impl='pallas' equal to impl='jnp': True") == len(cs.CONTRACT_NMS_CASES)
@@ -1080,6 +1002,8 @@ def test_frozen_bn_phase_holds_every_form_and_counts_its_launches(rehearsal, mon
     monkeypatch.setattr(fb, "frozen_bn_act_backward_plain",
                         counted_as("frozen_bn_act_backward_cuda", plain_bwd))
     monkeypatch.setattr(cs, "FROZEN_BN_BATCH", 1)
+    # the summary divides by the summed times: 1 ms a call here
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn, iters=20, warmup=3: _once(fn) + 1.0)
     cases, launches, summary = cs.phase_frozen_bn()
     # 16 distinct passes of a ResNet-50 forward, in each dtype and layout
     assert len(cases) == 16 * len(cs.FROZEN_BN_LAYOUTS)
