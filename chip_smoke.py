@@ -253,6 +253,22 @@ bfloat16``: float32 parameters, bf16 compute, the kernels' bf16 instances):
     each. Phases 9 and 15 count its two launches a Mask R-CNN and a
     RetinaNet training step, and hold each against the twin
     (``hold_path``).
+33. a convolution's epilogue in one pass at inference
+    (``phase_conv_epilogue``, csrc/conv_epilogue.cu): at each distinct pass
+    of a bf16 channels-last Mask R-CNN R-50-FPN predict call at the bulk
+    cell's shapes (batch 16, 1024x1344: the FPN's laterals and smoothing
+    convs at P2-P5, the RPN head's three convs at P2-P6, the mask head at
+    1600 RoIs, 14x14 and 28x28), in each form (bias; bias and ReLU; bias and
+    the 2x nearest coarse add): the kernel against its plain twin bit for
+    bit, timed beside its bytes bound and the twin, summed over one call;
+    each form at P3 in float32 and bf16, NCHW and channels-last, bit for
+    bit; the FPN, RPN head and mask head at those shapes under no_grad
+    bit for bit the parent's chain (the same modules recording a gradient:
+    cuDNN with the bias, then aten's ReLU, upsample and add); its launches
+    over one bf16 predict call of Mask R-CNN (29), Faster R-CNN (23) and
+    RetinaNet (6), each held against the twin (``hold_path``), and none in
+    an R-101 training step. Every model path's launch count above includes
+    it (``counted_wrappers``).
 
 After each group of phases it logs the host seconds the group took
 (``[time]``). It then prints a JSON line of per-kernel results (float32 at
@@ -848,12 +864,27 @@ def raise_class_bias(params, classes, value=6.0):
 
 
 def counted_wrappers() -> dict:
-    from detectron_tpu_torch.ops import anchor_match, nms, roi_align
+    from detectron_tpu_torch.ops import anchor_match, conv_epilogue, nms, roi_align
 
     return {"greedy_nms": nms.greedy_keep_cuda,
             "multilevel_roi_align": roi_align.multilevel_roi_align_cuda,
             "multilevel_roi_align_bwd": roi_align.multilevel_roi_align_bwd_cuda,
-            "anchor_match": anchor_match.anchor_match_cuda}
+            "anchor_match": anchor_match.anchor_match_cuda,
+            "conv_epilogue": conv_epilogue.conv_epilogue_cuda}
+
+
+def conv_epilogue_passes(cfg, features_only=False) -> int:
+    """The conv epilogue's launches in one predict call of ``cfg``'s model
+    (a training step records gradients and launches none): the FPN's
+    laterals and smoothing convs (four levels; RetinaNet's p3p7 three;
+    R-FCN has no FPN), then the RPN head's three convs at each level it
+    reads (the FPN's five, R-FCN's one map) and the mask head's four convs,
+    deconv and logits. ``features_only``: the FPN's alone (what
+    ``calibrate_frozen_bn`` runs)."""
+    name = cfg.model.name
+    fpn = {"retinanet": 2 * 3, "rfcn": 0}.get(name, 2 * 4)
+    heads = {"retinanet": 0, "rfcn": 3, "mask_rcnn": 3 * 5 + 6}.get(name, 3 * 5)
+    return fpn if features_only else fpn + heads
 
 
 def reset_counts():
@@ -902,6 +933,15 @@ def kernel_dtypes(shapes=None):
             setattr(module, attr, fn)
 
 
+def differing_values(got, want) -> int:
+    """How many values of ``got`` differ from ``want`` in their bits (the
+    sign of zero included)."""
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return max(got.numel(), want.numel(), 1)
+    return int((got.view(bits) != want.view(bits)).sum())
+
+
 def _copy(x):
     if isinstance(x, torch.Tensor):
         return x.detach().clone()
@@ -917,8 +957,11 @@ def hold_path(fn, tag) -> dict:
     within 1e-5 x max |feature|, K3 within 1e-5 x max |plain gradient|
     (bf16: one bf16 step beyond those). No kernel is launched again for the
     comparison. The anchor matching's launches are held exactly (matched,
-    pos and neg). Returns ``{name: (launches held, worst |diff|)}``."""
-    from detectron_tpu_torch.ops import anchor_match, nms, roi_align
+    pos and neg); the conv epilogue's (in place) bit for bit, each against
+    the twin run on its inputs just before it, so that no copy is kept
+    (its worst is the count of differing values). Returns ``{name:
+    (launches held, worst |diff|)}``."""
+    from detectron_tpu_torch.ops import anchor_match, conv_epilogue, nms, roi_align
 
     sites = ((nms, "greedy_keep_cuda", "greedy_nms", nms.greedy_keep_plain),
              (roi_align, "multilevel_roi_align_cuda", "multilevel_roi_align",
@@ -926,13 +969,20 @@ def hold_path(fn, tag) -> dict:
              (roi_align, "multilevel_roi_align_bwd_cuda", "multilevel_roi_align_bwd",
               roi_align.multilevel_roi_align_bwd_plain),
              (anchor_match, "anchor_match_cuda", "anchor_match",
-              anchor_match.anchor_match_plain))
+              anchor_match.anchor_match_plain),
+             (conv_epilogue, "conv_epilogue_cuda", "conv_epilogue",
+              conv_epilogue.conv_epilogue_plain))
     calls = {name: [] for _, _, name, _ in sites}
     real = {}
-    for module, attr, name, _ in sites:
+    for module, attr, name, plain in sites:
         wrapper = real[(module, attr)] = getattr(module, attr)
 
-        def recorder(*args, _fn=wrapper, _name=name, **kwargs):
+        def recorder(*args, _fn=wrapper, _name=name, _plain=plain, **kwargs):
+            if _name == "conv_epilogue":
+                want = _plain(*args, **kwargs)
+                out = _fn(*args, **kwargs)
+                calls[_name].append(differing_values(out, want))
+                return out
             out = _fn(*args, **kwargs)
             calls[_name].append((_copy(args), kwargs, _copy(out)))
             return out
@@ -951,6 +1001,13 @@ def hold_path(fn, tag) -> dict:
     held = {}
     for _, _, name, plain in sites:
         worst = 0.0
+        if name == "conv_epilogue":
+            worst = float(max(calls[name], default=0))
+            if worst:
+                raise AssertionError(f"{tag}: the conv epilogue differs from its plain twin on "
+                                     f"the path's own inputs ({calls[name]} values)")
+            held[name] = (len(calls[name]), worst)
+            continue
         for args, kwargs, got in calls[name]:
             want = plain(*args, **kwargs)
             if name == "greedy_nms":
@@ -1003,7 +1060,7 @@ def phase_slice(seed=0, calls=3, dtype="float32"):
         f"{cfg.model.dtype} batch {batch['image'].shape[0]}, convolutions "
         f"{'channels-last' if det.module.memory_format == torch.channels_last else 'NCHW'}")
 
-    totals = {"greedy_nms": 0, "multilevel_roi_align": 0}
+    totals = {"greedy_nms": 0, "multilevel_roi_align": 0, "conv_epilogue": 0}
     want_dtypes = {"greedy_nms": {"float32"}, "multilevel_roi_align": {dtype}}
     for call in range(calls):
         reset_counts()
@@ -1024,6 +1081,10 @@ def phase_slice(seed=0, calls=3, dtype="float32"):
             raise AssertionError(f"predict_fn call {call} launched K1 {counts['greedy_nms']} "
                                  f"and K2 {counts['multilevel_roi_align']} times, want 2 "
                                  "(proposals, detections; box, mask)")
+        if counts["conv_epilogue"] != conv_epilogue_passes(cfg):
+            raise AssertionError(f"predict_fn call {call} launched the conv epilogue "
+                                 f"{counts['conv_epilogue']} times, want "
+                                 f"{conv_epilogue_passes(cfg)}")
         if seen != want_dtypes:
             raise AssertionError(f"predict_fn call {call}: kernel input dtypes {seen}, want "
                                  f"{want_dtypes}")
@@ -1169,7 +1230,7 @@ def phase_cross_device(seed=1, dtype="float32", overrides=(), bf16_limit=CROSS_B
     reset_counts()
     valid_g, valid_c = dets_g.valid.cpu(), dets_c.valid
     if not (counts["greedy_nms"] > 0 and counts["multilevel_roi_align"] > 0
-            and int(valid_c.sum()) > 0):
+            and counts["conv_epilogue"] == conv_epilogue_passes(cfg) and int(valid_c.sum()) > 0):
         raise AssertionError("cross-device run: no kernel launch or no detection")
     if dtype == "float32":
         box_diff = float((dets_g.boxes.cpu() - dets_c.boxes).abs().max())
@@ -1669,9 +1730,11 @@ def phase_train(seed=0, steps=5, dtype="float32"):
             raise AssertionError(f"train step {i}: a loss is not finite: {losses}")
         if not (counts["greedy_nms"] >= 1 and counts["multilevel_roi_align"] == 2
                 and counts["multilevel_roi_align_bwd"] == 2
-                and counts["anchor_match"] == ANCHOR_MATCH_LAUNCHES):
+                and counts["anchor_match"] == ANCHOR_MATCH_LAUNCHES
+                and counts["conv_epilogue"] == 0):
             raise AssertionError(f"train step {i}: launches {counts}, want K1 >= 1, "
-                                 f"K2 == 2, K3 == 2, anchor matching {ANCHOR_MATCH_LAUNCHES}")
+                                 f"K2 == 2, K3 == 2, anchor matching {ANCHOR_MATCH_LAUNCHES}, "
+                                 "the conv epilogue never")
         if seen != want_dtypes:
             raise AssertionError(f"train step {i}: kernel input dtypes {seen}, want "
                                  f"{want_dtypes}")
@@ -1797,9 +1860,10 @@ def phase_cross_train(seed=2):
         log(f"[cross train] {name}: launches {counts}; max relative loss diff {rel:.3e}; "
             f"worst relative update difference {rdiff[worst]:.3e} ({worst})")
         if name == "K3":
-            if min(counts.values()) <= 0:
-                raise AssertionError(f"cross-device train step: a kernel was not launched: "
-                                     f"{counts}")
+            if counts["conv_epilogue"] or min(
+                    n for k, n in counts.items() if k != "conv_epilogue") <= 0:
+                raise AssertionError(f"cross-device train step: a kernel of the step was not "
+                                     f"launched, or the conv epilogue was: {counts}")
             if not rel <= 1e-4:
                 raise AssertionError(f"cross-device train step: losses differ by {rel:.3e}")
         if sound and not rdiff[worst] <= UPDATE_RTOL:
@@ -1989,9 +2053,11 @@ def phase_eval(seed=0, dtype="float32"):
             raise AssertionError(f"eval: images consumed {ids}, want each of {len(ds)} once")
         calls = timing["batches"]
         if counts != {"greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": conv_epilogue_passes(cfg) * calls}:
             raise AssertionError(f"eval: launches {counts} over {calls} predict calls, want "
-                                 "K1 and K2 twice a call, K3 never")
+                                 "K1 and K2 twice a call, K3 never, the conv epilogue "
+                                 f"{conv_epilogue_passes(cfg)} times a call")
         if not (n_dets > 0 and n_masks > 0):
             raise AssertionError("eval: no detection or no non-empty mask")
         with open(os.path.join(EVAL_OUT, "eval_results.json")) as f:
@@ -2075,7 +2141,8 @@ def phase_bench(dtype=None):
     reset_counts()
     calls, steps = bench.WARMUP + args.iters, bench.WARMUP + args.train_iters
     want = {"greedy_nms": 2 * calls + steps, "multilevel_roi_align": 2 * calls + 2 * steps,
-            "multilevel_roi_align_bwd": 2 * steps, "anchor_match": ANCHOR_MATCH_LAUNCHES * steps}
+            "multilevel_roi_align_bwd": 2 * steps, "anchor_match": ANCHOR_MATCH_LAUNCHES * steps,
+            "conv_epilogue": bench_conv_epilogue(args, calls)}
     log(f"[bench {args.dtype}] {time.perf_counter() - t0:.1f} s ({calls} predict calls at "
         f"batch {args.batch}, {steps} train steps at batch {args.train_batch}, warm-ups "
         f"included); launches {counts}; predict outputs and training losses summed finite; "
@@ -2090,6 +2157,15 @@ def phase_bench(dtype=None):
     torch.cuda.empty_cache()
     check_bench_shapes(args)
     return counts, dict(out, held=hold_bench_path(args))
+
+
+def bench_conv_epilogue(args, calls) -> int:
+    """The conv epilogue's launches over a bench run of ``calls`` predict
+    calls: each call's, and the FPN's once more in ``calibrate_frozen_bn``."""
+    from detectron_tpu_torch import bench
+
+    cfg = bench.bench_config(args)
+    return conv_epilogue_passes(cfg) * calls + conv_epilogue_passes(cfg, features_only=True)
 
 
 def hold_bench_path(args) -> dict:
@@ -2258,9 +2334,11 @@ def phase_retinanet(seed=0, calls=3, dtype="float32"):
         log(f"[{tag}] call {call}: launches {counts}, K1 boxes "
             f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": conv_epilogue_passes(cfg)}:
             raise AssertionError(f"RetinaNet predict_fn call {call}: launches {counts}, want "
-                                 "K1 once, K2 and K3 never")
+                                 "K1 once, K2 and K3 never, the conv epilogue "
+                                 f"{conv_epilogue_passes(cfg)} times")
         if shapes != {"greedy_nms": [(b, n_want, 4)]} or seen != {"greedy_nms": {"float32"}}:
             raise AssertionError(f"RetinaNet predict_fn call {call}: K1 handed {shapes} "
                                  f"{seen}, want float32 boxes ({b}, {n_want}, 4)")
@@ -2431,7 +2509,7 @@ def phase_retinanet_train(seed=0, steps=3, dtype="float32"):
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"RetinaNet train step {i}: a loss is not finite: {losses}")
         if counts != {"greedy_nms": 0, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
-                      "anchor_match": ANCHOR_MATCH_LAUNCHES}:
+                      "anchor_match": ANCHOR_MATCH_LAUNCHES, "conv_epilogue": 0}:
             raise AssertionError(f"RetinaNet train step {i}: launches {counts}; want K1-K3 "
                                  f"none, the anchor matching {ANCHOR_MATCH_LAUNCHES}")
         for name, n in counts.items():
@@ -2499,7 +2577,8 @@ def box_eval(name, label, config, make_params, k1_per_call, seed=0, dtype="float
     if timing["images"] != len(ds):
         raise AssertionError(f"{label} eval: {timing['images']} images, want {len(ds)}")
     if counts != {"greedy_nms": k1_per_call * calls, "multilevel_roi_align": 0,
-                  "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
+                  "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                  "conv_epilogue": conv_epilogue_passes(cfg) * calls}:
         raise AssertionError(f"{label} eval: launches {counts} over {calls} predict calls, "
                              f"want K1 {k1_per_call} times a call, K2 and K3 never")
     with open(os.path.join(EVAL_OUT, "eval_results.json")) as f:
@@ -2552,7 +2631,8 @@ def box_bench(name, label, base_args, k1_per_call, k1_per_step, dtype=None):
         f"launches {counts}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if counts != {"greedy_nms": want, "multilevel_roi_align": 0,
-                  "multilevel_roi_align_bwd": 0, "anchor_match": ANCHOR_MATCH_LAUNCHES * steps}:
+                  "multilevel_roi_align_bwd": 0, "anchor_match": ANCHOR_MATCH_LAUNCHES * steps,
+                  "conv_epilogue": bench_conv_epilogue(args, calls)}:
         raise AssertionError(f"{label} bench: launches {counts}, want K1 {want} times")
     if not out["metric"].startswith(f"{name} ") or f", {args.dtype}, " not in out["metric"]:
         raise AssertionError(f"{label} bench: the line does not name the run: {out['metric']}")
@@ -2707,9 +2787,11 @@ def phase_rfcn(seed=0, calls=3, dtype="float32"):
         log(f"[{tag}] call {call}: launches {counts}, K1 boxes "
             f"{shapes.get('greedy_nms')} {sorted(seen.get('greedy_nms', ()))}")
         if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": conv_epilogue_passes(cfg)}:
             raise AssertionError(f"R-FCN predict_fn call {call}: launches {counts}, want K1 "
-                                 "twice, K2 and K3 never")
+                                 "twice, K2 and K3 never, the conv epilogue "
+                                 f"{conv_epilogue_passes(cfg)} times")
         if shapes != {"greedy_nms": want_shapes} or seen != {"greedy_nms": {"float32"}}:
             raise AssertionError(f"R-FCN predict_fn call {call}: K1 handed {shapes} {seen}, "
                                  f"want float32 boxes {want_shapes}")
@@ -2807,7 +2889,8 @@ def phase_cross_rfcn(seed=4, dtype="float32"):
             f"{dilate}: launches on the card {counts}; max |card - CPU| / max |CPU| (limit "
             f"{limit:.0e}): " + "; ".join(f"{k} {v:.2e}" for k, v in rel.items()))
         if counts != {"greedy_nms": 2, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0} or not worst <= limit:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": conv_epilogue_passes(cfg)} or not worst <= limit:
             raise AssertionError(f"cross-device R-FCN {dtype} dilate_c5={dilate}: launches "
                                  f"{counts}, card and CPU differ by {worst:.3e}")
     if dtype != "float32":
@@ -2876,7 +2959,8 @@ def phase_rfcn_train(seed=0, steps=3, dtype="float32"):
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"R-FCN train step {i}: a loss is not finite: {losses}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": ANCHOR_MATCH_LAUNCHES}:
+                      "multilevel_roi_align_bwd": 0, "anchor_match": ANCHOR_MATCH_LAUNCHES,
+                      "conv_epilogue": 0}:
             raise AssertionError(f"R-FCN train step {i}: launches {counts}, want K1 once, K2 "
                                  "and K3 never")
         if shapes != {"greedy_nms": want_shapes} or seen != {"greedy_nms": {"float32"}}:
@@ -3025,7 +3109,8 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
         torch.cuda.synchronize()
         counts = read_counts()
         if counts != {"greedy_nms": 2, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
-                      "anchor_match": 0} or not int(dets.valid.sum()):
+                      "anchor_match": 0, "conv_epilogue": conv_epilogue_passes(cfg)} or not int(
+                          dets.valid.sum()):
             raise AssertionError(f"RoIPool predict call {call}: launches {counts}, "
                                  f"{int(dets.valid.sum())} detections")
         for name, n in counts.items():
@@ -3044,7 +3129,7 @@ def phase_roi_pool(seed=0, calls=3, steps=2):
         log(f"[roi_pool train] step {i}: launches {counts}, "
             + " ".join(f"{k}={v:.4f}" for k, v in sorted(losses.items())))
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 0, "multilevel_roi_align_bwd": 0,
-                      "anchor_match": ANCHOR_MATCH_LAUNCHES} or not all(
+                      "anchor_match": ANCHOR_MATCH_LAUNCHES, "conv_epilogue": 0} or not all(
                           np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"RoIPool train step {i}: launches {counts}, losses {losses}")
         for name, n in counts.items():
@@ -3202,7 +3287,8 @@ def phase_weights(seed=0):
         f"{checks}; {res['timing']['images']} images, launches {counts}; AP {res['AP']}")
     if not all(checks.values()) or res["timing"]["images"] != len(ds) or counts != {
             "greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
-            "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
+            "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+            "conv_epilogue": conv_epilogue_passes(cfg) * calls}:
         raise AssertionError(f"weights: eval driver {checks}, launches {counts}")
     shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
     reset_counts()
@@ -3293,7 +3379,7 @@ def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
     torch.cuda.reset_peak_memory_stats()
     predict = predict_calls(det, params, batch, calls, tag, {
         "greedy_nms": 2, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 0,
-        "anchor_match": 0})
+        "anchor_match": 0, "conv_epilogue": conv_epilogue_passes(cfg)})
     log(f"[{tag}] predict: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     held = {"predict": hold_path(lambda: det.predict_fn(params, batch), f"{tag} predict")}
@@ -3306,7 +3392,7 @@ def phase_gn(seed=0, calls=3, steps=3, dtype="float32"):
     batches = [det.batch_to_device(next(data)) for _ in range(steps)]
     train, train_peak = train_steps(state, batches, f"{tag} train", {
         "greedy_nms": 1, "multilevel_roi_align": 2, "multilevel_roi_align_bwd": 2,
-        "anchor_match": ANCHOR_MATCH_LAUNCHES})
+        "anchor_match": ANCHOR_MATCH_LAUNCHES, "conv_epilogue": 0})
     moved = {n: not torch.equal(named[n].detach(), v) for n, v in before.items()}
     log(f"[{tag} train] peak device memory {train_peak:.2f} GiB; changed by the steps: {moved}")
     if moved != {"backbone.gn1.weight": False, "backbone.gn1.bias": False,
@@ -3362,7 +3448,8 @@ def phase_remat(seed=0):
         log(f"[remat] {'remat' if remat else 'plain'} step ({stage}): peak device memory "
             f"{peak:.2f} GiB, launches {counts}, loss_total {losses['loss_total']:.5f}")
         if counts != {"greedy_nms": 1, "multilevel_roi_align": 2,
-                      "multilevel_roi_align_bwd": 2, "anchor_match": ANCHOR_MATCH_LAUNCHES}:
+                      "multilevel_roi_align_bwd": 2, "anchor_match": ANCHOR_MATCH_LAUNCHES,
+                      "conv_epilogue": 0}:
             raise AssertionError(f"remat step: launches {counts}")
         if i >= 2:
             if remat:
@@ -3470,8 +3557,10 @@ def dp_worker(rank: int, port: int, device: str, out_dir: str):
 
         held = hold_path(run, f"dp (b) rank {rank}")
         counts = {name: n for name, (n, _) in held.items()}
-        if mesh.device.type == "cuda" and min(counts.values()) == 0:
-            raise AssertionError(f"dp (b) rank {rank}: a kernel was not launched: {counts}")
+        step_kernels = [n for name, n in counts.items() if name != "conv_epilogue"]
+        if mesh.device.type == "cuda" and (counts["conv_epilogue"] or min(step_kernels) == 0):
+            raise AssertionError(f"dp (b) rank {rank}: a kernel of the step was not launched, "
+                                 f"or the conv epilogue was: {held}")
         if rank == 0:
             torch.save({"losses": {k: float(v) for k, v in out["metrics"].items()},
                         "params": {k: v.cpu() for k, v in state.params.items()},
@@ -3552,7 +3641,7 @@ def phase_dp(seed=0):
         log(f"[dp] (a) DP step launches {launches['dp_train']}")
         if launches["dp_train"] != {"greedy_nms": 1, "multilevel_roi_align": 2,
                                     "multilevel_roi_align_bwd": 2,
-                                    "anchor_match": ANCHOR_MATCH_LAUNCHES}:
+                                    "anchor_match": ANCHOR_MATCH_LAUNCHES, "conv_epilogue": 0}:
             raise AssertionError(f"dp (a) step: launches {launches['dp_train']}")
         summary["a"]["held"] = hold_path(
             lambda: step(create_train_state(cfg, det, start), batch, draws), "dp (a)")
@@ -3584,7 +3673,8 @@ def phase_dp(seed=0):
             f"{calls} batches, launches {launches['dp_eval']}, AP {res['AP']}")
         if res["timing"]["images"] != len(ds) or launches["dp_eval"] != {
                 "greedy_nms": 2 * calls, "multilevel_roi_align": 2 * calls,
-                "multilevel_roi_align_bwd": 0, "anchor_match": 0}:
+                "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                "conv_epilogue": conv_epilogue_passes(ecfg) * calls}:
             raise AssertionError(f"dp (a) eval: {res['timing']}, {launches['dp_eval']}")
     finally:
         torch.distributed.destroy_process_group()
@@ -3670,13 +3760,15 @@ def phase_wide_nms(seed=0):
         n_dets = int(dets.valid.sum())
         log(f"[{tag}] {model} {' '.join(overrides)}: launches {counts}, K1 boxes "
             f"{got_shapes}, detections {n_dets}")
-        if got_shapes != want_shapes or counts["greedy_nms"] != len(want_shapes):
+        if (got_shapes != want_shapes or counts["greedy_nms"] != len(want_shapes)
+                or counts["conv_epilogue"] != conv_epilogue_passes(cfg)):
             raise AssertionError(f"{tag}: K1 ran on {got_shapes} ({counts}), want {want_shapes}")
         if not n_dets or not bool(torch.isfinite(dets.boxes).all()):
             raise AssertionError(f"{tag}: {n_dets} detections, or non-finite boxes")
         launches[path] = counts
         held[path] = hold_path(lambda: det.predict_fn(params, batch), tag)
-        if held[path]["greedy_nms"][0] != len(want_shapes):
+        if (held[path]["greedy_nms"][0] != len(want_shapes)
+                or held[path]["conv_epilogue"][0] != conv_epilogue_passes(cfg)):
             raise AssertionError(f"{tag}: held {held[path]}")
         del det, params
     return launches, held
@@ -3768,7 +3860,8 @@ def phase_op_api(seed=29, c=256):
     counts = read_counts()
     reset_counts()
     want_counts = {"greedy_nms": len(problems), "multilevel_roi_align": len(combos),
-                   "multilevel_roi_align_bwd": len(combos), "anchor_match": 0}
+                   "multilevel_roi_align_bwd": len(combos), "anchor_match": 0,
+                   "conv_epilogue": 0}
     log(f"{tag} launches {counts} (want {want_counts})")
     if counts != want_counts:
         raise AssertionError(f"op api: launches {counts}, want {want_counts}")
@@ -4018,7 +4111,7 @@ def phase_contracts(seed=30):
     counts = read_counts()
     reset_counts()
     want = {"greedy_nms": len(singles) + len(aware), "multilevel_roi_align": 0,
-            "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+            "multilevel_roi_align_bwd": 0, "anchor_match": 0, "conv_epilogue": 0}
     log(f"{tag} K1 bf16 path: launches {counts} (want {want})")
     if counts != want:
         raise AssertionError(f"contracts: K1 bf16 launches {counts}, want {want}")
@@ -4125,7 +4218,7 @@ def phase_contracts(seed=30):
     counts = read_counts()
     reset_counts()
     want = {"greedy_nms": 0, "multilevel_roi_align": len(inputs),
-            "multilevel_roi_align_bwd": len(inputs), "anchor_match": 0}
+            "multilevel_roi_align_bwd": len(inputs), "anchor_match": 0, "conv_epilogue": 0}
     log(f"{tag} K2/K3 path: launches {counts} (want {want})")
     if counts != want:
         raise AssertionError(f"contracts: K2/K3 launches {counts}, want {want}")
@@ -4246,13 +4339,15 @@ def phase_contracts(seed=30):
         f"{batch['image'].shape[0]}: launches {model_counts}, kernel input dtypes "
         f"{dict(sorted((k, sorted(v)) for k, v in seen.items()))}, detections {n_dets}")
     if (model_counts["greedy_nms"] != 2 or model_counts["multilevel_roi_align"] != 2
+            or model_counts["conv_epilogue"] != conv_epilogue_passes(cfg)
             or seen.get("multilevel_roi_align") != {"bfloat16"}):
         raise AssertionError(f"contracts: the 36-channel model launched {model_counts} on {seen}")
     if not (n_dets and bool(torch.isfinite(dets.boxes).all())
             and bool(torch.isfinite(masks.float()).all())):
         raise AssertionError(f"contracts: {n_dets} detections, or non-finite outputs")
     held = hold_path(lambda: det.predict_fn(params, batch), "contracts fpn_channels=36 bf16")
-    if held["multilevel_roi_align"][0] != 2 or held["greedy_nms"][0] != 2:
+    if (held["multilevel_roi_align"][0] != 2 or held["greedy_nms"][0] != 2
+            or held["conv_epilogue"][0] != conv_epilogue_passes(cfg)):
         raise AssertionError(f"contracts: held {held}")
     del det, params
     log(f"{tag} model part: {time.perf_counter() - t_model:.1f} s; phase 30 "
@@ -4568,6 +4663,204 @@ def phase_anchor_match(seed=32):
 
 # -------------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 33
+
+EPILOGUE_BATCH, EPILOGUE_ROIS = 16, 1600  # the bulk cell's images, and its mask head's RoIs
+EPILOGUE_LAYOUTS = (("float32", "nchw"), ("bfloat16", "nchw"), ("float32", "channels_last"))
+
+
+def epilogue_passes(cfg) -> list:
+    """Each conv-epilogue pass of one Mask R-CNN predict call of ``cfg``'s
+    widths at EPILOGUE_BATCH images on CANVAS (EPILOGUE_ROIS for the mask
+    head), as ``(name, form, N, C, H, W, passes a call)``; form "bias",
+    "relu" (bias and ReLU) or "coarse" (bias and the coarser level's 2x
+    nearest add)."""
+    ch, b = cfg.model.fpn_channels, EPILOGUE_BATCH
+    anchors = len(cfg.anchors.ratios) * len(cfg.anchors.rpn_scales)
+    levels = [(CANVAS[0] >> s, CANVAS[1] >> s) for s in range(2, 6)]
+    levels.append(((levels[-1][0] + 1) // 2, (levels[-1][1] + 1) // 2))  # P6: P5[::2, ::2]
+    out = []
+    for i, (h, w) in enumerate(levels[:4]):
+        out.append((f"fpn P{i + 2} smooth" + (" + lateral" if i == 3 else ""), "bias", b, ch,
+                    h, w, 2 if i == 3 else 1))
+        if i < 3:
+            out.append((f"fpn P{i + 2} lateral", "coarse", b, ch, h, w, 1))
+    for i, (h, w) in enumerate(levels):
+        out += [(f"rpn P{i + 2} conv", "relu", b, ch, h, w, 1),
+                (f"rpn P{i + 2} objectness", "bias", b, anchors, h, w, 1),
+                (f"rpn P{i + 2} deltas", "bias", b, 4 * anchors, h, w, 1)]
+    p = cfg.roi.mask_pool_size
+    return out + [("mask convs", "relu", EPILOGUE_ROIS, ch, p, p, 4),
+                  ("mask deconv", "relu", EPILOGUE_ROIS, ch, 2 * p, 2 * p, 1),
+                  ("mask logits", "bias", EPILOGUE_ROIS, cfg.model.num_classes - 1, 2 * p,
+                   2 * p, 1)]
+
+
+def conv_epilogue_case(form, n, c, h, w, dtype, layout, timed=True):
+    """The kernel against its plain twin, bit for bit, at one shape (the
+    kernel over a copy of the convolution's output); timed beside its bytes
+    bound (read and write x, read the coarse level) and the twin."""
+    from detectron_tpu_torch.ops import conv_epilogue as ce
+
+    dev = torch.device(DEVICE)
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    x = torch.randn((n, c, h, w), device=dev, dtype=dt).contiguous(memory_format=fmt)
+    bias = torch.randn(c, device=dev, dtype=dt)
+    coarse = None
+    if form == "coarse":
+        coarse = torch.randn((n, c, h // 2, w // 2), device=dev, dtype=dt).contiguous(
+            memory_format=fmt)
+    kw = dict(relu=form == "relu", coarse=coarse)
+    want = ce.conv_epilogue_plain(x, bias, **kw)
+    got = ce.conv_epilogue_cuda(x.clone(), bias, **kw)
+    case = dict(form=form, n=n, c=c, h=h, w=w, dtype=dtype, layout=layout,
+                bitwise=differing_values(got, want) == 0 and got.is_contiguous(memory_format=fmt))
+    del got, want
+    if timed:
+        nbytes = (2 * x.numel() + (0 if coarse is None else coarse.numel())) * x.element_size()
+        case.update(ms=cuda_ms(lambda: ce.conv_epilogue_cuda(x, bias, **kw)),
+                    plain_ms=cuda_ms(lambda: ce.conv_epilogue_plain(x, bias, **kw)),
+                    bound_ms=bound_ms(nbytes, 0.0)[0], bound_by="bytes")
+    return case
+
+
+def epilogue_modules(cfg, seed):
+    """The FPN, the RPN head and the mask head at ``cfg``'s widths in bf16
+    channels-last on the card, random weights, and their inputs at the
+    bulk cell's shapes: ResNet-50's c2-c5 of EPILOGUE_BATCH images on
+    CANVAS, and EPILOGUE_ROIS pooled RoIs."""
+    from detectron_tpu_torch.models.fpn import FPN
+    from detectron_tpu_torch.models.heads import MaskHead, RPNHead
+
+    torch.manual_seed(seed)
+    dt, fmt, ch = torch.bfloat16, torch.channels_last, cfg.model.fpn_channels
+    anchors = len(cfg.anchors.ratios) * len(cfg.anchors.rpn_scales)
+    mods = {"fpn": FPN((256, 512, 1024, 2048), ch, levels="p2p6", dtype=dt),
+            "rpn": RPNHead(ch, anchors, dtype=dt),
+            "mask": MaskHead(ch, cfg.model.num_classes, ch, dtype=dt)}
+    for mod in mods.values():
+        mod.to(DEVICE)
+        for m in mod.modules():
+            if hasattr(m, "memory_format"):
+                m.memory_format = fmt
+        with torch.no_grad():
+            for q in mod.parameters():
+                q.normal_(0.0, 0.05)
+    feats = {f"c{i}": torch.randn((EPILOGUE_BATCH, 64 << i, CANVAS[0] >> i, CANVAS[1] >> i),
+                                  device=DEVICE, dtype=dt).contiguous(memory_format=fmt)
+             for i in range(2, 6)}
+    p = cfg.roi.mask_pool_size
+    pooled = torch.randn((EPILOGUE_ROIS, ch, p, p), device=DEVICE, dtype=dt).contiguous(
+        memory_format=fmt)
+    return mods, feats, pooled
+
+
+def phase_conv_epilogue(seed=33):
+    """Phase 33: a convolution's epilogue in one pass at inference
+    (``csrc/conv_epilogue.cu``). At every distinct pass of a bf16
+    channels-last Mask R-CNN R-50-FPN predict call at the bulk cell's shapes
+    (:func:`epilogue_passes`): the kernel against its plain twin bit for
+    bit, timed beside its bytes bound and the twin, summed over one call;
+    each form at P3 in EPILOGUE_LAYOUTS' dtypes and layouts, bit for bit.
+    Then the FPN, the RPN head (each level) and the mask head at those
+    shapes under no_grad against the parent's chain, bit for bit: the same
+    modules recording a gradient, which run the parent's eager ops; the
+    launches over one bf16 predict call of Mask R-CNN, Faster R-CNN and
+    RetinaNet (``conv_epilogue_passes``), each held against the twin, and
+    none in an R-101 training step (held). The wrapper's host cost is
+    ``scripts/conv_epilogue_host.py``'s. Returns (the cases, {path:
+    launches}, the summary)."""
+    from detectron_tpu_torch.config import get_config
+    from detectron_tpu_torch.models.zoo import build_detector
+    from detectron_tpu_torch.train.state import train_step
+
+    cfg = get_config(MASK_R50, ["model.dtype=bfloat16"])
+    cases, rows = [], []
+    for name, form, n, c, h, w, count in epilogue_passes(cfg):
+        case = conv_epilogue_case(form, n, c, h, w, "bfloat16", "channels_last")
+        case.update(name=name, count=count)
+        rows.append(case)
+        log(f"[conv_epilogue] {name} ({form}) {n}x{c}x{h}x{w} x{count}: bitwise "
+            f"{case['bitwise']}; {case['ms']:.4f} ms (bound {case['bound_ms']:.4f}, "
+            f"{100 * case['bound_ms'] / case['ms']:.1f}% of it; twin {case['plain_ms']:.4f})")
+        torch.cuda.empty_cache()
+    cases += rows
+    summary = {k: sum(r[k] * r["count"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    summary.update(passes=sum(r["count"] for r in rows),
+                   bound_share=summary["bound_ms"] / summary["ms"])
+    log(f"[conv_epilogue] one predict call at batch {EPILOGUE_BATCH}, {CANVAS[0]}x{CANVAS[1]}, "
+        f"{EPILOGUE_ROIS} mask RoIs ({summary['passes']} passes): {summary['ms']:.3f} ms, bound "
+        f"{summary['bound_ms']:.3f} ({100 * summary['bound_share']:.1f}% of it), twin "
+        f"{summary['plain_ms']:.3f} ms")
+    h, w = CANVAS[0] >> 3, CANVAS[1] >> 3
+    for dtype, layout in EPILOGUE_LAYOUTS:
+        for form in ("bias", "relu", "coarse"):
+            case = conv_epilogue_case(form, EPILOGUE_BATCH, cfg.model.fpn_channels, h, w, dtype,
+                                      layout, timed=False)
+            case.update(name=f"P3 {form}")
+            cases.append(case)
+            log(f"[conv_epilogue {dtype} {layout}] P3 ({form}): bitwise {case['bitwise']}")
+    wrong = [c for c in cases if not c["bitwise"]]
+    if wrong:
+        raise AssertionError(f"conv_epilogue: the kernel differs from its plain twin in {wrong}")
+
+    # the modules at the bulk cell's shapes against the parent's chain: where a
+    # gradient is recorded (the parameters require it) they run its eager ops
+    mods, feats, pooled = epilogue_modules(cfg, seed)
+    b, p = EPILOGUE_BATCH, pooled.shape[-1]
+    rois = pooled.permute(0, 2, 3, 1).reshape(b, -1, p, p, pooled.shape[1])
+    del pooled
+
+    def outputs():
+        fpn = mods["fpn"](feats)[:4]
+        return {"fpn": fpn, "rpn": [t for q in fpn for t in mods["rpn"](q)],
+                "mask": [mods["mask"](rois)]}
+
+    with torch.no_grad():
+        got = outputs()
+    with torch.enable_grad():
+        want = {k: [t.detach() for t in v] for k, v in outputs().items()}
+    torch.cuda.synchronize()
+    diffs = {k: [differing_values(g, w) for g, w in zip(got[k], want[k])] for k in got}
+    log(f"[conv_epilogue] FPN (P2-P5), RPN head (P2-P5) and mask head at the bulk cell's shapes, "
+        f"bf16 channels-last, against the parent's chain: differing values {diffs}")
+    if any(any(d) for d in diffs.values()) or any(len(got[k]) != len(want[k]) for k in got):
+        raise AssertionError(f"conv_epilogue: the modules differ from the parent's chain: "
+                             f"{diffs}")
+    del mods, feats, rois, got, want
+    torch.cuda.empty_cache()
+
+    launches = {}
+    for config, path in ((MASK_R50, "predict_mask_rcnn"), (FASTER_R50, "predict_faster_rcnn"),
+                         (RETINA_R50, "predict_retinanet")):
+        mcfg = get_config(config, ["model.dtype=bfloat16"])
+        det = build_detector(mcfg)
+        params = det.init(seed)
+        batch = slice_inputs(mcfg, seed, det.device)
+        reset_counts()
+        det.predict_fn(params, batch)
+        torch.cuda.synchronize()
+        launches[path] = read_counts()["conv_epilogue"]
+        held = hold_path(lambda: det.predict_fn(params, batch), f"conv_epilogue {path}")
+        if not launches[path] == held["conv_epilogue"][0] == conv_epilogue_passes(mcfg):
+            raise AssertionError(f"conv_epilogue {path}: {launches[path]} launches, held "
+                                 f"{held['conv_epilogue']}, want {conv_epilogue_passes(mcfg)}")
+        del det, params, batch
+        torch.cuda.empty_cache()
+    tcfg = get_config(TRAIN_R101, TRAIN_OVERRIDES + ["model.dtype=bfloat16"])
+    state, data = seeded_train_state(tcfg, None, seed)
+    batch = state.detector.batch_to_device(next(data))
+    held = hold_path(lambda: train_step(state, batch), "conv_epilogue train_r101")
+    launches["train_r101"] = held["conv_epilogue"][0]
+    del state, data, batch
+    torch.cuda.empty_cache()
+    log(f"[conv_epilogue] launches: {launches}")
+    if launches["train_r101"] != 0:
+        raise AssertionError(f"conv_epilogue: a training step launched it: {launches}")
+    return cases, launches, summary
+
+
 KERNELS = {
     "greedy_nms": dict(source="detectron_tpu_torch/csrc/nms.cu",
                        replaces="detectron_tpu/ops/nms_pallas.py:91"),
@@ -4580,6 +4873,9 @@ KERNELS = {
     "anchor_match": dict(source="detectron_tpu_torch/csrc/anchor_match.cu",
                          replaces="none: the XLA-fused IoU and reductions of "
                                   "detectron_tpu/layers/anchor_target.py"),
+    "conv_epilogue": dict(source="detectron_tpu_torch/csrc/conv_epilogue.cu",
+                          replaces="none: the XLA-fused bias, ReLU and top-down add of "
+                                   "detectron_tpu/models/fpn.py and heads.py"),
 }
 
 
@@ -4652,6 +4948,20 @@ def anchor_match_entry(cases, launches):
     }
 
 
+def conv_epilogue_entry(cases, launches, summary):
+    """Phase 33's kernel: times summed over one bf16 channels-last Mask
+    R-CNN predict call's passes at the bulk cell's shapes; ``launches`` a
+    predict call's (``launches_by_path``: every path's, phase 33's too)."""
+    return {
+        "name": "conv_epilogue", "route": "cuda", **KERNELS["conv_epilogue"],
+        "launches": launches["predict_mask_rcnn"], "launches_by_path": launches,
+        "max_abs_err": 0.0, "ms": summary["ms"], "plain_ms": summary["plain_ms"],
+        "bound_ms": summary["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes this function
+        "summary": summary, "cases": cases,
+    }
+
+
 def retinanet_phases(k1) -> dict:
     """Phases 13-18, each path in both dtypes; K1's bench cases are added
     to ``k1``. Returns ``{path: launches}``."""
@@ -4674,7 +4984,7 @@ def retinanet_phases(k1) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", action="store_true",
-                        help="run phases 1-4, 7 and 29-32 only (the kernels against their plain "
+                        help="run phases 1-4, 7 and 29-33 only (the kernels against their plain "
                              "versions, and their times), print their cases and stop; no "
                              "result line")
     args = parser.parse_args(argv)
@@ -4702,11 +5012,14 @@ def main(argv=None) -> int:
         k1_bf16, _, c_k2, c_k3, _ = phase_contracts()
         fbn, _, fbn_summary = phase_frozen_bn()
         matching = phase_anchor_match()
+        epilogue, _, epilogue_summary = phase_conv_epilogue()
         print(json.dumps({"kernel_cases": {"greedy_nms": k1, "greedy_nms_bf16": k1_bf16,
                                            "multilevel_roi_align": k2 + op_k2 + c_k2,
                                            "multilevel_roi_align_bwd": k3 + op_k3 + c_k3,
-                                           "frozen_bn_act": fbn, "anchor_match": matching},
-                          "frozen_bn_act": fbn_summary}), flush=True)
+                                           "frozen_bn_act": fbn, "anchor_match": matching,
+                                           "conv_epilogue": epilogue},
+                          "frozen_bn_act": fbn_summary, "conv_epilogue": epilogue_summary}),
+              flush=True)
         print(card, flush=True)
         return 0
     predict_launches, _ = phase_slice()
@@ -4761,6 +5074,8 @@ def main(argv=None) -> int:
     lap("phase 31")
     matching = phase_anchor_match()
     lap("phase 32")
+    epilogue, epilogue_launches, epilogue_summary = phase_conv_epilogue()
+    lap("phase 33")
 
     def launches(name):
         return {"predict": predict_launches.get(name, 0), "train": train_launches[name],
@@ -4788,6 +5103,8 @@ def main(argv=None) -> int:
         frozen_bn_entry(fbn, fbn_launches, fbn_summary),
         anchor_match_entry(matching, {"train": train_launches["anchor_match"],
                                       "train_bf16": train16_launches["anchor_match"]}),
+        conv_epilogue_entry(epilogue, {**launches("conv_epilogue"), **epilogue_launches},
+                            epilogue_summary),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

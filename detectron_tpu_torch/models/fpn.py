@@ -12,7 +12,10 @@ smoothing convs. Extra levels:
   ``lateral2`` and ``smooth2`` here, whose P2 it never returns; the port
   makes neither (``utils/weights.py`` drops them).
 
-Every convolution, upsample and add runs in the compute ``dtype``.
+Every convolution, upsample and add runs in the compute ``dtype``; each
+convolution's bias, and the top-down add after a lateral, go through
+:func:`~detectron_tpu_torch.models.precision.conv_bias_act` (one pass at
+inference).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from detectron_tpu_torch.models.precision import Conv2d
+from detectron_tpu_torch.models.precision import Conv2d, conv_bias_act
 
 LEVELS = ("p2p6", "p3p7")
 
@@ -58,12 +61,12 @@ class FPN(nn.Module):
 
     def forward(self, feats: dict) -> list:
         first = self.first
-        lateral = [getattr(self, f"lateral{i}")(feats[f"c{i}"]) for i in range(first, 6)]
-        tds = [lateral[-1]]
-        for lat in reversed(lateral[:-1]):
-            tds.append(lat + F.interpolate(tds[-1], scale_factor=2, mode="nearest"))
+        tds = [conv_bias_act(self.lateral5, feats["c5"])]
+        for i in range(4, first - 1, -1):  # lateral + 2x nearest of the merged level above
+            tds.append(conv_bias_act(getattr(self, f"lateral{i}"), feats[f"c{i}"],
+                                     coarse=tds[-1]))
         tds = tds[::-1]  # finest first
-        ps = [getattr(self, f"smooth{first + i}")(t) for i, t in enumerate(tds)]
+        ps = [conv_bias_act(getattr(self, f"smooth{first + i}"), t) for i, t in enumerate(tds)]
         if self.levels == "p2p6":
             return ps + [ps[-1][:, :, ::2, ::2]]
         p6 = self.p6(pad_same_stride2(feats["c5"]))

@@ -4,7 +4,10 @@ The port of ``detectron_tpu/models/heads.py``. The convolutions run NCHW;
 outputs keep the JAX layouts: RPN outputs flatten in (h, w, anchor)
 order, the box head flattens pooled features in HWC order, and mask
 logits come out ``[B, R, 2P, 2P, K-1]``. Every layer computes in the
-compute ``dtype`` and returns it (``models/precision.py``).
+compute ``dtype`` and returns it (``models/precision.py``); the RPN's and
+the mask head's convolutions add their bias and ReLU through
+:func:`~detectron_tpu_torch.models.precision.conv_bias_act` (one pass at
+inference).
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from detectron_tpu_torch.models.precision import Conv2d, ConvTranspose2d, Linear
+from detectron_tpu_torch.models.precision import (Conv2d, ConvTranspose2d, Linear,
+                                                  conv_bias_act)
 
 
 class RPNHead(nn.Module):
@@ -28,10 +32,10 @@ class RPNHead(nn.Module):
         self.deltas = Conv2d(channels, num_anchors * 4, 1, compute_dtype=dtype)
 
     def forward(self, x):  # [B, C, H, W]
-        t = F.relu(self.conv(x))
+        t = conv_bias_act(self.conv, x, relu=True)
         b = x.shape[0]
-        logits = self.objectness(t).permute(0, 2, 3, 1).reshape(b, -1)
-        deltas = self.deltas(t).permute(0, 2, 3, 1).reshape(b, -1, 4)
+        logits = conv_bias_act(self.objectness, t).permute(0, 2, 3, 1).reshape(b, -1)
+        deltas = conv_bias_act(self.deltas, t).permute(0, 2, 3, 1).reshape(b, -1, 4)
         return logits, deltas
 
 
@@ -76,6 +80,6 @@ class MaskHead(nn.Module):
         x = x.reshape(b * r, h, w, c).permute(0, 3, 1, 2).contiguous(
             memory_format=self.memory_format)
         for i in range(4):
-            x = F.relu(getattr(self, f"conv{i}")(x))
-        x = self.mask_logits(F.relu(self.deconv(x)))
+            x = conv_bias_act(getattr(self, f"conv{i}"), x, relu=True)
+        x = conv_bias_act(self.mask_logits, conv_bias_act(self.deconv, x, relu=True))
         return x.permute(0, 2, 3, 1).reshape(b, r, 2 * h, 2 * w, -1)

@@ -1,13 +1,16 @@
-// The CUDA pieces that csrc/anchor_match.cu uses, on the host, so that g++
-// can build the kernels and run them on the CPU (tests/test_torch_anchor_match.py).
+// The CUDA pieces that csrc/anchor_match.cu and csrc/conv_epilogue.cu use, on
+// the host, so that g++ can build the kernels and run them on the CPU
+// (tests/test_torch_anchor_match.py, tests/test_torch_conv_epilogue.py).
 // Unlike cuda_host_emulation.h, whose kernels never talk across threads,
 // a launch here runs each block's threads as real threads at once: shared
 // memory is a static local (one block runs at a time), __syncthreads is a
 // barrier over the block, and the warp collectives (__ballot_sync,
 // __reduce_max_sync) a barrier over the warp's 32 threads and a scratch row.
 // Atomics are the compiler's; the _rn float ops go through volatile stores
-// so that no FMA contracts them. Blocks are one-dimensional, a multiple of
-// 32 threads.
+// so that no FMA contracts them; bf16 is a 16-bit word rounded to nearest
+// even, as __float2bfloat16_rn rounds. The device queries report a small card
+// (3 SMs, 2 blocks each), so that a grid sized to the card strides. Blocks
+// are one-dimensional, a multiple of 32 threads.
 #pragma once
 #include <barrier>
 #include <cmath>
@@ -31,9 +34,23 @@ static thread_local dim3 blockIdx, threadIdx;
 static dim3 blockDim, gridDim;
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
 typedef void* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) {
+  *v = 3;
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, int) {
+  *blocks = 2;
+  return cudaSuccess;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   if (n) memset(p, v, n);
   return cudaSuccess;
@@ -113,6 +130,26 @@ inline float __fdiv_rn(float a, float b) {
 template <class T>
 T __ldg(const T* p) {
   return *p;
+}
+
+struct uint4 {
+  unsigned x, y, z, w;
+};
+struct __nv_bfloat16 {
+  uint16_t x;
+};
+inline float __bfloat162float(__nv_bfloat16 v) {
+  const uint32_t u = static_cast<uint32_t>(v.x) << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  if (std::isnan(f)) return {0x7fc0};
+  u += 0x7fff + ((u >> 16) & 1);
+  return {static_cast<uint16_t>(u >> 16)};
 }
 
 template <class K, class... A>

@@ -27,6 +27,7 @@ import chip_smoke as cs
 import detectron_tpu_torch.config
 from detectron_tpu_torch.models import zoo
 from detectron_tpu_torch.ops import anchor_match as am
+from detectron_tpu_torch.ops import conv_epilogue as ce
 from detectron_tpu_torch.ops import nms
 from detectron_tpu_torch.ops import roi_align as ra
 
@@ -134,6 +135,9 @@ def rehearsal(monkeypatch, tmp_path):
     _counting_match.launches = 0
     monkeypatch.setattr(am, "anchor_match_cuda", _counting_match)
     monkeypatch.setattr(am, "anchor_match", lambda *a, **k: am.anchor_match_cuda(*a, **k))
+    monkeypatch.setattr(ce, "conv_epilogue_cuda",
+                        _counting(ce, "conv_epilogue_cuda", ce.conv_epilogue_plain))
+    monkeypatch.setattr(ce, "conv_epilogue", lambda *a, **k: ce.conv_epilogue_cuda(*a, **k))
     # the launches that chip_smoke times apart: called here, never compared
     monkeypatch.setattr(nms, "nms_mask_cuda", lambda sboxes, thresh, offset=0.0: sboxes)
     monkeypatch.setattr(nms, "nms_scan_cuda", lambda mask, svalid, max_keep=None: svalid)
@@ -306,10 +310,11 @@ def test_k3_stress_rois_have_their_shape(kind):
 def test_train_phase_counts_launches_and_resumes_the_driver(rehearsal, capsys):
     totals, held = cs.phase_train(steps=3)
     assert totals == {"greedy_nms": 3, "multilevel_roi_align": 6,
-                      "multilevel_roi_align_bwd": 6, "anchor_match": 6}
+                      "multilevel_roi_align_bwd": 6, "anchor_match": 6,
+                      "conv_epilogue": 0}
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
-    assert out.count("'anchor_match': 2}, ") == 3  # the three steps
+    assert out.count("'anchor_match': 2, 'conv_epilogue': 0}, ") == 3  # the three steps
     assert "restored checkpoint at step" in out and "[driver] resumed" in out
     # one more step, each launch held against its plain version
     assert held["multilevel_roi_align_bwd"] == (2, 0.0)
@@ -320,14 +325,16 @@ def test_train_phase_in_bf16(rehearsal, capsys):
     parameter and gradient float32; no driver run."""
     totals, held = cs.phase_train(steps=2, dtype="bfloat16")
     assert totals == {"greedy_nms": 2, "multilevel_roi_align": 4,
-                      "multilevel_roi_align_bwd": 4, "anchor_match": 4}
+                      "multilevel_roi_align_bwd": 4, "anchor_match": 4,
+                      "conv_epilogue": 0}
     out = capsys.readouterr().out
     assert "[train bfloat16]" in out and "bfloat16 batch 2" in out
     assert "convolutions channels-last" in out and "not float32: 0" in out
     assert "[driver]" not in out
     # one more step, each launch held against its plain version
     assert held == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
-                    "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0)}
+                    "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0),
+                    "conv_epilogue": (0, 0.0)}
 
 
 def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
@@ -336,10 +343,11 @@ def test_slice_phase_in_both_dtypes(rehearsal, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
     for dtype in ("float32", "bfloat16"):
         totals, held = cs.phase_slice(calls=2, dtype=dtype)
-        assert totals == {"greedy_nms": 4, "multilevel_roi_align": 4}
+        assert totals == {"greedy_nms": 4, "multilevel_roi_align": 4, "conv_epilogue": 2 * 29}
         # one more call, each launch held against its plain version
         assert held == {"greedy_nms": (2, 0.0), "multilevel_roi_align": (2, 0.0),
-                        "multilevel_roi_align_bwd": (0, 0.0), "anchor_match": (0, 0.0)}
+                        "multilevel_roi_align_bwd": (0, 0.0), "anchor_match": (0, 0.0),
+                        "conv_epilogue": (29, 0.0)}
     out = capsys.readouterr().out
     assert "kernel input dtypes {'greedy_nms': ['float32'], 'multilevel_roi_align': " \
            "['float32']}" in out
@@ -369,7 +377,8 @@ def test_cross_train_phase(rehearsal, capsys):
     the planted K3 faults read above the limit."""
     readings = cs.phase_cross_train()
     assert "K3: launches {'greedy_nms': 1, 'multilevel_roi_align': 2, " \
-           "'multilevel_roi_align_bwd': 2, 'anchor_match': 2}; max relative loss diff " \
+           "'multilevel_roi_align_bwd': 2, 'anchor_match': 2, 'conv_epilogue': 0}; max " \
+           "relative loss diff " \
            "0.000e+00" \
            in capsys.readouterr().out
     assert readings["K3"] == 0.0 and readings["plain K3"] == 0.0
@@ -418,7 +427,8 @@ def test_eval_phase_runs_the_driver_and_its_oracle(rehearsal, monkeypatch, tmp_p
     counts = cs.phase_eval()
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": 5 * 29}
     out = capsys.readouterr().out
     assert "8 images in 5 batches" in out
     assert "[eval] oracle predictor: AP 1.000000, AP50 1.000000, segm_AP50 1.000000" in out
@@ -433,7 +443,8 @@ def test_eval_phase_in_bf16(rehearsal, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
     counts = cs.phase_eval(dtype="bfloat16")
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 10,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": 5 * 29}
     out = capsys.readouterr().out
     assert "scores fetched as ['float32']" in out
     assert "[eval bfloat16] oracle predictor: AP 1.000000, AP50 1.000000, " \
@@ -490,7 +501,8 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
     # 3 predict calls (K1, K2 twice each), 3 train steps (K1 once, K2, K3 and
     # the anchor matching twice): two warm-ups and one timed each
     assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
-                      "multilevel_roi_align_bwd": 6, "anchor_match": 6}
+                      "multilevel_roi_align_bwd": 6, "anchor_match": 6,
+                      "conv_epilogue": 3 * 29 + 8}
     # then one call and one step of the bench's detector, each launch held
     assert line16["held"]["predict"]["multilevel_roi_align"] == (2, 0.0)
     assert line16["held"]["train"]["multilevel_roi_align_bwd"] == (2, 0.0)
@@ -500,7 +512,8 @@ def test_bench_phase_counts_every_launch(rehearsal, monkeypatch, capsys):
     assert "[K3 bf16 bench B=2 128x128 P=14 R=16" in out16
     counts, _ = cs.phase_bench("float32")
     assert counts == {"greedy_nms": 9, "multilevel_roi_align": 12,
-                      "multilevel_roi_align_bwd": 6, "anchor_match": 6}
+                      "multilevel_roi_align_bwd": 6, "anchor_match": 6,
+                      "conv_epilogue": 3 * 29 + 8}
     out = capsys.readouterr().out
     line = next(json.loads(x) for x in out.splitlines() if x.startswith('{"metric"'))
     assert line["value"] > 0 and line["train_img_s_chip"] > 0
@@ -556,7 +569,8 @@ def test_retinanet_predict_phase_launches_k1_once_a_call(rehearsal, monkeypatch,
     for dtype in ("float32", "bfloat16"):
         totals = cs.phase_retinanet(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 2, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                          "conv_epilogue": 2 * 6}
     out = capsys.readouterr().out
     assert out.count("K1 boxes [(2, 250, 4)] ['float32']") == 4
     # the merged candidates, some above the score threshold, in both dtypes
@@ -581,12 +595,13 @@ def test_cross_retinanet_phase(rehearsal, capsys, dtype):
 def test_retinanet_train_phase_launches_nothing_and_resumes_the_driver(rehearsal, capsys):
     totals, held = cs.phase_retinanet_train(steps=2)
     assert totals == {"greedy_nms": 0, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 4}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 4,
+                      "conv_epilogue": 0}
     # no K1-K3; the anchor matching's two kernels a step, held against the twin
     assert held["anchor_match"] == (1, 0.0)
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
-    assert out.count("'anchor_match': 2}, ") == 2
+    assert out.count("'anchor_match': 2, 'conv_epilogue': 0}, ") == 2
     assert "model=retinanet" in out and "[driver] resumed" in out
     cs.phase_retinanet_train(steps=2, dtype="bfloat16")
     assert "[driver]" not in capsys.readouterr().out
@@ -612,13 +627,56 @@ def test_anchor_match_phase_holds_every_case(rehearsal, monkeypatch, capsys):
     assert capsys.readouterr().out.count("[anchor_match]") == len(cases)
 
 
+def _biased_as_on_the_card(self, x):
+    """A convolution with its bias as aten runs it on the card: cuDNN
+    without the bias, then ``output.add_(bias)`` (a CPU convolution adds the
+    bias inside its sum, and in bf16 rounds once where the card rounds
+    twice)."""
+    y, bias = self.forward_unbiased(x)
+    return y if bias is None else y.add_(bias.reshape(1, -1, 1, 1))
+
+
+def test_conv_epilogue_phase_holds_every_pass(rehearsal, monkeypatch, capsys):
+    """Phase 33 at the rehearsal's canvas and widths: every pass of a predict
+    call and each form in the other dtypes and layouts bit for bit and
+    timed; the FPN and the heads equal to the parent's chain (the same
+    modules recording a gradient, their biased convolutions as the card
+    runs them); the launches of the three predict paths held, and none in
+    a training step."""
+    from detectron_tpu_torch.models import precision
+
+    monkeypatch.setattr(cs, "EPILOGUE_BATCH", 2)
+    monkeypatch.setattr(cs, "EPILOGUE_ROIS", 6)
+    # the summary divides by the summed times: 1 ms a call here
+    monkeypatch.setattr(cs, "cuda_ms", lambda fn, iters=20, warmup=3: _once(fn) + 1.0)
+    monkeypatch.setattr(precision.Conv2d, "forward", _biased_as_on_the_card)
+    monkeypatch.setattr(precision.ConvTranspose2d, "forward", _biased_as_on_the_card)
+    cases, launches, summary = cs.phase_conv_epilogue()
+    passes = [c for c in cases if "count" in c]
+    assert sum(c["count"] for c in passes) == summary["passes"] == 29
+    assert [c["form"] for c in passes].count("coarse") == 3
+    assert [(c["n"], c["h"]) for c in passes[-3:]] == [(6, 14), (6, 28), (6, 28)]
+    assert all(c["bitwise"] for c in cases) and len(cases) == len(passes) + 9
+    assert all(c["bound_by"] == "bytes" and c["bound_ms"] > 0 for c in passes)
+    assert launches == {"predict_mask_rcnn": 29, "predict_faster_rcnn": 23,
+                        "predict_retinanet": 6, "train_r101": 0}
+    entry = cs.conv_epilogue_entry(cases, launches, summary)
+    assert entry["launches"] == 29 and entry["bound_ms"] == summary["bound_ms"]
+    out = capsys.readouterr().out
+    assert ("against the parent's chain: differing values {'fpn': [0, 0, 0, 0], 'rpn': "
+            "[0, 0, 0, 0, 0, 0, 0, 0], 'mask': [0]}") in out
+    assert out.count("conv_epilogue 29 launches, max |diff| 0.000e+00") == 1
+    assert out.count("conv_epilogue 0 launches") == 1  # the training step
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_retinanet_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
     monkeypatch.setattr(cs, "EVAL_OUT", str(tmp_path / "eval_smoke"))
     counts = cs.phase_retinanet_eval(dtype=dtype)
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls
     assert counts == {"greedy_nms": 5, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": 5 * 6}
     out = capsys.readouterr().out
     assert f"[retinanet eval {dtype}] 8 images in 5 batches" in out
     assert f"[retinanet eval {dtype}] oracle predictor: AP 1.000000, AP50 1.000000" in out
@@ -638,7 +696,8 @@ def test_retinanet_bench_phase(rehearsal, monkeypatch, capsys):
         # 3 predict calls (two warm-ups), K1 once each; 3 train steps, no K1-K3 and
         # the anchor matching twice each
         assert counts == {"greedy_nms": 3, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0, "anchor_match": 6}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 6,
+                          "conv_epilogue": 3 * 6 + 6}
         assert line["metric"].startswith("retinanet R-50-FPN inference")
         assert case["path"] == "retinanet bench" and case["max_keep"] == 20
     out = capsys.readouterr().out
@@ -668,7 +727,8 @@ def test_rfcn_predict_phase_launches_k1_twice_a_call(rehearsal, monkeypatch, cap
     for dtype in ("float32", "bfloat16"):
         totals, pool = cs.phase_rfcn(calls=2, dtype=dtype)
         assert totals == {"greedy_nms": 4, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                          "conv_epilogue": 2 * 3}
         assert pool["fwd_ms"] >= 0 and pool["rois"] == [2, 64, 4]  # the proposals
     out = capsys.readouterr().out
     assert out.count("K1 boxes [(2, 256, 4), (2, 256, 4)] ['float32']") == 4
@@ -695,7 +755,8 @@ def test_rfcn_train_phase_launches_k1_once_and_resumes_the_driver(rehearsal, mon
                                                                   capsys):
     totals, pool = cs.phase_rfcn_train(steps=2)
     assert totals == {"greedy_nms": 2, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 4}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 4,
+                      "conv_epilogue": 0}
     assert pool["rois"] == [2, 64, 4]
     out = capsys.readouterr().out
     assert "0 unchanged" in out and "0 changed" in out and "not float32: 0" in out
@@ -710,7 +771,8 @@ def test_rfcn_eval_phase(rehearsal, monkeypatch, tmp_path, capsys, dtype):
     counts = cs.phase_rfcn_eval(dtype=dtype)
     # 5 landscape and 3 portrait images, batch 2: 3 + 2 predict calls, K1 twice each
     assert counts == {"greedy_nms": 10, "multilevel_roi_align": 0,
-                      "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                      "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                      "conv_epilogue": 5 * 3}
     out = capsys.readouterr().out
     assert f"[rfcn eval {dtype}] 8 images in 5 batches" in out
     assert f"[rfcn eval {dtype}] oracle predictor: AP 1.000000, AP50 1.000000" in out
@@ -729,7 +791,8 @@ def test_rfcn_bench_and_demo_phases(rehearsal, monkeypatch, tmp_path, capsys):
         # 3 predict calls (two warm-ups), K1 twice each; 3 train steps, K1 once and
         # the anchor matching twice each
         assert counts == {"greedy_nms": 9, "multilevel_roi_align": 0,
-                          "multilevel_roi_align_bwd": 0, "anchor_match": 6}
+                          "multilevel_roi_align_bwd": 0, "anchor_match": 6,
+                          "conv_epilogue": 3 * 3}
         assert line["metric"].startswith("rfcn R-50-FPN inference")
     out_dir = str(tmp_path / "demo")
     monkeypatch.setattr(cs, "DEMO_OUT", out_dir)
@@ -745,9 +808,11 @@ def test_roi_pool_phase(rehearsal, monkeypatch, capsys):
     launches, cases = cs.phase_roi_pool(calls=2, steps=1)
     assert launches == {
         "roi_pool_predict": {"greedy_nms": 4, "multilevel_roi_align": 0,
-                             "multilevel_roi_align_bwd": 0, "anchor_match": 0},
+                             "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                             "conv_epilogue": 2 * 23},
         "roi_pool_train": {"greedy_nms": 1, "multilevel_roi_align": 0,
-                           "multilevel_roi_align_bwd": 0, "anchor_match": 2}}
+                           "multilevel_roi_align_bwd": 0, "anchor_match": 2,
+                           "conv_epilogue": 0}}
     assert [c["case"] for c in cases] == ["P=7 R=512", "P=7 R=512 bf16",
                                                     "P=14 R=128", "P=14 R=128 bf16"]
     out = capsys.readouterr().out
@@ -775,13 +840,17 @@ def test_gn_phase(rehearsal, capsys, dtype):
     sfx = "" if dtype == "float32" else "_bf16"
     assert launches == {
         "gn_predict" + sfx: {"greedy_nms": 4, "multilevel_roi_align": 4,
-                             "multilevel_roi_align_bwd": 0, "anchor_match": 0},
+                             "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                             "conv_epilogue": 2 * 29},
         "gn_train" + sfx: {"greedy_nms": 2, "multilevel_roi_align": 4,
-                           "multilevel_roi_align_bwd": 4, "anchor_match": 4}}
+                           "multilevel_roi_align_bwd": 4, "anchor_match": 4,
+                           "conv_epilogue": 0}}
     assert held["predict"] == {"greedy_nms": (2, 0.0), "multilevel_roi_align": (2, 0.0),
-                               "multilevel_roi_align_bwd": (0, 0.0), "anchor_match": (0, 0.0)}
+                               "multilevel_roi_align_bwd": (0, 0.0), "anchor_match": (0, 0.0),
+                               "conv_epilogue": (29, 0.0)}
     assert held["train"] == {"greedy_nms": (1, 0.0), "multilevel_roi_align": (2, 0.0),
-                             "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0)}
+                             "multilevel_roi_align_bwd": (2, 0.0), "anchor_match": (1, 0.0),
+                             "conv_epilogue": (0, 0.0)}
     cs.phase_cross_device(dtype=dtype, overrides=cs.GN_OVERRIDES, bf16_limit=cs.CROSS_BF16_GN,
                           as_good_as_cpu=dtype == "bfloat16")
     out = capsys.readouterr().out
@@ -795,7 +864,8 @@ def test_remat_phase(rehearsal, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 2**30)
     launches, summary = cs.phase_remat()
     assert launches == {"remat_train": {"greedy_nms": 1, "multilevel_roi_align": 2,
-                                        "multilevel_roi_align_bwd": 2, "anchor_match": 2}}
+                                        "multilevel_roi_align_bwd": 2, "anchor_match": 2,
+                                        "conv_epilogue": 0}}
     assert summary["loss_rel"] == 0.0 and summary["grad_rel"] <= cs.REMAT_GRAD_RTOL
     assert summary["held"]["multilevel_roi_align_bwd"] == (2, 0.0)
     assert "[remat] remat step (compared)" in capsys.readouterr().out
@@ -811,7 +881,8 @@ def test_dp_phase(rehearsal, monkeypatch, tmp_path, capsys):
     launches, summary = cs.phase_dp()
     assert not torch.distributed.is_initialized()
     assert launches["dp_train"] == {"greedy_nms": 1, "multilevel_roi_align": 2,
-                                    "multilevel_roi_align_bwd": 2, "anchor_match": 2}
+                                    "multilevel_roi_align_bwd": 2, "anchor_match": 2,
+                                    "conv_epilogue": 0}
     assert launches["dp_driver"]["multilevel_roi_align_bwd"] == 4
     assert launches["dp_eval"]["multilevel_roi_align"] > 0
     assert summary["a"]["diffs"][0] <= cs.DP_LOSS_ATOL and summary["b"]["diffs"][1] <= (
@@ -832,9 +903,11 @@ def test_wide_nms_phase_holds_k1_on_the_main_path(rehearsal, monkeypatch, capsys
          [(10, 256, 4), (2, 400, 4)])))
     launches, held = cs.phase_wide_nms()
     assert launches["retinanet_predict_wide"] == {"greedy_nms": 1, "multilevel_roi_align": 0,
-                                                  "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                                                  "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                                                  "conv_epilogue": 6}
     assert launches["predict_wide"] == {"greedy_nms": 2, "multilevel_roi_align": 2,
-                                        "multilevel_roi_align_bwd": 0, "anchor_match": 0}
+                                        "multilevel_roi_align_bwd": 0, "anchor_match": 0,
+                                        "conv_epilogue": 29}
     assert held["retinanet_predict_wide"]["greedy_nms"] == (1, 0.0)
     assert held["predict_wide"]["greedy_nms"] == (2, 0.0)
     out = capsys.readouterr().out
@@ -871,7 +944,8 @@ def test_op_api_phase_counts_its_launches_and_holds_each_call(rehearsal, monkeyp
     counts, k2, k3 = cs.phase_op_api(c=16)
     problems = len(cs.NMS_CASES) + len(cs.NMS_WIDE_CASES)
     assert counts == {"greedy_nms": problems, "multilevel_roi_align": 8,
-                      "multilevel_roi_align_bwd": 8, "anchor_match": 0}
+                      "multilevel_roi_align_bwd": 8, "anchor_match": 0,
+                      "conv_epilogue": 0}
     assert refusals == [True]
     for cases in (k2, k3):
         assert [(c["dtype"], c["case"]) for c in cases] == [
@@ -960,7 +1034,8 @@ def test_contracts_phase_counts_its_launches_and_holds_each_call(rehearsal, monk
         c["path"] == "train" for c in cs.CONTRACT_NMS_CASES]
     n_roi = sum(len(case[2]) for case in cs.CONTRACT_ROI_CASES)
     assert launches["contracts"] == {"greedy_nms": 0, "multilevel_roi_align": n_roi,
-                                     "multilevel_roi_align_bwd": n_roi, "anchor_match": 0}
+                                     "multilevel_roi_align_bwd": n_roi, "anchor_match": 0,
+                                     "conv_epilogue": 0}
     assert launches["predict_fpn36_bf16"]["multilevel_roi_align"] == 2
     assert len(k2) == len(k3) == n_roi
     assert {c["path"] for c in k2 + k3} == {"contracts"}
